@@ -33,7 +33,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, set_float32_policy
 
 _KEYS = ("color0", "color1", "depth0", "depth1", "calib")
 
@@ -171,12 +171,6 @@ def make_handler(service: TrackingService):
             self._reply(200, buf.getvalue(), "application/octet-stream")
 
     return Handler
-
-
-def set_float32_policy() -> None:
-    """Full float32 convolutions and matmuls: no TF32."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def build_tracker(preset: str = "feature", checkpoint: str = "", device="cuda",

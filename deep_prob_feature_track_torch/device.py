@@ -1,4 +1,5 @@
-"""Device resolution: ``cuda`` by default, ``cpu`` only when asked for."""
+"""Device resolution (``cuda`` by default, ``cpu`` only when asked for) and
+the float32 policy of every entry point."""
 
 from __future__ import annotations
 
@@ -22,3 +23,9 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+
+
+def set_float32_policy() -> None:
+    """Full float32 convolutions and matmuls: no TF32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

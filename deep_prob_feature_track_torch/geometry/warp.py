@@ -1,11 +1,14 @@
-"""Pixel grids, inverse-depth warping and bilinear sampling.
+"""Pixel grids, inverse-depth warping, bilinear sampling and the
+point-cloud helpers of the training loss.
 
 Counterpart of ``deep_prob_feature_track_tpu/geometry/warp.py`` for the
-U_IC eval path.  Sampling is ``grid_sample(align_corners=True,
+U_IC eval and training paths.  Sampling is ``grid_sample(align_corners=True,
 padding_mode='border')``: coordinates clamp to ``[0, size-1]`` and blend
-bilinearly.  The gather runs through kernel K1 on CUDA tensors and its
-plain version on CPU tensors (``ops/kernels/gather.py``); ``plain=True``
-takes the plain version on either device.
+bilinearly.  Without autograd the gather runs through kernel K1; under
+autograd :class:`BilinearGather` runs K2 in its forward and K3 in its
+backward.  Each kernel takes its plain version on CPU tensors
+(``ops/kernels/``); ``plain=True`` takes the plain versions on either
+device.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.kernels.gather import gather_twohot, gather_twohot_ref
+from ..ops.kernels.gather_grads import gather_twohot_grads, gather_twohot_grads_ref
+from ..ops.kernels.splat import splat_twohot, splat_twohot_ref
 
 
 def generate_xy_grid(B: int, H: int, W: int, K: torch.Tensor):
@@ -78,15 +83,58 @@ def make_warp_operand(maps):
     return stacked.permute(0, 2, 3, 1).contiguous(), sizes
 
 
+class BilinearGather(torch.autograd.Function):
+    """Differentiable sample of a channels-last operand ``[B,H,W,C]`` at raw
+    coordinates ``(u, v)`` -> ``[B,C,N]``; mirrors the JAX
+    ``_gather_fast_vjp`` (``geometry/warp.py:411-486``).
+
+    The forward runs K2 and saves its derivative maps gx/gy with (u, v), not
+    the corners or the operand: the backward needs only the operand's shape.
+    The backward contracts the cotangent with gx/gy for the coordinate
+    cotangents, zeroed outside the closed interval ``[0, size-1]`` (the
+    clamp's VJP), and splats the operand cotangent with K3.
+    """
+
+    @staticmethod
+    def forward(ctx, operand, u, v, plain: bool):
+        v0, dv, u0, du = _corner_weights(operand.shape, u, v)
+        grads = gather_twohot_grads_ref if plain else gather_twohot_grads
+        out, gx, gy = grads(operand, v0, dv, u0, du)
+        ctx.save_for_backward(gx, gy, u, v)
+        ctx.shape = operand.shape
+        ctx.plain = plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        gx, gy, u, v = ctx.saved_tensors
+        B, H, W, _ = ctx.shape
+        g = g.contiguous()
+        uf = u.reshape(B, -1)
+        vf = v.reshape(B, -1)
+        g_u = torch.where((uf >= 0) & (uf <= W - 1), (g * gx).sum(1), 0.0)
+        g_v = torch.where((vf >= 0) & (vf <= H - 1), (g * gy).sum(1), 0.0)
+        d_op = None
+        if ctx.needs_input_grad[0]:
+            splat = splat_twohot_ref if ctx.plain else splat_twohot
+            d_op = splat(g, *_corner_weights(ctx.shape, u, v), H, W)
+        return d_op, g_u.reshape(u.shape), g_v.reshape(v.shape), None
+
+
 def warp_operand(operand, sizes, u, v, plain: bool = False):
-    """Sample a prebuilt channels-last operand at (u, v) ``[B,1,h,w]``.
+    """Sample a prebuilt channels-last operand at (u, v) ``[B,1,h,w]``:
+    through :class:`BilinearGather` (K2, and K3 in the backward) when
+    autograd records the operand or the coordinates, else through K1.
 
     :return: list of per-map ``[B,Ci,h,w]``
     """
     B = operand.shape[0]
-    v0, dv, u0, du = _corner_weights(operand.shape, u, v)
-    sample = gather_twohot_ref if plain else gather_twohot
-    out = sample(operand, v0, dv, u0, du)  # [B,Ctot,N]
+    if torch.is_grad_enabled() and (operand.requires_grad or u.requires_grad
+                                    or v.requires_grad):
+        out = BilinearGather.apply(operand, u, v, plain)
+    else:
+        sample = gather_twohot_ref if plain else gather_twohot
+        out = sample(operand, *_corner_weights(operand.shape, u, v))  # [B,Ctot,N]
     out = out.reshape(B, -1, u.shape[2], u.shape[3])
     return list(torch.split(out, sizes, dim=1))
 
@@ -94,3 +142,25 @@ def warp_operand(operand, sizes, u, v, plain: bool = False):
 def scale_K(K: torch.Tensor, level: int) -> torch.Tensor:
     """Intrinsics for pyramid level ``level`` (K / 2^level)."""
     return K / float(1 << level)
+
+
+def resize_K(K: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
+    """Intrinsics for an image resized by (sx, sy)."""
+    return K * torch.tensor([sx, sy, sx, sy], dtype=K.dtype, device=K.device)[None, :]
+
+
+def batch_inverse_project(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Depth map ``[B,1,H,W]`` (or ``[B,H,W]``) -> point-cloud map
+    ``[px*d, py*d, d]`` ``[B,3,H,W]``."""
+    if depth.ndim == 3:
+        depth = depth[:, None]
+    B, _, H, W = depth.shape
+    px, py = generate_xy_grid(B, H, W, K)
+    return torch.cat([px * depth, py * depth, depth], dim=1)
+
+
+def batch_transform_xyz(xyz: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Rigid transform ``R p + t`` of a point-cloud map ``[B,3,H,W]``."""
+    B, _, H, W = xyz.shape
+    out = R @ xyz.reshape(B, 3, H * W) + t.reshape(B, 3, 1)
+    return out.reshape(B, 3, H, W)

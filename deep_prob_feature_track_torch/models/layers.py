@@ -3,7 +3,8 @@
 Counterpart of ``deep_prob_feature_track_tpu/models/layers.py``.  Blocks
 are ``nn.Sequential``s so their ``state_dict`` keys are the reference
 layout ``{0: conv, 1: batchnorm}``.  Padding is ``(k-1)//2 + d - 1``;
-with BatchNorm the conv has no bias.
+with BatchNorm the conv has no bias.  BatchNorm follows flax in training
+(:class:`FlaxBatchNormMixin`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # CIFAR-style color statistics
@@ -25,6 +27,37 @@ def color_normalize_nchw(color: torch.Tensor) -> torch.Tensor:
     return (color - mean) / std
 
 
+class FlaxBatchNormMixin:
+    """BatchNorm with flax's training semantics.
+
+    In training the output is normalized with the batch mean and the biased
+    batch variance (as torch does), and the running statistics move as
+    flax's ``momentum=0.9`` moves them: ``0.9 * running + 0.1 * batch``,
+    with the BIASED batch variance, where torch's own update takes the
+    unbiased one.  Eval mode is torch's.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0, *range(2, x.ndim)]
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(self.momentum * mean)
+            self.running_var.mul_(keep).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm2d(FlaxBatchNormMixin, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-statistics update."""
+
+
+class BatchNorm1d(FlaxBatchNormMixin, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with flax's running-statistics update."""
+
+
 class ConvBlock(nn.Sequential):
     """Conv2d + BatchNorm2d(eps 1e-5) + ELU."""
 
@@ -34,7 +67,7 @@ class ConvBlock(nn.Sequential):
         super().__init__(
             nn.Conv2d(in_channels, out_channels, kernel_size, padding=pad,
                       dilation=dilation, bias=False),
-            nn.BatchNorm2d(out_channels, eps=1e-5),
+            BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
             nn.ELU(),
         )
 
@@ -46,7 +79,7 @@ class Conv1dBlock(nn.Sequential):
         super().__init__(
             nn.Conv1d(in_channels, out_channels, kernel_size,
                       padding=(kernel_size - 1) // 2, bias=False),
-            nn.BatchNorm1d(out_channels, eps=1e-5),
+            BatchNorm1d(out_channels, eps=1e-5, momentum=0.1),
             nn.ELU(),
         )
 

@@ -1,9 +1,9 @@
 """LeastSquareTracking: encoder + coarse-to-fine U_IC trust-region solve.
 
 Counterpart of ``deep_prob_feature_track_tpu/models/tracker.py`` for the
-eval forward of the ``feature`` preset (ConvRGBD2 encoder, laplacian
-sigma, U_IC, SFMPoseNet initial pose).  Every other encoder, track, head
-and the training forward raise ``NotImplementedError``.
+eval and training forwards of the ``feature`` preset (ConvRGBD2 encoder,
+laplacian sigma, U_IC, SFMPoseNet initial pose).  Every other encoder,
+track and head raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -76,9 +76,13 @@ def _check_ported(cfg: TrackerConfig) -> None:
 
 
 class LeastSquareTracking(nn.Module):
-    """Deep probabilistic feature-metric tracker, eval forward.
+    """Deep probabilistic feature-metric tracker.
 
-    ``forward(img0, img1, depth0, depth1, K) -> (R [B,3,3], t [B,3])``.
+    In eval mode (the default) ``forward(img0, img1, depth0, depth1, K)``
+    returns the final pose ``(R [B,3,3], t [B,3])``.  After ``.train()`` it
+    returns the pose pyramid ``(pyr_R [B,5,3,3], pyr_t [B,5,3])``: the
+    initial pose (with ``train_init_pose``), then the pose after each level
+    3 -> 0.
 
     :param plain_kernels: run the plain PyTorch versions of the CUDA
         kernels, on any device (for comparison on the card)
@@ -104,7 +108,7 @@ class LeastSquareTracking(nn.Module):
             multi_hypo=cfg.multi_hypo,
             res_input=cfg.res_input,
         )
-        self.eval()  # only the eval forward is ported
+        self.eval()  # eval by default; .train() selects the training forward
 
     def reset_parameters(self, seed: int = 0) -> "LeastSquareTracking":
         """Seeded init of every weight, drawn on the CPU so that the same
@@ -132,33 +136,36 @@ class LeastSquareTracking(nn.Module):
         I0 = color_normalize_nchw(img0)
         I1 = color_normalize_nchw(img1)
 
-        # both view orders in ONE stacked encoder pass (eval BatchNorm makes
-        # the two halves independent)
-        B = img0.shape[0]
-        m = torch.cat([
-            torch.cat([I0, invD0, I1, invD1], dim=1),
-            torch.cat([I1, invD1, I0, invD0], dim=1),
-        ], dim=0)
-        f_all, s_all, raw_all = self.encoder(m)
-        x0 = [f[:B] for f in f_all]
-        x1 = [f[B:] for f in f_all]
-        sigma0 = self._slim_sigma([s[:B] for s in s_all])
-        sigma1 = self._slim_sigma([s[B:] for s in s_all])
+        m0 = torch.cat([I0, invD0, I1, invD1], dim=1)
+        m1 = torch.cat([I1, invD1, I0, invD0], dim=1)
+        if self.training:
+            # two encoder passes: each normalizes with its own batch
+            # statistics and the running statistics chain through both
+            x0, sigma0, raw0 = self.encoder(m0)
+            x1, sigma1, raw1 = self.encoder(m1)
+        else:
+            # both view orders in ONE stacked encoder pass (eval BatchNorm
+            # makes the two halves independent)
+            B = img0.shape[0]
+            f_all, s_all, raw_all = self.encoder(torch.cat([m0, m1], dim=0))
+            x0, x1 = [f[:B] for f in f_all], [f[B:] for f in f_all]
+            sigma0, sigma1 = [s[:B] for s in s_all], [s[B:] for s in s_all]
+            raw0, raw1 = [r[:B] for r in raw_all], [r[B:] for r in raw_all]
         inv_d0 = image_pyramid(invD0, pool="max")
         inv_d1 = image_pyramid(invD1, pool="max")
-        pose = self.pose_predictor(raw_all[3][:B], raw_all[3][B:])
-        return x0, x1, sigma0, sigma1, inv_d0, inv_d1, pose
+        pose = self.pose_predictor(raw0[3], raw1[3])
+        return (x0, x1, self._slim_sigma(sigma0), self._slim_sigma(sigma1), inv_d0, inv_d1,
+                pose)
 
-    def forward(self, img0, img1, depth0, depth1, K, train: bool = False):
+    def forward(self, img0, img1, depth0, depth1, K):
         """:param img0/img1: [B,3,H,W] RGB in [0,1]
         :param depth0/depth1: [B,1,H,W] metric depth
         :param K: [B,4] intrinsics [fx,fy,cx,cy]
-        :return: final pose (R, t)
+        :return: eval: final pose (R, t); training: (pyr_R, pyr_t)
         """
-        if train or self.training:
-            raise NotImplementedError("the training forward is not ported")
         x0, x1, sigma0, sigma1, inv_d0, inv_d1, pose = self._preprocess(
             img0, img1, depth0, depth1)
+        poses = [pose] if self.cfg.train_init_pose else []
         for level in (3, 2, 1, 0):
             pose, _ = tr_uic_level(
                 pose, x0[level], x1[level], inv_d0[level], inv_d1[level],
@@ -167,4 +174,7 @@ class LeastSquareTracking(nn.Module):
                 remove_tru_sigma=self.cfg.remove_tru_sigma,
                 plain=self.plain_kernels,
             )
+            poses.append(pose)
+        if self.training:
+            return torch.stack([R for R, _ in poses], 1), torch.stack([t for _, t in poses], 1)
         return pose

@@ -1,4 +1,5 @@
-"""Image-space ops: Sobel gradients and pooling pyramids.
+"""Image-space ops: Sobel gradients, pooling pyramids and the loss's
+bilinear resize.
 
 Counterpart of ``deep_prob_feature_track_tpu/ops/image.py``.
 """
@@ -46,3 +47,11 @@ def image_pyramid(
     """Multi-scale pyramid, each level pooled from ``x`` by 2^s."""
     fn = {"avg": avg_pool2, "max": max_pool2}[pool]
     return [fn(x, 1 << s) for s in scales]
+
+
+def bilinear_resize(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Bilinear resize of ``[B,C,h,w]`` to ``[B,C,H,W]`` as the JAX
+    package's ``jax.image.resize(method="linear")`` computes it: half-pixel
+    centres (``align_corners=False``) and, when downsampling, a triangle
+    filter widened by the scale factor (``antialias=True``)."""
+    return F.interpolate(x, size=(H, W), mode="bilinear", align_corners=False, antialias=True)

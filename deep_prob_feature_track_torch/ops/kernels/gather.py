@@ -24,30 +24,30 @@ _NAME = "gather_twohot"
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def gather_twohot_ref(F, v0, dv, u0, du):
-    """Plain PyTorch version: corner gather, then the JAX f32 path's
-    ``_blend`` in the same order of operations as the kernel."""
+def corners(F, v0, u0):
+    """The four corner values ``(c00, c01, c10, c11)`` of each sample's
+    cell, each [B,C,N]; ``cYX = F[b, v0+Y, u0+X, :]``."""
     B, H, W, C = F.shape
     flat = F.reshape(B, H * W, C)
-    v0 = v0.long().clamp(0, H - 2)
-    u0 = u0.long().clamp(0, W - 2)
-    idx = v0 * W + u0  # [B,N]
+    idx = v0.long().clamp(0, H - 2) * W + u0.long().clamp(0, W - 2)  # [B,N]
 
     def corner(offset):
         i = (idx + offset)[..., None].expand(-1, -1, C)
-        return torch.gather(flat, 1, i).transpose(1, 2)  # [B,C,N]
+        return torch.gather(flat, 1, i).transpose(1, 2)
 
+    return corner(0), corner(1), corner(W), corner(W + 1)
+
+
+def gather_twohot_ref(F, v0, dv, u0, du):
+    """Plain PyTorch version: corner gather, then the JAX f32 path's
+    ``_blend`` in the same order of operations as the kernel."""
+    c00, c01, c10, c11 = corners(F, v0, u0)
     du = du[:, None, :]
     dv = dv[:, None, :]
-    return (
-        corner(0) * (1 - du) * (1 - dv)
-        + corner(1) * du * (1 - dv)
-        + corner(W) * (1 - du) * dv
-        + corner(W + 1) * du * dv
-    )
+    return c00 * (1 - du) * (1 - dv) + c01 * du * (1 - dv) + c10 * (1 - du) * dv + c11 * du * dv
 
 
-def _check(F, v0, dv, u0, du):
+def check_args(F, v0, dv, u0, du):
     if F.ndim != 4:
         raise ValueError(f"F must be [B,H,W,C], got {tuple(F.shape)}")
     B, H, W, _ = F.shape
@@ -67,7 +67,7 @@ def _check(F, v0, dv, u0, du):
 
 def gather_twohot_cuda(F, v0, dv, u0, du):
     """Launch the CUDA kernel; every tensor must lie on the same card."""
-    _check(F, v0, dv, u0, du)
+    check_args(F, v0, dv, u0, du)
     for t in (F, v0, dv, u0, du):
         if not t.is_cuda or t.device != F.device:
             raise ValueError("gather_twohot_cuda needs CUDA tensors on one device")
@@ -86,5 +86,5 @@ def gather_twohot(F, v0, dv, u0, du):
     """K1 on CUDA tensors, its plain version on CPU tensors."""
     if F.is_cuda:
         return gather_twohot_cuda(F, v0, dv, u0, du)
-    _check(F, v0, dv, u0, du)
+    check_args(F, v0, dv, u0, du)
     return gather_twohot_ref(F, v0, dv, u0, du)

@@ -1,0 +1,68 @@
+"""Training-forward bilinear sample with derivative maps: CUDA kernel K2 and
+its plain version.
+
+Replaces ``deep_prob_feature_track_tpu/ops/pallas/gather.py::gather_twohot_grads``
+(``_grads_kernel`` :234, entry :514).  The contract is K1's, with two more
+outputs:
+
+    F [B,H,W,C] f32, v0/u0 [B,N] int32, dv/du [B,N] f32
+        ->  (out, gx, gy) each [B,C,N] f32
+
+``out`` is K1's blend, bit for bit; ``gx`` and ``gy`` are the within-cell
+derivatives along u and v that the gather's backward contracts with the
+output cotangent.  ``gather_twohot_grads`` dispatches on the tensors'
+device alone: CUDA tensors launch the kernel
+(``csrc/gather_twohot_grads.cu``), CPU tensors take
+``gather_twohot_grads_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import loader
+from .gather import check_args, corners
+
+_NAME = "gather_twohot_grads"
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def gather_twohot_grads_ref(F, v0, dv, u0, du):
+    """Plain PyTorch version: the corner gather, ``_blend`` and the gx/gy
+    formulas of the JAX ``_corner_grads_oneshot``, in that order."""
+    c00, c01, c10, c11 = corners(F, v0, u0)
+    du = du[:, None, :]
+    dv = dv[:, None, :]
+    out = c00 * (1 - du) * (1 - dv) + c01 * du * (1 - dv) + c10 * (1 - du) * dv + c11 * du * dv
+    gx = (c01 - c00) * (1 - dv) + (c11 - c10) * dv
+    gy = (c10 - c00) * (1 - du) + (c11 - c01) * du
+    return out, gx, gy
+
+
+def gather_twohot_grads_cuda(F, v0, dv, u0, du):
+    """Launch the CUDA kernel; every tensor must lie on the same card."""
+    check_args(F, v0, dv, u0, du)
+    for t in (F, v0, dv, u0, du):
+        if not t.is_cuda or t.device != F.device:
+            raise ValueError("gather_twohot_grads_cuda needs CUDA tensors on one device")
+    B, H, W, C = F.shape
+    N = v0.shape[1]
+    # three separate buffers: the backward keeps gx and gy alive, not out
+    out, gx, gy = (torch.empty((B, C, N), dtype=torch.float32, device=F.device)
+                   for _ in range(3))
+    fn = loader.function(_NAME, "gather_twohot_grads_launch", _ARGTYPES)
+    stream = torch.cuda.current_stream(F.device).cuda_stream
+    loader.check(fn(F.data_ptr(), v0.data_ptr(), dv.data_ptr(), u0.data_ptr(), du.data_ptr(),
+                    out.data_ptr(), gx.data_ptr(), gy.data_ptr(), B, H, W, C, N, stream), _NAME)
+    loader.LAUNCHES[_NAME] += 1
+    return out, gx, gy
+
+
+def gather_twohot_grads(F, v0, dv, u0, du):
+    """K2 on CUDA tensors, its plain version on CPU tensors."""
+    if F.is_cuda:
+        return gather_twohot_grads_cuda(F, v0, dv, u0, du)
+    check_args(F, v0, dv, u0, du)
+    return gather_twohot_grads_ref(F, v0, dv, u0, du)

@@ -8,7 +8,10 @@ Replaces ``deep_prob_feature_track_tpu/ops/pallas/jtj.py::fused_jtj_jtr``
 
 ``fused_jtj_jtr`` dispatches on the tensors' device alone: CUDA tensors
 launch the kernel (``csrc/fused_jtj_jtr.cu``), CPU tensors take
-``jtj_jtr_ref``.
+``jtj_jtr_ref``.  ``FusedJtJ`` makes the reduction differentiable: its
+forward is ``fused_jtj_jtr`` and its backward the closed-form VJP in tensor
+ops (the JAX package has no backward kernel here: XLA differentiates the
+einsums of ``solvers/jacobians.py:97-120``).
 """
 
 from __future__ import annotations
@@ -79,3 +82,59 @@ def fused_jtj_jtr(alpha, beta, res, u, v, sign: float = -1.0):
         return fused_jtj_jtr_cuda(alpha, beta, res, u, v, sign)
     _check(alpha, beta, res, u, v)
     return jtj_jtr_ref(alpha, beta, res, u, v, sign)
+
+
+class FusedJtJ(torch.autograd.Function):
+    """``(JtJ, JtR)`` of :func:`fused_jtj_jtr` with its VJP.
+
+    With per-pixel ``A = sum_c alpha^2``, ``Bx = sum_c alpha beta``,
+    ``Cc = sum_c beta^2``, ``ar = sum_c alpha r`` and ``br = sum_c beta r``,
+    ``JtJ = sum_p A uu' + Bx (vu' + uv') + Cc vv'`` and
+    ``JtR = sign sum_p (ar u + br v)``.  For cotangents ``G`` [B,6,6] and
+    ``g`` [B,6,1]:
+
+        dA = u'Gu, dBx = u'Gv + v'Gu, dCc = v'Gv, dar = sign u'g, dbr = sign v'g
+        dalpha = 2 alpha dA + beta dBx + r dar
+        dbeta  = alpha dBx + 2 beta dCc + r dbr
+        dr     = alpha dar + beta dbr
+        du = A (G+G')u + Bx (G+G')v + sign ar g,  dv likewise.
+
+    ``plain=True`` runs the plain version in the forward on any device.
+    """
+
+    @staticmethod
+    def forward(ctx, alpha, beta, res, u, v, sign: float, plain: bool):
+        fn = jtj_jtr_ref if plain else fused_jtj_jtr
+        jtj, jtr = fn(alpha, beta, res, u, v, sign)
+        ctx.save_for_backward(alpha, beta, res, u, v)
+        ctx.sign = sign
+        return jtj, jtr
+
+    @staticmethod
+    def backward(ctx, G, g_r):
+        alpha, beta, res, u, v = ctx.saved_tensors
+        sign = ctx.sign
+        uG = u @ G  # [B,HW,6]: row p is u_p' G
+        vG = v @ G
+        dA = (uG * u).sum(-1)[:, None]  # [B,1,HW]
+        dBx = ((uG * v).sum(-1) + (vG * u).sum(-1))[:, None]
+        dCc = (vG * v).sum(-1)[:, None]
+        dar = sign * (u @ g_r)[:, None, :, 0]
+        dbr = sign * (v @ g_r)[:, None, :, 0]
+        d_alpha = 2 * alpha * dA + beta * dBx + res * dar
+        d_beta = alpha * dBx + 2 * beta * dCc + res * dbr
+        d_res = alpha * dar + beta * dbr
+        d_u = d_v = None
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            Gs = G + G.transpose(1, 2)
+            A = (alpha * alpha).sum(1)[..., None]  # [B,HW,1]
+            Bx = (alpha * beta).sum(1)[..., None]
+            Cc = (beta * beta).sum(1)[..., None]
+            ar = (alpha * res).sum(1)[..., None]
+            br = (beta * res).sum(1)[..., None]
+            uGs, vGs = u @ Gs, v @ Gs
+            g_row = sign * g_r.transpose(1, 2)  # [B,1,6]
+            d_u = A * uGs + Bx * vGs + ar * g_row
+            d_v = Bx * uGs + Cc * vGs + br * g_row
+        return d_alpha, d_beta, d_res, d_u, d_v, None, None
+

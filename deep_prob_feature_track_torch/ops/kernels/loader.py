@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("gather_twohot", "fused_jtj_jtr")
+KERNELS = ("gather_twohot", "gather_twohot_grads", "splat_twohot", "fused_jtj_jtr")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

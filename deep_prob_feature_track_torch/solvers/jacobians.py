@@ -4,7 +4,7 @@ Counterpart of ``deep_prob_feature_track_tpu/solvers/jacobians.py``.  The
 chained Jacobian has rank-2 structure per pixel,
 ``J[b,c,p,:] = alpha[b,c,p] u[b,p,:] + beta[b,c,p] v[b,p,:]``, so it is
 never materialized: ``jtj_jtr`` reduces the factors directly, through
-kernel K6 on CUDA tensors (``ops/kernels/jtj.py``).
+kernel K6 on CUDA tensors (``ops/kernels/jtj.py``), differentiably.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.image import sobel_gradients
-from ..ops.kernels.jtj import fused_jtj_jtr, jtj_jtr_ref
+from ..ops.kernels.jtj import FusedJtJ, fused_jtj_jtr, jtj_jtr_ref
 
 
 def compute_jacobian_warping(p_invdepth, K, px, py):
@@ -49,7 +49,7 @@ def jtj_jtr(fac: FactoredJtJ, residual: torch.Tensor, plain: bool = False):
     """``(JtWJ [B,6,6], JtWr [B,6,1])`` of ``J = sign*(alpha u + beta v)``.
 
     K6 on CUDA tensors, its plain version on CPU tensors or with
-    ``plain=True``.
+    ``plain=True``; under autograd the closed-form VJP of ``FusedJtJ``.
     """
     B, C, H, W = residual.shape
     args = (
@@ -58,9 +58,10 @@ def jtj_jtr(fac: FactoredJtJ, residual: torch.Tensor, plain: bool = False):
         residual.reshape(B, C, H * W).contiguous(),
         fac.u.contiguous(),
         fac.v.contiguous(),
-        fac.sign,
     )
-    return jtj_jtr_ref(*args) if plain else fused_jtj_jtr(*args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return FusedJtJ.apply(*args, fac.sign, plain)
+    return (jtj_jtr_ref if plain else fused_jtj_jtr)(*args, sign=fac.sign)
 
 
 class UICPrecomp(NamedTuple):

@@ -7,6 +7,8 @@ and t for the forward (the acceptance bound), 2e-5 against the golden
 file (its own bound, tests/test_golden.py), and 1e-5 for one level solve.
 """
 
+import copy
+import dataclasses
 import io
 import json
 import threading
@@ -150,8 +152,15 @@ def test_build_tracker_loads_checkpoint(models, tmp_path):
 
 
 def test_training_forward_is_not_ported(models):
+    """``.train()`` selects the training forward, which is ported for the
+    feature preset (``tests/test_torch_port_train.py``) and returns the
+    5-pose pyramid; its uncertainty-propagating variant is not ported."""
+    net = copy.deepcopy(models[2]).train()
+    pyr_R, pyr_t = net(*map(torch.from_numpy, _golden_inputs()))
+    assert pyr_R.shape == (B, 5, 3, 3) and pyr_t.shape == (B, 5, 3)
+    assert pyr_R.grad_fn is not None
     with pytest.raises(NotImplementedError):
-        models[2](*map(torch.from_numpy, _golden_inputs()), train=True)
+        LeastSquareTracking(dataclasses.replace(get_preset("feature"), uncer_prop=True))
 
 
 # ---------------------------------------------------------------- service
