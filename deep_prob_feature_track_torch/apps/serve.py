@@ -195,12 +195,14 @@ def build_tracker(preset: str = "feature", checkpoint: str = "", device="cuda",
 
 def example_batch(B: int, H: int, W: int, seed: int = 0, device="cpu"):
     """Random inputs of the served shape: colors in [0,1], depths in
-    [0.5, 1.5] m, the 120x160 TUM intrinsics."""
+    [0.5, 1.5] m, the 120x160 TUM intrinsics scaled to HxW (TUM's own
+    ``[525, 525, 319.5, 239.5]`` at 480x640)."""
     rng = np.random.RandomState(seed)
+    sx, sy = W / 160, H / 120
     arrays = (
         rng.rand(B, 3, H, W), rng.rand(B, 3, H, W),
         rng.rand(B, 1, H, W) + 0.5, rng.rand(B, 1, H, W) + 0.5,
-        np.tile([[131.25, 131.25, 79.875, 59.875]], (B, 1)),
+        np.tile([[131.25 * sx, 131.25 * sy, 79.875 * sx, 59.875 * sy]], (B, 1)),
     )
     return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays)
 

@@ -6,18 +6,29 @@ U_IC eval and training paths.  Sampling is ``grid_sample(align_corners=True,
 padding_mode='border')``: coordinates clamp to ``[0, size-1]`` and blend
 bilinearly.  Without autograd the gather runs through kernel K1; under
 autograd :class:`BilinearGather` runs K2 in its forward and K3 in its
-backward.  Each kernel takes its plain version on CPU tensors
-(``ops/kernels/``); ``plain=True`` takes the plain versions on either
-device.
+backward.  Where the JAX package takes its tile kernels
+(``ops/kernels/tiles.py::use_tiles``: large planes such as 480x640), K4
+takes K1's place and K5 takes K2's.  Each kernel takes its plain version on
+CPU tensors (``ops/kernels/``); ``plain=True`` takes the plain versions on
+either device.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..ops.kernels.gather import gather_twohot, gather_twohot_ref
 from ..ops.kernels.gather_grads import gather_twohot_grads, gather_twohot_grads_ref
 from ..ops.kernels.splat import splat_twohot, splat_twohot_ref
+from ..ops.kernels.tiles import (
+    gather_tiles,
+    gather_tiles_grads,
+    gather_tiles_grads_ref,
+    gather_tiles_ref,
+    use_tiles,
+)
 
 
 def generate_xy_grid(B: int, H: int, W: int, K: torch.Tensor):
@@ -73,6 +84,18 @@ def _corner_weights(operand_shape, u, v):
     return v0.to(torch.int32), vf - v0, u0.to(torch.int32), uf - u0
 
 
+def _tiles_grid(kind, operand_shape, u):
+    """The sample grid ``(h, w)`` of coordinates ``[B,...,h,w]`` when the
+    JAX package would sample ``operand_shape`` on it with a tile kernel
+    (``geometry/warp.py::_sample_hw`` and ``_tiles_enabled`` there), else
+    None."""
+    if u.ndim < 3 or math.prod(u.shape[1:-2]) != 1:
+        return None
+    _, H, W, C = operand_shape
+    h, w = u.shape[-2:]
+    return (h, w) if use_tiles(kind, H, W, C, h, w) else None
+
+
 def make_warp_operand(maps):
     """Stack ``[B,Ci,H,W]`` maps into one channels-last operand.
 
@@ -88,8 +111,9 @@ class BilinearGather(torch.autograd.Function):
     coordinates ``(u, v)`` -> ``[B,C,N]``; mirrors the JAX
     ``_gather_fast_vjp`` (``geometry/warp.py:411-486``).
 
-    The forward runs K2 and saves its derivative maps gx/gy with (u, v), not
-    the corners or the operand: the backward needs only the operand's shape.
+    The forward runs K2 (K5 where :func:`use_tiles` holds) and saves its
+    derivative maps gx/gy with (u, v), not the corners or the operand: the
+    backward needs only the operand's shape.
     The backward contracts the cotangent with gx/gy for the coordinate
     cotangents, zeroed outside the closed interval ``[0, size-1]`` (the
     clamp's VJP), and splats the operand cotangent with K3.
@@ -97,9 +121,14 @@ class BilinearGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, operand, u, v, plain: bool):
-        v0, dv, u0, du = _corner_weights(operand.shape, u, v)
-        grads = gather_twohot_grads_ref if plain else gather_twohot_grads
-        out, gx, gy = grads(operand, v0, dv, u0, du)
+        starts = _corner_weights(operand.shape, u, v)
+        grid = _tiles_grid("grads", operand.shape, u)
+        if grid is not None:
+            grads = gather_tiles_grads_ref if plain else gather_tiles_grads
+            starts = [t.reshape(-1, *grid) for t in starts]
+        else:
+            grads = gather_twohot_grads_ref if plain else gather_twohot_grads
+        out, gx, gy = grads(operand, *starts)
         ctx.save_for_backward(gx, gy, u, v)
         ctx.shape = operand.shape
         ctx.plain = plain
@@ -123,8 +152,9 @@ class BilinearGather(torch.autograd.Function):
 
 def warp_operand(operand, sizes, u, v, plain: bool = False):
     """Sample a prebuilt channels-last operand at (u, v) ``[B,1,h,w]``:
-    through :class:`BilinearGather` (K2, and K3 in the backward) when
-    autograd records the operand or the coordinates, else through K1.
+    through :class:`BilinearGather` (K2 or K5, and K3 in the backward) when
+    autograd records the operand or the coordinates, else through K1, or K4
+    where :func:`use_tiles` holds.
 
     :return: list of per-map ``[B,Ci,h,w]``
     """
@@ -133,8 +163,14 @@ def warp_operand(operand, sizes, u, v, plain: bool = False):
                                     or v.requires_grad):
         out = BilinearGather.apply(operand, u, v, plain)
     else:
-        sample = gather_twohot_ref if plain else gather_twohot
-        out = sample(operand, *_corner_weights(operand.shape, u, v))  # [B,Ctot,N]
+        starts = _corner_weights(operand.shape, u, v)
+        grid = _tiles_grid("eval", operand.shape, u)
+        if grid is not None:
+            sample = gather_tiles_ref if plain else gather_tiles
+            starts = [t.reshape(B, *grid) for t in starts]
+        else:
+            sample = gather_twohot_ref if plain else gather_twohot
+        out = sample(operand, *starts)  # [B,Ctot,N]
     out = out.reshape(B, -1, u.shape[2], u.shape[3])
     return list(torch.split(out, sizes, dim=1))
 

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exports a plain C launch function.  It is compiled
+Each ``csrc/<source>.cu`` exports the plain C launch functions of one or
+more kernels (``SOURCES``).  It is compiled
 with ``nvcc`` for ``sm_90a`` into its own shared library under ``_build/``
 (listed in ``.gitignore``) and bound with ``ctypes``: no PyTorch headers,
 so a build takes seconds.  The build runs at first use, never at import,
@@ -30,9 +31,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("gather_twohot", "gather_twohot_grads", "splat_twohot", "fused_jtj_jtr")
-
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# kernel name -> the csrc/ source that holds it
+SOURCES = {
+    "gather_twohot": "gather_twohot",
+    "gather_twohot_grads": "gather_twohot_grads",
+    "splat_twohot": "splat_twohot",
+    "fused_jtj_jtr": "fused_jtj_jtr",
+    "gather_tiles": "gather_tiles",
+    "gather_tiles_grads": "gather_tiles",
+}
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], Callable] = {}
@@ -55,39 +63,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def _target(source: str) -> Path:
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{source}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return BUILD_DIR / f"lib{source}_{digest}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
-    """Compile every kernel in ``names`` whose library is missing, one
-    ``nvcc`` process per source, all started together.  Raises with the
-    compiler's output when a build fails."""
-    names = list(names)
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile the source of every kernel in ``names`` whose library is
+    missing, one ``nvcc`` process per source, all started together.  Returns
+    each source's library; raises with the compiler's output when a build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n) for n in names}
+    targets = {s: _target(s) for s in sorted({SOURCES[n] for n in names})}
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             procs = {}
-            for name, target in targets.items():
+            for source, target in targets.items():
                 if target.exists():
                     continue
                 tmp = target.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-                procs[name] = (tmp, subprocess.Popen(
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
+                procs[source] = (tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
             errors = []
-            for name, (tmp, proc) in procs.items():
+            for source, (tmp, proc) in procs.items():
                 out, _ = proc.communicate()
-                (BUILD_DIR / f"{name}.log").write_text(out)
+                (BUILD_DIR / f"{source}.log").write_text(out)
                 if proc.returncode != 0:
-                    errors.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+                    errors.append(f"{source}: nvcc exited {proc.returncode}\n{out}")
                 else:
-                    os.replace(tmp, targets[name])
+                    os.replace(tmp, targets[source])
             if errors:
                 raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
         finally:
@@ -103,9 +111,10 @@ def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int) -
     if fn is not None:
         return fn
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build([name])[name]))
-        fn = getattr(_libs[name], symbol)
+        source = SOURCES[name]
+        if source not in _libs:
+            _libs[source] = ctypes.CDLL(str(build([name])[source]))
+        fn = getattr(_libs[source], symbol)
         fn.argtypes = list(argtypes)
         fn.restype = restype
         _fns[(name, symbol)] = fn
