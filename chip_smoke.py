@@ -23,14 +23,23 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    (every tile stages its box in shared memory) and on the same with
    samples teleported across the plane (one launch takes both paths):
    ``out`` bit-exact, gx/gy within 1e-6 of the largest entry;
-7. serve: ``build_service("feature", "", max_batch=8)`` at 120x160 on the
+7. K1 (B=8) and K3 (B=64) against their plain versions on the smooth and
+   teleported coordinates of 6, and on the smooth ones spread 4x about the
+   centre (off the plane), at the four 120x160 levels, C=10 and C=17, and
+   K3 at 480x640, B=4 level 0 on smooth ones: K1 bit-exact, K3 within 1e-5
+   of the largest entry.  At C=10 every smooth 120x160 K3 tile stages its
+   corner box in shared memory, and the level-0 teleported and off-plane
+   launches take both branches (teleported samples send some tiles to
+   global atomics; off the plane, the corner tiles stage all their samples
+   onto one cell);
+8. serve: ``build_service("feature", "", max_batch=8)`` at 120x160 on the
    card, 12 requests from threads and one HTTP ``POST /track``; with the
    launch counts reset just before and read just after, K1 and K6 must
    have run 12 times per served batch and K2-K5 not at all.  Every R
    must be orthonormal and every t finite, and one batch through the
    kernels, through their plain versions on the card and on the CPU must
    agree within atol 1e-4;
-8. train: the feature preset's train state on the card at 120x160, B=64,
+9. train: the feature preset's train state on the card at 120x160, B=64,
    a seeded synthetic batch, 3 steps; with the counts reset before and read
    after each step, K2, K3 and K6 must have run 12 times and K1, K4, K5 not
    at all, and the loss and gradient norm must be finite.  One loss and
@@ -39,24 +48,27 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    5e-3 of its largest entry (the envelope of 12 chained Gauss-Newton
    solves).  The step is timed with the kernels and with the plain versions
    and profiled;
-9. serve at 480x640 as in 7: per batch K4 3 times (level 0), K1 9 times
+10. serve at 480x640 as in 8: per batch K4 3 times (level 0), K1 9 times
    (levels 1-3), K6 12 times, K2, K3 and K5 not at all; the kernel and
    plain forwards agree at B=8, the kernel and CPU forwards at B=2;
-10. train at 480x640, B=4 as in 8: per step K5 6 times (levels 0-1), K2 6
+11. train at 480x640, B=4 as in 9: per step K5 6 times (levels 0-1), K2 6
    times (levels 2-3), K3 and K6 12 times, K1 and K4 not at all; kernels
    against plain within the same limits; timed and profiled;
-11. the share of tiles that staged on the 480x640 synthetic scene's own
-   level-0 (and level-1) warps;
-12. time the forwards and each kernel at each level (CUDA events around
+12. the share of K4's, K5's and K3's tiles that staged on the
+   synthetic scenes' own warps: the 480x640 forward, and one loss and
+   backward at 480x640, B=4 and at 120x160, B=64;
+13. time the forwards and each kernel at each level (CUDA events around
    back-to-back calls after warm-up, and the kernels' own device time:
    events around calls queued behind a sleep kernel, so no host launch gap
    falls between them; operands warm in L2 where they fit, as in the
    Gauss-Newton loop that reuses them), beside the plain version, one PyTorch library
    call computing the same function where there is one, and the least time
    the card could take (bytes moved over the memory rate, or flops over the
-   f32 rate); K2 and K3 at the B=64 training shapes; K4 and K5 at the
-   480x640 shapes beside K1 and K2 on the same inputs;
-13. profile one B=8 forward at 120x160 and at 480x640 (``torch.profiler``):
+   f32 rate); K1 (B=8) and K3 (B=64) on random, smooth, teleported and
+   off-plane coordinates, K2 at the B=64 training shapes, K3 at 480x640, B=4 level 0
+   (smooth); K4 and K5 at the 480x640 shapes beside K1 and K2 on the same
+   inputs;
+14. profile one B=8 forward at 120x160 and at 480x640 (``torch.profiler``):
    device busy time, the span from its first to its last kernel, the idle
    share of that span, and device time by kernel name.
 
@@ -95,6 +107,12 @@ VGA_TRAIN_SEED = 3
 GRAD_ENVELOPE = 5e-3
 SLEEP_CYCLES = 100_000_000  # ~50 ms of device sleep while device_ms queues its calls
 N_CPU_VGA = 2  # the CPU forward at 480x640 takes this many requests of the batch
+# the coordinates K1 and K3 are checked and timed on: uniform over and past
+# the plane, smooth sub-pixel flow, the same with a few samples moved half
+# the plane away (K3 launches then mix staged and global tiles), and smooth
+# flow zoomed out 4x about the centre (most samples clamp to the border:
+# K3 tiles in the corners stage every sample onto one cell's list)
+COORDS = ("random", "smooth", "teleported", "offplane")
 KEYS = ("color0", "color1", "depth0", "depth1", "calib")
 # published peaks (NVIDIA data sheets): device-memory bytes/s, f32 flop/s
 # outside the tensor cores; first matching substring of the card's name
@@ -142,18 +160,24 @@ def bound(nbytes, nflops, bw, flops):
             "bound_by": "bytes" if nbytes / bw >= nflops / flops else "operations"}
 
 
-def time_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
+def time_ms(torch, fn, reps: int = 50, warmup: int = 5, windows: int = 1) -> float:
+    """Events time per call of ``reps`` back-to-back calls (host gaps
+    included): the median over ``windows`` such windows, so that a pause of
+    the shared host moves one window and not the result."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[windows // 2]
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
@@ -268,11 +292,14 @@ def phase_grads_kernels(torch, dev):
     return err
 
 
-def tile_inputs(torch, dev, b, h, w, c, seed, teleport=False):
-    """A plane F [b,h,w,c] and the corner maps [b,h,w] of smooth sub-pixel
-    flow (a tracker near convergence: every tile's box fits in shared
-    memory), or of the same with 64 samples per image moved half the plane
-    away (their tiles take the global path).  Also returns (u, v)."""
+def tile_inputs(torch, dev, b, h, w, c, seed, coords="smooth"):
+    """A plane F [b,h,w,c] and the corner maps [b,h,w] of ``coords``:
+    ``smooth`` sub-pixel flow (a tracker near convergence: every tile's box
+    fits in shared memory), ``teleported``, the same with 64 samples per
+    image moved half the plane away (their tiles take the global path), or
+    ``offplane``, the smooth flow zoomed out 4x about the plane's centre (a
+    large motion: ~94% of the samples clamp to the border).  Also returns
+    (u, v)."""
     from deep_prob_feature_track_torch.geometry.warp import _corner_weights
 
     g = torch.Generator().manual_seed(seed)
@@ -282,7 +309,10 @@ def tile_inputs(torch, dev, b, h, w, c, seed, teleport=False):
     phase = torch.rand(b, 1, 1, 1, generator=g) * 3
     u = (xx + 0.8 * torch.sin(yy / 9.0 + phase) + 0.3).contiguous()
     v = (yy + 0.8 * torch.cos(xx / 11.0 + phase) + 0.2).contiguous()
-    if teleport:
+    if coords == "offplane":
+        u = (u - w / 2) * 4 + w / 2
+        v = (v - h / 2) * 4 + h / 2
+    if coords == "teleported":
         idx = torch.randint(0, h * w, (b, 64), generator=g)
         for m, size in ((u, w), (v, h)):
             flat = m.view(b, -1)
@@ -306,7 +336,8 @@ def phase_tiles_kernels(torch, dev):
         h, w = VGA_LEVELS[level]
         for c in (C_WARP, C_FULL):
             for teleport in (False, True):
-                F, maps, _ = tile_inputs(torch, dev, b, h, w, c, seed=40 + i, teleport=teleport)
+                F, maps, _ = tile_inputs(torch, dev, b, h, w, c, seed=40 + i,
+                                         coords="teleported" if teleport else "smooth")
                 flat = [m.reshape(b, -1) for m in maps]
                 share = staged_share(maps[0], maps[2], h, w, c)
                 if kname == "gather_tiles":
@@ -337,6 +368,54 @@ def phase_tiles_kernels(torch, dev):
                     raise AssertionError(f"{kname}: staged share {share} does not exercise the "
                                          "path these coordinates were made for")
                 err[kname] = max(err[kname], e_grads if len(got) == 3 else e_out)
+    return err
+
+
+def phase_flat_kernels(torch, dev):
+    """K1 (B=8) and K3 (B=64) on smooth, teleported and off-plane
+    coordinates at the four 120x160 levels, C=10 and C=17, and K3 at
+    480x640, B=4 level 0: K1 bit-exact, K3 within 1e-5 of the largest
+    entry.  The teleported and off-plane level-0 K3 launches at C=10 must
+    mix staged and global tiles, and its smooth launches at C=10 stage
+    every tile."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
+
+    err = {"gather_twohot": 0.0, "splat_twohot": 0.0}
+    cases = [(False, i, B_TRAIN, h, w, c, coords) for i, (h, w) in enumerate(LEVELS)
+             for c in (C_WARP, C_FULL) for coords in COORDS[1:]]
+    cases.append((True, 0, B_VGA_TRAIN, *VGA_LEVELS[0], C_WARP, "smooth"))
+    for vga, i, b, h, w, c, coords in cases:
+        label = f"level {i} {h}x{w}, C={c}, {coords} coordinates"
+        if not vga:
+            F, args, _ = flat_inputs(torch, dev, B, h, w, c, 80 + i, coords)
+            out = K.gather_twohot_cuda(F, *args)
+            ref = K.gather_twohot_ref(F, *args)
+            torch.cuda.synchronize()
+            e = (out - ref).abs().max().item()
+            log(f"K1 gather_twohot {label}, B={B}: max|kernel - plain| = {e:.3e}")
+            if e != 0.0:
+                raise AssertionError(f"gather_twohot is not bit-exact on {label}: {e}")
+
+        _, args, _ = flat_inputs(torch, dev, b, h, w, c, 90 + i, coords)
+        g = torch.randn(b, c, h * w, generator=torch.Generator().manual_seed(i)).to(dev)
+        got = K.splat_twohot_cuda(g, *args, h, w)
+        ref = K.splat_twohot_ref(g, *args, h, w)
+        torch.cuda.synchronize()
+        e3 = (got - ref).abs().max().item()
+        top = ref.abs().max().item()
+        share = splat_staged_share(args[0], args[2], h, w, c)
+        log(f"K3 splat_twohot {label}, B={b}: staged share {share:.4f}, max|kernel - plain| = "
+            f"{e3:.3e} ({e3 / top:.2e} of the largest entry)")
+        if not e3 <= 1e-5 * top:
+            raise AssertionError(f"splat_twohot disagrees with its plain version on {label}: {e3}")
+        if (vga, c, coords) == (False, C_WARP, "smooth") and share != 1.0:
+            raise AssertionError(f"splat_twohot on {label}: a tile did not stage ({share})")
+        if ((vga, i, c) == (False, 0, C_WARP) and coords in ("teleported", "offplane")
+                and not 0.0 < share < 1.0):
+            raise AssertionError(f"splat_twohot on {label} did not take both branches ({share})")
+        err["gather_twohot"] = max(err["gather_twohot"], 0.0 if vga else e)
+        err["splat_twohot"] = max(err["splat_twohot"], e3)
     return err
 
 
@@ -526,37 +605,112 @@ def phase_train(torch, dev, b, h, w, seed, expected):
 
 
 def phase_scene_share(torch, dev):
-    """The share of tiles that staged in K4's and K5's launches on the
-    480x640 synthetic scene: the forward's own level-0 warps (and level 1 in
-    training), recorded from the warp's kernel calls."""
+    """The share of K4's, K5's and K3's tiles that staged on the
+    synthetic scenes, recorded from the warp's kernel calls: the 480x640
+    forward's own level-0 warps, then one loss and backward at 480x640, B=4
+    (K5 at levels 0-1, K3 at every level) and at 120x160, B=64 (K3)."""
     from deep_prob_feature_track_torch.apps.serve import build_tracker
     from deep_prob_feature_track_torch.geometry import warp
+    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
     from deep_prob_feature_track_torch.ops.kernels.tiles import staged_share
     from deep_prob_feature_track_torch.training import train as T
 
-    shares = {"gather_tiles": [], "gather_tiles_grads": []}
-    kernels = {k: getattr(warp, k) for k in shares}
+    kernels = {k: getattr(warp, k) for k in ("gather_tiles", "gather_tiles_grads", "splat_twohot")}
+    shares = {}
+    scene = [""]
 
     def recorder(name):
-        def call(F, v0, dv, u0, du):
-            shares[name].append(((v0.shape[1], v0.shape[2]), staged_share(v0, u0, *F.shape[1:])))
-            return kernels[name](F, v0, dv, u0, du)
+        def call(x, v0, dv, u0, du, *hw):
+            if hw:  # K3: the plane's H, W; x is the cotangent [B,C,N]
+                size, share = hw, splat_staged_share(v0, u0, *hw, x.shape[1])
+            else:  # K4 / K5: the sample grid
+                size, share = tuple(v0.shape[1:]), staged_share(v0, u0, *x.shape[1:])
+            shares.setdefault(f"{name} {scene[0]}", []).append((size, share))
+            return kernels[name](x, v0, dv, u0, du, *hw)
         return call
 
-    batch = T.synthetic_batch(B, H_VGA, W_VGA, seed=VGA_TRAIN_SEED, device=dev)
-    args = [batch[k] for k in KEYS]
-    for name in shares:
+    for name in kernels:
         setattr(warp, name, recorder(name))
-    net = build_tracker("feature", device=dev)
-    with torch.inference_mode():
-        net(*args)
-    net.train()(*[a[:B_VGA_TRAIN] for a in args])
-    for name, fn in kernels.items():
-        setattr(warp, name, fn)
-    for name, calls in shares.items():
-        log(f"{name} on the 480x640 synthetic scene: staged share per call "
+    try:
+        scene[0] = f"B={B} {H_VGA}x{W_VGA} forward"
+        batch = T.synthetic_batch(B, H_VGA, W_VGA, seed=VGA_TRAIN_SEED, device=dev)
+        with torch.inference_mode():
+            build_tracker("feature", device=dev)(*[batch[k] for k in KEYS])
+        for b, h, w, seed in ((B_VGA_TRAIN, H_VGA, W_VGA, VGA_TRAIN_SEED), (B_TRAIN, H, W, TRAIN_SEED)):
+            scene[0] = f"B={b} {h}x{w} loss and backward"
+            cfg, state = _train_state(torch, dev)
+            T.compute_loss(state.net, cfg, T.synthetic_batch(b, h, w, seed=seed, device=dev)).backward()
+    finally:
+        for name, fn in kernels.items():
+            setattr(warp, name, fn)
+    for key, calls in shares.items():
+        log(f"{key} on the synthetic scene: staged share per call "
             + ", ".join(f"{h}x{w} {s:.4f}" for (h, w), s in calls))
     return {k: [s for _, s in v] for k, v in shares.items()}
+
+
+def _grid(u, v, b, h, w):
+    """grid_sample's normalised grid [b,1,h*w,2] of raw coordinates (u, v)."""
+    import torch
+
+    n = h * w
+    return torch.stack([u.reshape(b, 1, n) * (2.0 / (w - 1)) - 1,
+                        v.reshape(b, 1, n) * (2.0 / (h - 1)) - 1], dim=-1)
+
+
+def k1_timing(torch, F, args, uv, bw, flops):
+    """K1's events and device time on F [b,h,w,C] at the corner maps
+    ``args`` [b,n], beside its plain version, ``grid_sample`` at the same
+    coordinates ``uv`` and the byte bound."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    b, h, w, c = F.shape
+    n = h * w
+    grid = _grid(*uv, b, h, w)
+    F_nchw = F.permute(0, 3, 1, 2).contiguous()
+    return {
+        "ms": time_ms(torch, lambda: K.gather_twohot_cuda(F, *args), windows=5),
+        "device_ms": device_ms(torch, lambda: K.gather_twohot_cuda(F, *args)),
+        "plain_ms": time_ms(torch, lambda: K.gather_twohot_ref(F, *args)),
+        "library_ms": time_ms(torch, lambda: torch.nn.functional.grid_sample(
+            F_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True), windows=5),
+        **bound(4 * (F.numel() + 4 * b * n + b * c * n), b * n * (2 + 11 * c), bw, flops),
+    }
+
+
+def k3_timing(torch, g, args, uv, h, w, bw, flops):
+    """K3's events and device time for the cotangent g [b,C,h*w] at the
+    corner maps ``args``, beside its plain version, the library's operand
+    cotangent of ``grid_sample`` (border, align_corners=True) at the same
+    coordinates ``uv``, the byte bound and the share of staged tiles."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
+
+    b, c, n = g.shape
+    grid = _grid(*uv, b, h, w)
+    F_nchw = torch.empty(b, c, h, w, device=g.device)  # only its shape is read
+    g4 = g.reshape(b, c, 1, n)
+    planes = b * n * c  # floats of the cotangent and of the plane
+    return {
+        "ms": time_ms(torch, lambda: K.splat_twohot_cuda(g, *args, h, w), windows=5),
+        "device_ms": device_ms(torch, lambda: K.splat_twohot_cuda(g, *args, h, w)),
+        "plain_ms": time_ms(torch, lambda: K.splat_twohot_ref(g, *args, h, w)),
+        "library_ms": time_ms(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
+            g4, F_nchw, grid, 0, 1, True, [True, False]), windows=5),
+        **bound(4 * (2 * planes + 4 * b * n), b * n * (2 + 12 * c), bw, flops),
+        "staged_share": splat_staged_share(args[0], args[2], h, w, c),
+    }
+
+
+def flat_inputs(torch, dev, b, h, w, c, seed, coords):
+    """F [b,h,w,c], the corner maps [b,h*w] and (u, v) of ``coords``:
+    ``random`` (gather_inputs, C_WARP channels), ``smooth``, ``teleported``
+    or ``offplane`` (tile_inputs)."""
+    if coords == "random":
+        args, uv = gather_inputs(torch, dev, h, w, seed, b=b)
+        return args[0], list(args[1:]), uv
+    F, maps, uv = tile_inputs(torch, dev, b, h, w, c, seed, coords)
+    return F, [m.reshape(b, -1) for m in maps], uv
 
 
 def phase_time(torch, dev, name):
@@ -576,21 +730,10 @@ def phase_time(torch, dev, name):
     levels = []
     for i, (h, w) in enumerate(LEVELS):
         n = h * w
-        args, (u, v) = gather_inputs(torch, dev, h, w, seed=i)
-        F = args[0]
-        grid = torch.stack([u.reshape(B, 1, n) * (2.0 / (w - 1)) - 1,
-                            v.reshape(B, 1, n) * (2.0 / (h - 1)) - 1], dim=-1)
-        F_nchw = F.permute(0, 3, 1, 2).contiguous()
-        gbytes = 4 * (F.numel() + 4 * B * n + B * C_WARP * n)
-        gflops = B * n * (2 + 11 * C_WARP)
-        k1 = {
-            "ms": time_ms(torch, lambda: K.gather_twohot_cuda(*args)),
-            "device_ms": device_ms(torch, lambda: K.gather_twohot_cuda(*args)),
-            "plain_ms": time_ms(torch, lambda: K.gather_twohot_ref(*args)),
-            "library_ms": time_ms(torch, lambda: torch.nn.functional.grid_sample(
-                F_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
-            **bound(gbytes, gflops, bw, flops),
-        }
+        k1 = {}
+        for coords in COORDS:
+            F, args, uv = flat_inputs(torch, dev, B, h, w, C_WARP, i, coords)
+            k1[coords] = k1_timing(torch, F, args, uv, bw, flops)
         jargs = jtj_inputs(torch, dev, n, seed=10 + i)
         jbytes = 4 * (3 * B * C_RES * n + 2 * B * n * 6 + B * 42)
         jflops = B * n * (10 * C_RES + 144)
@@ -601,15 +744,21 @@ def phase_time(torch, dev, name):
             "library_ms": None,
             **bound(jbytes, jflops, bw, flops),
         }
-        levels.append({"level": i, "hw": [h, w], "gather_twohot": k1, "fused_jtj_jtr": k6})
-        log(f"level {i} {h}x{w}: K1 {k1['ms']:.4f} ms, device {k1['device_ms']:.4f} "
-            f"(plain {k1['plain_ms']:.4f}, grid_sample {k1['library_ms']:.4f}, "
-            f"bound {k1['bound_ms']:.4f}); K6 {k6['ms']:.4f} ms, device "
-            f"{k6['device_ms']:.4f} (plain {k6['plain_ms']:.4f}, bound {k6['bound_ms']:.4f})")
+        levels.append({"level": i, "hw": [h, w], "gather_twohot": k1["random"],
+                       **{f"gather_twohot_{c}": k1[c] for c in COORDS[1:]},
+                       "fused_jtj_jtr": k6})
+        for coords, r in k1.items():
+            log(f"level {i} {h}x{w} B={B}, {coords} coordinates: K1 {r['ms']:.4f} ms, device "
+                f"{r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, grid_sample "
+                f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f})")
+        log(f"level {i} {h}x{w}: K6 {k6['ms']:.4f} ms, device {k6['device_ms']:.4f} "
+            f"(plain {k6['plain_ms']:.4f}, bound {k6['bound_ms']:.4f})")
     return {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms, "levels": levels}
 
 
 def phase_time_grads(torch, dev, name):
+    """K2 and K3 at the B=64 levels (K3 on random, smooth, teleported and
+    off-plane coordinates), and K3 at 480x640, B=4 level 0 on smooth ones."""
     from deep_prob_feature_track_torch.ops import kernels as K
 
     bw, flops = peaks(name)
@@ -617,7 +766,6 @@ def phase_time_grads(torch, dev, name):
     for i, (h, w) in enumerate(LEVELS):
         n = h * w
         args, (u, v) = gather_inputs(torch, dev, h, w, seed=20 + i, b=B_TRAIN)
-        g = splat_cotangent(torch, dev, h, w, seed=30 + i)
         planes = B_TRAIN * n * C_WARP  # operand plane = each [B,C,N] map, in floats
         k2_bytes = 4 * (planes + 4 * B_TRAIN * n + 3 * planes)
         k2_flops = B_TRAIN * n * (2 + 17 * C_WARP)
@@ -628,29 +776,31 @@ def phase_time_grads(torch, dev, name):
             "library_ms": None,  # no single PyTorch call returns the value and both maps
             **bound(k2_bytes, k2_flops, bw, flops),
         }
-        # the library's operand cotangent of grid_sample(border, align_corners=True)
-        grid = torch.stack([u.reshape(B_TRAIN, 1, n) * (2.0 / (w - 1)) - 1,
-                            v.reshape(B_TRAIN, 1, n) * (2.0 / (h - 1)) - 1], dim=-1)
-        F_nchw = args[0].permute(0, 3, 1, 2).contiguous()
-        g4 = g.reshape(B_TRAIN, C_WARP, 1, n)
-        k3_bytes = 4 * (planes + 4 * B_TRAIN * n + planes)
-        k3_flops = B_TRAIN * n * (2 + 12 * C_WARP)
-        k3 = {
-            "ms": time_ms(torch, lambda: K.splat_twohot_cuda(g, *args[1:], h, w)),
-            "device_ms": device_ms(torch, lambda: K.splat_twohot_cuda(g, *args[1:], h, w)),
-            "plain_ms": time_ms(torch, lambda: K.splat_twohot_ref(g, *args[1:], h, w)),
-            "library_ms": time_ms(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
-                g4, F_nchw, grid, 0, 1, True, [True, False])),
-            **bound(k3_bytes, k3_flops, bw, flops),
-        }
-        levels.append({"level": i, "hw": [h, w], "gather_twohot_grads": k2, "splat_twohot": k3})
+        g = splat_cotangent(torch, dev, h, w, seed=30 + i)
+        k3 = {"random": k3_timing(torch, g, args[1:], (u, v), h, w, bw, flops)}
+        for coords in COORDS[1:]:
+            _, flat, uv = flat_inputs(torch, dev, B_TRAIN, h, w, C_WARP, 30 + i, coords)
+            k3[coords] = k3_timing(torch, g, flat, uv, h, w, bw, flops)
+        levels.append({"level": i, "hw": [h, w], "gather_twohot_grads": k2,
+                       "splat_twohot": k3["random"],
+                       **{f"splat_twohot_{c}": k3[c] for c in COORDS[1:]}})
         log(f"level {i} {h}x{w} B={B_TRAIN}: K2 {k2['ms']:.4f} ms, device "
-            f"{k2['device_ms']:.4f} (plain {k2['plain_ms']:.4f}, bound {k2['bound_ms']:.4f}); "
-            f"K3 {k3['ms']:.4f} ms, device {k3['device_ms']:.4f} (plain {k3['plain_ms']:.4f}, "
-            f"grid_sampler_2d_backward {k3['library_ms']:.4f}, bound {k3['bound_ms']:.4f})")
-    return levels
+            f"{k2['device_ms']:.4f} (plain {k2['plain_ms']:.4f}, bound {k2['bound_ms']:.4f})")
+        for coords, r in k3.items():
+            log(f"level {i} {h}x{w} B={B_TRAIN}, {coords} coordinates: K3 {r['ms']:.4f} ms, "
+                f"device {r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, "
+                f"grid_sampler_2d_backward {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+                f"staged share {r['staged_share']:.4f})")
 
-
+    h, w = VGA_LEVELS[0]
+    _, flat, uv = flat_inputs(torch, dev, B_VGA_TRAIN, h, w, C_WARP, 70, "smooth")
+    g = torch.randn(B_VGA_TRAIN, C_WARP, h * w, generator=torch.Generator().manual_seed(71))
+    vga = k3_timing(torch, g.to(dev), flat, uv, h, w, bw, flops)
+    log(f"level 0 {h}x{w} B={B_VGA_TRAIN}, smooth coordinates: K3 {vga['ms']:.4f} ms, device "
+        f"{vga['device_ms']:.4f} (plain {vga['plain_ms']:.4f}, grid_sampler_2d_backward "
+        f"{vga['library_ms']:.4f}, bound {vga['bound_ms']:.4f}, staged share "
+        f"{vga['staged_share']:.4f})")
+    return levels, vga
 
 
 def phase_time_tiles(torch, dev, name):
@@ -805,6 +955,8 @@ def run(torch, loader, dev, name, smi):
     errors = phase_kernels(torch, dev)
     errors.update(phase_grads_kernels(torch, dev))
     errors.update(phase_tiles_kernels(torch, dev))
+    for k, e in phase_flat_kernels(torch, dev).items():
+        errors[k] = max(errors[k], e)
     launches, items = phase_serve(torch, dev, H, W, SERVE_LAUNCHES)
     phase_agree(torch, dev, items, n_cpu=B)
     train = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, TRAIN_LAUNCHES)
@@ -814,13 +966,14 @@ def run(torch, loader, dev, name, smi):
                             VGA_TRAIN_LAUNCHES)
     scene_shares = phase_scene_share(torch, dev)
     timing = phase_time(torch, dev, name)
-    grads_levels = phase_time_grads(torch, dev, name)
+    grads_levels, vga_splat = phase_time_grads(torch, dev, name)
     tiles_levels = phase_time_tiles(torch, dev, name)
     timing["profile"] = phase_profile(torch, dev)
     vga_forward = phase_forward(torch, dev, H_VGA, W_VGA)
     print(json.dumps({"timing": timing, "grads_levels": grads_levels, "train": train,
                       "vga": {"forward": vga_forward, "train": vga_train,
-                              "tiles_levels": tiles_levels, "scene_staged_share": scene_shares,
+                              "tiles_levels": tiles_levels, "splat_level0": vga_splat,
+                              "scene_staged_share": scene_shares,
                               "serve_launches": vga_launches},
                       "card": smi}), flush=True)
 

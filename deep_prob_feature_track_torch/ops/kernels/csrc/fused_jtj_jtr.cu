@@ -122,24 +122,33 @@ __global__ void jtj_final(const float* __restrict__ partial,
 
 }  // namespace
 
-// Number of pixel tiles of the first pass; the caller allocates
-// partial as [B, n_tiles, 27] f32.
-extern "C" int fused_jtj_jtr_tiles(int HW) { return (HW + kTile - 1) / kTile; }
+// The launch function's one argument; ops/kernels/jtj.py packs it with the
+// struct format "8P4ifP" (native layout).
+struct JtJArgs {
+  const float* alpha;  // [B,C,HW], as beta and res
+  const float* beta;
+  const float* res;
+  const float* u;  // [B,HW,6], as v
+  const float* v;
+  float* partial;  // scratch [B,n_tiles,27]
+  float* jtj;      // [B,6,6]
+  float* jtr;      // [B,6]
+  int B, C, HW;
+  int n_tiles;  // pixel tiles of the first pass as the caller allocated them
+  float sign;
+  void* stream;
+};
 
-// alpha, beta, res [B,C,HW] f32; u, v [B,HW,6] f32; partial scratch
-// [B,n_tiles,27]; jtj [B,6,6]; jtr [B,6].  Returns the cudaError_t.
-extern "C" int fused_jtj_jtr_launch(const float* alpha, const float* beta,
-                                    const float* res, const float* u,
-                                    const float* v, float* partial, float* jtj,
-                                    float* jtr, int B, int C, int HW,
-                                    float sign, void* stream) {
-  if (B == 0) return 0;
-  const int n_tiles = fused_jtj_jtr_tiles(HW);
-  cudaStream_t s = (cudaStream_t)stream;
-  jtj_partial<<<dim3(n_tiles, B), kThreads, 0, s>>>(alpha, beta, res, u, v,
-                                                    partial, C, HW, n_tiles);
+// Returns the cudaError_t of the launches: cudaErrorInvalidValue when
+// n_tiles is not ceil(HW / kTile).
+extern "C" int fused_jtj_jtr_launch(const JtJArgs* a) {
+  if (a->n_tiles != (a->HW + kTile - 1) / kTile) return (int)cudaErrorInvalidValue;
+  if (a->B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)a->stream;
+  jtj_partial<<<dim3(a->n_tiles, a->B), kThreads, 0, s>>>(
+      a->alpha, a->beta, a->res, a->u, a->v, a->partial, a->C, a->HW, a->n_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  jtj_final<<<B, 32, 0, s>>>(partial, jtj, jtr, n_tiles, sign);
+  jtj_final<<<a->B, 32, 0, s>>>(a->partial, a->jtj, a->jtr, a->n_tiles, a->sign);
   return (int)cudaGetLastError();
 }

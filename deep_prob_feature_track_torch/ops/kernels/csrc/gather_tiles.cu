@@ -55,6 +55,23 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+// The launch functions' one argument; ops/kernels/tiles.py packs it with the
+// struct format "8P8iP" (native layout).
+struct TilesArgs {
+  const float* F;  // [B,H,W,C]
+  const int* v0;   // [B,Hs,Ws]
+  const float* dv;
+  const int* u0;
+  const float* du;
+  float* out;  // [B,C,Hs*Ws], as gx and gy (GRADS only)
+  float* gx;
+  float* gy;
+  int B, H, W, C, Hs, Ws;
+  int tile_h;    // rows of 32 samples per CTA
+  int capacity;  // floats of shared memory per CTA
+  void* stream;
+};
+
 namespace {
 
 constexpr int kTileW = 32;  // one warp per tile row
@@ -161,13 +178,10 @@ __global__ void __launch_bounds__(kTileW * kMaxWarps) gather_tiles_kernel(
 }
 
 template <bool GRADS>
-int launch(const float* F, const int* v0, const float* dv, const int* u0,
-           const float* du, float* out, float* gx, float* gy, int B, int H,
-           int W, int C, int Hs, int Ws, int tile_h, int capacity,
-           void* stream) {
-  if (B == 0 || Hs == 0 || Ws == 0) return 0;
-  if (tile_h < 1 || tile_h > kMaxWarps || capacity < 0 ||
-      capacity > 48 * 1024 / (int)sizeof(float))
+int launch(const TilesArgs& a) {
+  if (a.B == 0 || a.Hs == 0 || a.Ws == 0) return 0;
+  if (a.tile_h < 1 || a.tile_h > kMaxWarps || a.capacity < 0 ||
+      a.capacity > 48 * 1024 / (int)sizeof(float))
     return (int)cudaErrorInvalidValue;
   static bool carveout_set = false;
   if (!carveout_set) {
@@ -179,35 +193,19 @@ int launch(const float* F, const int* v0, const float* dv, const int* u0,
     if (e != cudaSuccess) return (int)e;
     carveout_set = true;
   }
-  const dim3 block(kTileW, tile_h);
-  const dim3 grid((Ws + kTileW - 1) / kTileW, (Hs + tile_h - 1) / tile_h, B);
-  gather_tiles_kernel<GRADS><<<grid, block, (size_t)capacity * sizeof(float),
-                               (cudaStream_t)stream>>>(
-      F, v0, dv, u0, du, out, gx, gy, H, W, C, Hs, Ws, capacity);
+  const dim3 block(kTileW, a.tile_h);
+  const dim3 grid((a.Ws + kTileW - 1) / kTileW, (a.Hs + a.tile_h - 1) / a.tile_h, a.B);
+  gather_tiles_kernel<GRADS><<<grid, block, (size_t)a.capacity * sizeof(float),
+                               (cudaStream_t)a.stream>>>(
+      a.F, a.v0, a.dv, a.u0, a.du, a.out, a.gx, a.gy, a.H, a.W, a.C, a.Hs, a.Ws,
+      a.capacity);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// F [B,H,W,C] f32; v0,u0 [B,Hs,Ws] int32; dv,du [B,Hs,Ws] f32;
-// out [B,C,Hs*Ws] f32.  tile_h rows of 32 samples per CTA, `capacity` floats
-// of shared memory per CTA.  Returns the cudaError_t of the launch.
-extern "C" int gather_tiles_launch(const float* F, const int* v0,
-                                   const float* dv, const int* u0,
-                                   const float* du, float* out, int B, int H,
-                                   int W, int C, int Hs, int Ws, int tile_h,
-                                   int capacity, void* stream) {
-  return launch<false>(F, v0, dv, u0, du, out, nullptr, nullptr, B, H, W, C,
-                       Hs, Ws, tile_h, capacity, stream);
-}
+// Returns the cudaError_t of the launch (gx, gy unused).
+extern "C" int gather_tiles_launch(const TilesArgs* a) { return launch<false>(*a); }
 
-// As gather_tiles_launch, with the derivative maps gx, gy [B,C,Hs*Ws] f32.
-extern "C" int gather_tiles_grads_launch(const float* F, const int* v0,
-                                         const float* dv, const int* u0,
-                                         const float* du, float* out, float* gx,
-                                         float* gy, int B, int H, int W, int C,
-                                         int Hs, int Ws, int tile_h,
-                                         int capacity, void* stream) {
-  return launch<true>(F, v0, dv, u0, du, out, gx, gy, B, H, W, C, Hs, Ws,
-                      tile_h, capacity, stream);
-}
+// As gather_tiles_launch, with the derivative maps gx, gy.
+extern "C" int gather_tiles_grads_launch(const TilesArgs* a) { return launch<true>(*a); }

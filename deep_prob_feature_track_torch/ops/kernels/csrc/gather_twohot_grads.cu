@@ -74,17 +74,28 @@ __global__ void gather_twohot_grads_kernel(const float* __restrict__ F,
 
 }  // namespace
 
-// F [B,H,W,C] f32; v0,u0 [B,N] int32; dv,du [B,N] f32;
-// out, gx, gy [B,C,N] f32.  Returns the cudaError_t of the launch.
-extern "C" int gather_twohot_grads_launch(const float* F, const int* v0,
-                                          const float* dv, const int* u0,
-                                          const float* du, float* out,
-                                          float* gx, float* gy, int B, int H,
-                                          int W, int C, int N, void* stream) {
-  if (B == 0 || N == 0) return 0;
+// The launch function's one argument; ops/kernels/gather_grads.py packs it
+// with the struct format "8P5iP" (native layout).
+struct GatherGradsArgs {
+  const float* F;  // [B,H,W,C]
+  const int* v0;   // [B,N]
+  const float* dv;
+  const int* u0;
+  const float* du;
+  float* out;  // [B,C,N], as gx and gy
+  float* gx;
+  float* gy;
+  int B, H, W, C, N;
+  void* stream;
+};
+
+// Returns the cudaError_t of the launch.
+extern "C" int gather_twohot_grads_launch(const GatherGradsArgs* a) {
+  if (a->B == 0 || a->N == 0) return 0;
   const int threads = 256;
-  dim3 grid((N + threads - 1) / threads, B);
-  gather_twohot_grads_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      F, v0, dv, u0, du, out, gx, gy, H, W, C, N);
+  dim3 grid((a->N + threads - 1) / threads, a->B);
+  gather_twohot_grads_kernel<<<grid, threads, 0, (cudaStream_t)a->stream>>>(
+      a->F, a->v0, a->dv, a->u0, a->du, a->out, a->gx, a->gy, a->H, a->W, a->C,
+      a->N);
   return (int)cudaGetLastError();
 }

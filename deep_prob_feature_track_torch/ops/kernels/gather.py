@@ -8,20 +8,20 @@ Replaces ``deep_prob_feature_track_tpu/ops/pallas/gather.py::gather_twohot``
     dv/du [B,N] f32 fractional weights in [0, 1]  ->  out [B,C,N] f32
 
 ``gather_twohot`` dispatches on the tensors' device alone: CUDA tensors
-launch the kernel (``csrc/gather_twohot.cu``), CPU tensors take
+launch the kernel (``csrc/gather_twohot.cu``: a CTA takes a run of 256
+consecutive samples, its lanes cooperate over the channels, and a shared
+tile turns the result to [C, 256] for coalesced stores), CPU tensors take
 ``gather_twohot_ref``.  Unlike the TPU kernel there is no W*C gate.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import loader
 
-_NAME = "gather_twohot"
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_launch = loader.launcher("gather_twohot", "gather_twohot_launch", "6P5iP")
+_F32, _I32 = torch.float32, torch.int32
 
 
 def corners(F, v0, u0):
@@ -65,20 +65,50 @@ def check_args(F, v0, dv, u0, du):
             raise ValueError(f"{name} must be contiguous")
 
 
+def on_one_card(x, v0, dv, u0, du, maps_ndim: int = 2) -> bool:
+    """The argument contract that the CUDA kernels K1-K5 share: ``x`` (the
+    plane, or K3's cotangent) float32, the maps v0/u0 int32 and dv/du
+    float32 of one shape [B, ...] with ``maps_ndim`` dims and x's B, every
+    tensor contiguous and on one card.  ``x``'s own shape is the caller's
+    to check, before this.  One predicate that reads each attribute once."""
+    s, d = v0.shape, x.get_device()
+    return (x.is_cuda and len(s) == maps_ndim and s[0] == x.shape[0]
+            and dv.shape == s and u0.shape == s and du.shape == s
+            and x.dtype is _F32 and v0.dtype is _I32 and dv.dtype is _F32
+            and u0.dtype is _I32 and du.dtype is _F32
+            and x.is_contiguous() and v0.is_contiguous() and dv.is_contiguous()
+            and u0.is_contiguous() and du.is_contiguous()
+            and v0.get_device() == d and dv.get_device() == d
+            and u0.get_device() == d and du.get_device() == d)
+
+
+def cuda_dims(F, v0, dv, u0, du, maps_ndim: int = 2):
+    """``F.shape + v0.shape[1:]`` -- ``(B, H, W, C, N)`` for K1 and K2,
+    ``(B, H, W, C, Hs, Ws)`` for K4 and K5 (``maps_ndim=3``) -- when the
+    arguments are what those kernels take: ``check_args``'s conditions and
+    every tensor on one card.  Else None."""
+    sF = F.shape
+    if len(sF) == 4 and sF[1] >= 2 and sF[2] >= 2 and on_one_card(F, v0, dv, u0, du, maps_ndim):
+        return (*sF, *v0.shape[1:])
+    return None
+
+
+def raise_bad_args(name, check, *args):
+    """Raise what ``check(*args)`` finds wrong with arguments that the fast
+    predicate refused, else that they are not CUDA tensors on one card."""
+    check(*args)
+    raise ValueError(f"{name} needs CUDA tensors on one device")
+
+
 def gather_twohot_cuda(F, v0, dv, u0, du):
     """Launch the CUDA kernel; every tensor must lie on the same card."""
-    check_args(F, v0, dv, u0, du)
-    for t in (F, v0, dv, u0, du):
-        if not t.is_cuda or t.device != F.device:
-            raise ValueError("gather_twohot_cuda needs CUDA tensors on one device")
-    B, H, W, C = F.shape
-    N = v0.shape[1]
-    out = torch.empty((B, C, N), dtype=torch.float32, device=F.device)
-    fn = loader.function(_NAME, "gather_twohot_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(F.device).cuda_stream
-    loader.check(fn(F.data_ptr(), v0.data_ptr(), dv.data_ptr(), u0.data_ptr(),
-                    du.data_ptr(), out.data_ptr(), B, H, W, C, N, stream), _NAME)
-    loader.LAUNCHES[_NAME] += 1
+    dims = cuda_dims(F, v0, dv, u0, du)
+    if dims is None:
+        raise_bad_args("gather_twohot_cuda", check_args, F, v0, dv, u0, du)
+    B, H, W, C, N = dims
+    out = F.new_empty_strided((B, C, N), (C * N, N, 1))  # the cheapest allocation call
+    _launch(F.data_ptr(), v0.data_ptr(), dv.data_ptr(), u0.data_ptr(), du.data_ptr(),
+            out.data_ptr(), B, H, W, C, N, loader.raw_stream(F.get_device()))
     return out
 
 

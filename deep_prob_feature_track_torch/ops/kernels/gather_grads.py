@@ -18,15 +18,10 @@ device alone: CUDA tensors launch the kernel
 
 from __future__ import annotations
 
-import ctypes
-
-import torch
-
 from . import loader
-from .gather import check_args, corners
+from .gather import check_args, corners, cuda_dims, raise_bad_args
 
-_NAME = "gather_twohot_grads"
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_launch = loader.launcher("gather_twohot_grads", "gather_twohot_grads_launch", "8P5iP")
 
 
 def gather_twohot_grads_ref(F, v0, dv, u0, du):
@@ -43,20 +38,15 @@ def gather_twohot_grads_ref(F, v0, dv, u0, du):
 
 def gather_twohot_grads_cuda(F, v0, dv, u0, du):
     """Launch the CUDA kernel; every tensor must lie on the same card."""
-    check_args(F, v0, dv, u0, du)
-    for t in (F, v0, dv, u0, du):
-        if not t.is_cuda or t.device != F.device:
-            raise ValueError("gather_twohot_grads_cuda needs CUDA tensors on one device")
-    B, H, W, C = F.shape
-    N = v0.shape[1]
+    dims = cuda_dims(F, v0, dv, u0, du)
+    if dims is None:
+        raise_bad_args("gather_twohot_grads_cuda", check_args, F, v0, dv, u0, du)
+    B, H, W, C, N = dims
     # three separate buffers: the backward keeps gx and gy alive, not out
-    out, gx, gy = (torch.empty((B, C, N), dtype=torch.float32, device=F.device)
-                   for _ in range(3))
-    fn = loader.function(_NAME, "gather_twohot_grads_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(F.device).cuda_stream
-    loader.check(fn(F.data_ptr(), v0.data_ptr(), dv.data_ptr(), u0.data_ptr(), du.data_ptr(),
-                    out.data_ptr(), gx.data_ptr(), gy.data_ptr(), B, H, W, C, N, stream), _NAME)
-    loader.LAUNCHES[_NAME] += 1
+    out, gx, gy = F.new_empty((B, C, N)), F.new_empty((B, C, N)), F.new_empty((B, C, N))
+    _launch(F.data_ptr(), v0.data_ptr(), dv.data_ptr(), u0.data_ptr(), du.data_ptr(),
+            out.data_ptr(), gx.data_ptr(), gy.data_ptr(), B, H, W, C, N,
+            loader.raw_stream(F.get_device()))
     return out, gx, gy
 
 

@@ -16,14 +16,14 @@ einsums of ``solvers/jacobians.py:97-120``).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import loader
 
 _NAME = "fused_jtj_jtr"
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+_TILE = 2048  # pixels per CTA of the first pass (kTile, which the launch checks)
+_launch = loader.launcher(_NAME, "fused_jtj_jtr_launch", "8P4ifP")
+_F32 = torch.float32
 
 
 def jtj_jtr_ref(alpha, beta, res, u, v, sign: float = -1.0):
@@ -57,22 +57,26 @@ def _check(alpha, beta, res, u, v):
 
 def fused_jtj_jtr_cuda(alpha, beta, res, u, v, sign: float = -1.0):
     """Launch the CUDA kernel; every tensor must lie on the same card."""
-    _check(alpha, beta, res, u, v)
-    for t in (alpha, beta, res, u, v):
-        if not t.is_cuda or t.device != alpha.device:
-            raise ValueError("fused_jtj_jtr_cuda needs CUDA tensors on one device")
-    B, C, HW = alpha.shape
-    n_tiles = loader.function(_NAME, "fused_jtj_jtr_tiles", [ctypes.c_int])(HW)
-    fn = loader.function(_NAME, "fused_jtj_jtr_launch", _ARGTYPES)
-    dev = alpha.device
-    partial = torch.empty((B, n_tiles, 27), dtype=torch.float32, device=dev)
-    jtj = torch.empty((B, 6, 6), dtype=torch.float32, device=dev)
-    jtr = torch.empty((B, 6, 1), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    loader.check(fn(alpha.data_ptr(), beta.data_ptr(), res.data_ptr(), u.data_ptr(),
-                    v.data_ptr(), partial.data_ptr(), jtj.data_ptr(), jtr.data_ptr(),
-                    B, C, HW, float(sign), stream), _NAME)
-    loader.LAUNCHES[_NAME] += 1
+    s, su, d = alpha.shape, u.shape, alpha.get_device()
+    if not (alpha.is_cuda and len(s) == 3 and beta.shape == s and res.shape == s
+            and len(su) == 3 and su[0] == s[0] and su[1] == s[2] and su[2] == 6
+            and v.shape == su
+            and alpha.dtype is _F32 and beta.dtype is _F32 and res.dtype is _F32
+            and u.dtype is _F32 and v.dtype is _F32
+            and alpha.is_contiguous() and beta.is_contiguous() and res.is_contiguous()
+            and u.is_contiguous() and v.is_contiguous()
+            and beta.get_device() == d and res.get_device() == d
+            and u.get_device() == d and v.get_device() == d):
+        _check(alpha, beta, res, u, v)
+        raise ValueError("fused_jtj_jtr_cuda needs CUDA tensors on one device")
+    B, C, HW = s
+    n_tiles = -(-HW // _TILE)
+    partial = alpha.new_empty((B, n_tiles, 27))
+    jtj = alpha.new_empty((B, 6, 6))
+    jtr = alpha.new_empty((B, 6, 1))
+    _launch(alpha.data_ptr(), beta.data_ptr(), res.data_ptr(), u.data_ptr(), v.data_ptr(),
+            partial.data_ptr(), jtj.data_ptr(), jtr.data_ptr(), B, C, HW, n_tiles, float(sign),
+            loader.raw_stream(d))
     return jtj, jtr
 
 

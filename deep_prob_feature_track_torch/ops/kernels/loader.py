@@ -9,8 +9,13 @@ so the package imports on a machine without ``nvcc``; a file lock guards it
 against concurrent processes, and a library is reused only when its file
 name's hash of source and flags matches.
 
-Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
-so a run can show that its main path went through the kernels.
+Each launch function takes one argument, a pointer to its arguments packed
+in a C struct: :func:`launcher` packs them with ``struct`` in the native
+layout, which is the struct's, and passes the bytes.  One ``ctypes``
+argument converts in a fraction of the time that a dozen take, and the
+wrappers' host path is what a small launch costs.  :func:`launcher` adds one
+to ``LAUNCHES[name]`` where it launches the kernel, so a run can show that
+its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -20,10 +25,13 @@ import fcntl
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Sequence, Tuple
+from typing import Callable, Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -41,9 +49,10 @@ SOURCES = {
     "gather_tiles_grads": "gather_tiles",
 }
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# C launch function -> the struct format its one argument is packed with
+FORMATS: Dict[str, str] = {}
 
-_libs: Dict[str, ctypes.CDLL] = {}
-_fns: Dict[Tuple[str, str], Callable] = {}
+_libs: Dict[str, ctypes.PyDLL] = {}
 _lock = threading.Lock()
 
 
@@ -103,25 +112,40 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     return targets
 
 
-def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int) -> Callable:
-    """C function ``symbol`` of kernel ``name``'s library with its signature
-    set (every pointer as ``c_void_p``, so ctypes never truncates one),
-    building and loading the library at first use."""
-    fn = _fns.get((name, symbol))
-    if fn is not None:
-        return fn
+def _library(name: str) -> ctypes.PyDLL:
+    """Kernel ``name``'s library, built and loaded at first use.  Loaded as a
+    ``PyDLL``: its launch functions never call back into Python, so a call
+    keeps the GIL rather than paying to drop and take it again."""
     with _lock:
         source = SOURCES[name]
         if source not in _libs:
-            _libs[source] = ctypes.CDLL(str(build([name])[source]))
-        fn = getattr(_libs[source], symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-        _fns[(name, symbol)] = fn
-        return fn
+            _libs[source] = ctypes.PyDLL(str(build([name])[source]))
+        return _libs[source]
 
 
-def check(status: int, name: str) -> None:
-    """Raise if a launch function returned a CUDA error code."""
-    if status != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {status}")
+def launcher(name: str, symbol: str, fmt: str) -> Callable[..., None]:
+    """A function that launches kernel ``name`` through its C launch function
+    ``symbol``: it packs its arguments by the ``struct`` format ``fmt`` (the C
+    struct's fields in order), passes a pointer to them, raises if the launch
+    returned a CUDA error, and adds one to ``LAUNCHES[name]``.  The library is
+    built and bound at the first launch."""
+    pack = struct.Struct(fmt).pack
+    FORMATS[symbol] = fmt
+    fn = None
+
+    def launch(*args) -> None:
+        nonlocal fn
+        if fn is None:
+            fn = getattr(_library(name), symbol)  # returns int; bytes pass as char*
+        status = fn(pack(*args))
+        if status:
+            raise RuntimeError(f"{name}: CUDA launch failed with cudaError {status}")
+        LAUNCHES[name] += 1
+
+    return launch
+
+
+def raw_stream(device_index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device
+    ``device_index``, without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device_index)

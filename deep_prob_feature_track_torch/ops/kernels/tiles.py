@@ -27,19 +27,17 @@ exactly where the JAX package would take its tile kernels.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import loader
-from .gather import gather_twohot_ref
+from .gather import cuda_dims, gather_twohot_ref, raise_bad_args
 from .gather_grads import gather_twohot_grads_ref
 
 TILE_H, TILE_W = 8, 32  # one warp per tile row: coalesced coordinate loads and stores
 BOX_FLOATS = 6656  # 26 KB of shared memory per CTA: an SM holds eight such CTAs
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_ARGTYPES_GRADS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_LAUNCH = {name: loader.launcher(name, f"{name}_launch", "8P8iP")
+           for name in ("gather_tiles", "gather_tiles_grads")}
 
 
 # ------------------------------------------------------------------ route
@@ -129,34 +127,30 @@ def check_args(F, v0, dv, u0, du):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name, argtypes, n_out, F, maps):
+def _launch(name, n_out, F, v0, dv, u0, du):
     """Check the arguments, allocate ``n_out`` outputs [B,C,Hs*Ws] and
     launch kernel ``name``; returns the outputs."""
-    check_args(F, *maps)
-    for t in (F, *maps):
-        if not t.is_cuda or t.device != F.device:
-            raise ValueError(f"{name}_cuda needs CUDA tensors on one device")
-    B, H, W, C = F.shape
-    _, Hs, Ws = maps[0].shape
+    dims = cuda_dims(F, v0, dv, u0, du, maps_ndim=3)
+    if dims is None:
+        raise_bad_args(f"{name}_cuda", check_args, F, v0, dv, u0, du)
+    B, H, W, C, Hs, Ws = dims
     # separate buffers: the training backward keeps gx and gy alive, not out
-    outs = tuple(torch.empty((B, C, Hs * Ws), dtype=torch.float32, device=F.device)
-                 for _ in range(n_out))
-    fn = loader.function(name, f"{name}_launch", argtypes)
-    stream = torch.cuda.current_stream(F.device).cuda_stream
-    loader.check(fn(F.data_ptr(), *(m.data_ptr() for m in maps), *(o.data_ptr() for o in outs),
-                    B, H, W, C, Hs, Ws, TILE_H, BOX_FLOATS, stream), name)
-    loader.LAUNCHES[name] += 1
+    outs = [F.new_empty((B, C, Hs * Ws)) for _ in range(n_out)]
+    ptrs = [o.data_ptr() for o in outs] + [0] * (3 - n_out)
+    _LAUNCH[name](F.data_ptr(), v0.data_ptr(), dv.data_ptr(), u0.data_ptr(), du.data_ptr(),
+                  *ptrs, B, H, W, C, Hs, Ws, TILE_H, BOX_FLOATS,
+                  loader.raw_stream(F.get_device()))
     return outs
 
 
 def gather_tiles_cuda(F, v0, dv, u0, du):
     """Launch K4; every tensor must lie on the same card."""
-    return _launch("gather_tiles", _ARGTYPES, 1, F, (v0, dv, u0, du))[0]
+    return _launch("gather_tiles", 1, F, v0, dv, u0, du)[0]
 
 
 def gather_tiles_grads_cuda(F, v0, dv, u0, du):
     """Launch K5; every tensor must lie on the same card."""
-    return _launch("gather_tiles_grads", _ARGTYPES_GRADS, 3, F, (v0, dv, u0, du))
+    return tuple(_launch("gather_tiles_grads", 3, F, v0, dv, u0, du))
 
 
 def gather_tiles(F, v0, dv, u0, du):

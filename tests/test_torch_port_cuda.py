@@ -5,11 +5,13 @@ no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py
 
-Tolerances: K1 (gather) must match its plain version bit for bit; K2's
+Tolerances: K1 (gather) must match its plain version bit for bit, on
+random, smooth and teleported coordinates; K2's
 ``out`` too, and its gx/gy within 1e-6 of the largest entry; K4 and K5 (the
 tile-staged gathers) the same as K1 and K2, whichever path each tile takes;
 K3 (splat)
-adds with float atomics, within 1e-5 of the largest entry; K6 (JtJ) sums in
+adds with float atomics, within 1e-5 of the largest entry, whichever branch
+(shared-memory sums or global atomics) each tile takes; K6 (JtJ) sums in
 another order than the plain version, rtol 1e-5 with atol 1e-5 of the
 largest entry; the forward atol 1e-4 on R and t; one training step through
 the kernels vs through the plain versions: the loss within 1e-5 relative,
@@ -93,6 +95,89 @@ def test_splat_kernel_matches_plain(cuda, B, H, W, C):
     torch.cuda.synchronize()
     assert d_op.shape == (B, H, W, C)
     torch.testing.assert_close(d_op, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+def _flat_coords(cuda, B, H, W, N, coords, seed=0):
+    """Corner starts and weights [B,N] of N raster samples over an H x W
+    plane: ``random`` uniform coordinates over and past the plane,
+    ``smooth`` sub-pixel flow as a tracker near convergence makes (every
+    K3 tile's corner box is small), ``teleported`` the smooth ones with a
+    few samples per image moved half the plane away (their tiles' boxes
+    span it), ``offplane`` the smooth ones spread 4x about the centre (most
+    samples clamp to the border, whole K3 tiles onto one cell)."""
+    rng = np.random.RandomState(seed)
+    if coords == "random":
+        u = rng.uniform(-3, W + 2, (B, N))
+        v = rng.uniform(-3, H + 2, (B, N))
+    else:
+        y, x = np.divmod(np.arange(N), W)
+        phase = rng.rand(B, 1) * 3
+        u = x + 0.8 * np.sin(y / 9.0 + phase) + 0.3
+        v = y + 0.8 * np.cos(x / 11.0 + phase) + 0.2
+        if coords == "offplane":
+            u, v = (u - W / 2) * 4 + W / 2, (v - H / 2) * 4 + H / 2
+        if coords == "teleported":
+            for b in range(B):
+                idx = rng.randint(0, N, 6)
+                u[b, idx] = (u[b, idx] + W / 2) % (W - 1)
+                v[b, idx] = (v[b, idx] + H / 2) % (H - 1)
+    u, v = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (u, v))
+    return tw._corner_weights((B, H, W, 1), u, v)
+
+
+# N = H*W - 13: the last row of samples, and K1's last run, are ragged
+FLAT_CASES = [(3, 30, 40, 30 * 40 - 13), (2, 120, 160, 120 * 160 - 13)]
+
+
+@pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
+@pytest.mark.parametrize("C", [1, 3, 10, 17])
+@pytest.mark.parametrize("B,H,W,N", FLAT_CASES)
+def test_gather_kernel_bitwise_on_flat_runs(cuda, coords, C, B, H, W, N):
+    F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(C)).to(cuda)
+    args = _flat_coords(cuda, B, H, W, N, coords)
+    out = tk.gather_twohot(F, *args)
+    ref = tk.gather_twohot_ref(F, *args)
+    torch.cuda.synchronize()
+    assert out.shape == (B, C, N)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    torch.testing.assert_close(out, tk.gather_twohot_grads(F, *args)[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
+@pytest.mark.parametrize("C", [1, 3, 10, 17])
+@pytest.mark.parametrize("B,H,W,N", FLAT_CASES + [(64, 2, 2, 300), (64, 15, 20, 300)])
+def test_splat_kernel_on_flat_tiles(cuda, coords, C, B, H, W, N):
+    """Staged tiles, global tiles and launches that mix them; on a 2x2 and
+    a 15x20 plane every tile stages (the contended case)."""
+    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
+
+    args = _flat_coords(cuda, B, H, W, N, coords, seed=1)
+    g = torch.randn(B, C, N, generator=torch.Generator().manual_seed(C)).to(cuda)
+    share = splat_staged_share(args[0], args[2], H, W, C)
+    if H * W <= 300:
+        assert share == 1.0
+    n0 = tk.LAUNCHES["splat_twohot"]
+    d_op = tk.splat_twohot(g, *args, H, W)
+    assert tk.LAUNCHES["splat_twohot"] == n0 + 1
+    ref = tk.splat_twohot_ref(g, *args, H, W)
+    torch.cuda.synchronize()
+    assert d_op.shape == (B, H, W, C)
+    torch.testing.assert_close(d_op, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+def test_splat_launch_mixes_staged_and_global_tiles(cuda):
+    """At 120x160, C=10 smooth tiles stage their box, random ones do not,
+    a few teleported samples send their tiles to the global branch, and
+    off the plane the corner tiles stage while the central ones do not."""
+    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
+
+    shares = {}
+    for coords in ("random", "smooth", "teleported", "offplane"):
+        args = _flat_coords(cuda, 2, 120, 160, 120 * 160, coords)
+        shares[coords] = splat_staged_share(args[0], args[2], 120, 160, 10)
+    assert shares["random"] == 0.0 and shares["smooth"] == 1.0
+    assert 0.0 < shares["teleported"] < 1.0, shares
+    assert 0.0 < shares["offplane"] < 1.0, shares
 
 
 @pytest.mark.parametrize("B,C,HW", [(8, 8, 19200), (8, 8, 300), (2, 3, 2049), (1, 8, 1)])
