@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase below
+    python3 chip_smoke.py --time   # phases 1, 2, 13 and 14 only
+
+``--time`` runs the same measurements against whichever port package lies
+beside the script, so that a copy of this script in an unpacked older tree
+times that tree's kernels the same way, in the same call.
 
 Phases, each of which raises on failure (so the exit code is non-zero):
 
@@ -11,8 +16,10 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 3. K1 ``gather_twohot`` against its plain version at the four pyramid
    shapes of the 120x160 B=8 forward (C=10, coordinates out of range and on
    the border): bit-exact is expected, the limit is max-abs <= 1e-6;
-4. K6 ``fused_jtj_jtr`` against its plain version at the same four shapes
-   (C=8): rtol 1e-5, atol 1e-5 of the largest entry;
+4. K6 ``fused_jtj_jtr`` against its plain version, in float32 and in
+   float64, at the same four shapes (C=8): rtol 1e-5, atol 1e-5 of the
+   largest entry, and a symmetric JtJ; a ``torch.profiler`` trace of one
+   call at each shape must hold exactly one device kernel;
 5. K2 ``gather_twohot_grads`` and K3 ``splat_twohot`` against their plain
    versions at the four pyramid shapes of the 120x160 B=64 training step
    (C=10): K2's ``out`` bit-exact, its gx/gy within 1e-6 of the largest
@@ -31,7 +38,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    corner box in shared memory, and the level-0 teleported and off-plane
    launches take both branches (teleported samples send some tiles to
    global atomics; off the plane, the corner tiles stage all their samples
-   onto one cell);
+   onto one cell); K2 at B=64 on the same inputs as K3: ``out`` bit-exact
+   with its plain version and with K1, gx/gy within 1e-6 of the largest
+   entry;
 8. serve: ``build_service("feature", "", max_batch=8)`` at 120x160 on the
    card, 12 requests from threads and one HTTP ``POST /track``; with the
    launch counts reset just before and read just after, K1 and K6 must
@@ -64,10 +73,13 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    Gauss-Newton loop that reuses them), beside the plain version, one PyTorch library
    call computing the same function where there is one, and the least time
    the card could take (bytes moved over the memory rate, or flops over the
-   f32 rate); K1 (B=8) and K3 (B=64) on random, smooth, teleported and
-   off-plane coordinates, K2 at the B=64 training shapes, K3 at 480x640, B=4 level 0
-   (smooth); K4 and K5 at the 480x640 shapes beside K1 and K2 on the same
-   inputs;
+   f32 rate); K1 (B=8), K2 and K3 (B=64) on random, smooth, teleported and
+   off-plane coordinates, K3 at 480x640, B=4 level 0 (smooth); K4 and K5
+   at the 480x640 shapes beside K1 and K2 on the same inputs; K6 at the
+   120x160 B=8 levels, and at the B=64 training levels and the 480x640
+   B=8 levels, each checked as in 4 (at 480x640 level 0 against the
+   float64 plain version alone: there the float32 one's own sums of
+   307,200 pixels stray past the limit);
 14. profile one B=8 forward at 120x160 and at 480x640 (``torch.profiler``):
    device busy time, the span from its first to its last kernel, the idle
    share of that span, and device time by kernel name.
@@ -217,10 +229,54 @@ def gather_inputs(torch, dev, h, w, seed, b=B):
     return (F.to(dev), *_corner_weights(F.shape, u, v)), (u, v)
 
 
-def jtj_inputs(torch, dev, hw, seed):
+def jtj_inputs(torch, dev, hw, seed, b=B):
     g = torch.Generator().manual_seed(seed)
-    shapes = ((B, C_RES, hw),) * 3 + ((B, hw, 6),) * 2
+    shapes = ((b, C_RES, hw),) * 3 + ((b, hw, 6),) * 2
     return [torch.randn(*s, generator=g).to(dev) for s in shapes]
+
+
+def check_jtj(torch, args, label, plain32=True):
+    """K6 against its plain version on ``args``, in float64 and, with
+    ``plain32``, in float32: rtol 1e-5, atol 1e-5 of the largest entry; a
+    symmetric JtJ.  Logs how far each float32 result is from the float64
+    one; returns the kernel's largest error against the one it is held to."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    got = K.fused_jtj_jtr_cuda(*args, sign=-1.0)
+    f32 = K.jtj_jtr_ref(*args, sign=-1.0)
+    f64 = [t.float() for t in K.jtj_jtr_ref(*[a.double() for a in args], sign=-1.0)]
+    torch.cuda.synchronize()
+    refs = (f64, f32) if plain32 else (f64,)
+    for ref in refs:
+        for x, r in zip(got, ref):
+            torch.testing.assert_close(x, r, rtol=1e-5, atol=1e-5 * r.abs().max().item())
+    if not torch.equal(got[0], got[0].transpose(1, 2)):
+        raise AssertionError(f"fused_jtj_jtr {label}: JtJ is not symmetric")
+
+    def dist(a, r):
+        return max((x - y).abs().max().item() for x, y in zip(a, r)) / r[0].abs().max().item()
+
+    log(f"K6 fused_jtj_jtr {label}, as a share of the largest entry: |kernel - plain f64| "
+        f"{dist(got, f64):.2e}, |kernel - plain f32| {dist(got, f32):.2e}, |plain f32 - plain "
+        f"f64| {dist(f32, f64):.2e}")
+    ref = refs[-1]
+    return max((x - r).abs().max().item() for x, r in zip(got, ref))
+
+
+def traced_kernels(torch, fn, warmup: int):
+    """The device events of a ``torch.profiler`` trace of one call of
+    ``fn``, after ``warmup`` untraced calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def phase_kernels(torch, dev):
@@ -239,16 +295,13 @@ def phase_kernels(torch, dev):
         err["gather_twohot"] = max(err["gather_twohot"], e)
 
         args = jtj_inputs(torch, dev, h * w, seed=10 + i)
-        jtj, jtr = K.fused_jtj_jtr_cuda(*args, sign=-1.0)
-        jtj_r, jtr_r = K.jtj_jtr_ref(*args, sign=-1.0)
-        torch.cuda.synchronize()
-        for got, ref in ((jtj, jtj_r), (jtr, jtr_r)):
-            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
-        e = max((jtj - jtj_r).abs().max().item(), (jtr - jtr_r).abs().max().item())
-        rel = e / jtj_r.abs().max().item()
-        log(f"K6 fused_jtj_jtr level {i} [{B},{C_RES},{h * w}]: max|kernel - plain| = "
-            f"{e:.3e} ({rel:.2e} of the largest entry)")
+        e = check_jtj(torch, args, f"level {i} [{B},{C_RES},{h * w}]")
         err["fused_jtj_jtr"] = max(err["fused_jtj_jtr"], e)
+        names = [e.name for e in traced_kernels(
+            torch, lambda: K.fused_jtj_jtr_cuda(*args, sign=-1.0), warmup=1)]
+        log(f"K6 fused_jtj_jtr level {i}: one call ran {len(names)} device kernel(s) {names}")
+        if len(names) != 1:
+            raise AssertionError(f"one fused_jtj_jtr call ran {len(names)} device kernels")
     return err
 
 
@@ -372,16 +425,17 @@ def phase_tiles_kernels(torch, dev):
 
 
 def phase_flat_kernels(torch, dev):
-    """K1 (B=8) and K3 (B=64) on smooth, teleported and off-plane
+    """K1 (B=8), K2 and K3 (B=64) on smooth, teleported and off-plane
     coordinates at the four 120x160 levels, C=10 and C=17, and K3 at
-    480x640, B=4 level 0: K1 bit-exact, K3 within 1e-5 of the largest
-    entry.  The teleported and off-plane level-0 K3 launches at C=10 must
-    mix staged and global tiles, and its smooth launches at C=10 stage
-    every tile."""
+    480x640, B=4 level 0: K1 and K2's ``out`` bit-exact (K2's also with
+    K1), K2's gx/gy within 1e-6 and K3 within 1e-5 of the largest entry.
+    The teleported and off-plane level-0 K3 launches at C=10 must mix
+    staged and global tiles, and its smooth launches at C=10 stage every
+    tile."""
     from deep_prob_feature_track_torch.ops import kernels as K
     from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
 
-    err = {"gather_twohot": 0.0, "splat_twohot": 0.0}
+    err = {"gather_twohot": 0.0, "gather_twohot_grads": 0.0, "splat_twohot": 0.0}
     cases = [(False, i, B_TRAIN, h, w, c, coords) for i, (h, w) in enumerate(LEVELS)
              for c in (C_WARP, C_FULL) for coords in COORDS[1:]]
     cases.append((True, 0, B_VGA_TRAIN, *VGA_LEVELS[0], C_WARP, "smooth"))
@@ -397,7 +451,22 @@ def phase_flat_kernels(torch, dev):
             if e != 0.0:
                 raise AssertionError(f"gather_twohot is not bit-exact on {label}: {e}")
 
-        _, args, _ = flat_inputs(torch, dev, b, h, w, c, 90 + i, coords)
+        F, args, _ = flat_inputs(torch, dev, b, h, w, c, 90 + i, coords)
+        if not vga:
+            got = K.gather_twohot_grads_cuda(F, *args)
+            ref = K.gather_twohot_grads_ref(F, *args)
+            k1 = K.gather_twohot_cuda(F, *args)
+            torch.cuda.synchronize()
+            e_out = max((got[0] - ref[0]).abs().max().item(), (got[0] - k1).abs().max().item())
+            e2 = max((a - r).abs().max().item() for a, r in zip(got[1:], ref[1:]))
+            top = max(r.abs().max().item() for r in ref[1:])
+            log(f"K2 gather_twohot_grads {label}, B={b}: max|out - plain, K1| = {e_out:.3e}, "
+                f"max|gx,gy - plain| = {e2:.3e} ({e2 / top:.2e} of the largest entry)")
+            if e_out != 0.0:
+                raise AssertionError(f"gather_twohot_grads out is not bit-exact on {label}")
+            if not e2 <= 1e-6 * top:
+                raise AssertionError(f"gather_twohot_grads gx/gy disagree on {label}: {e2}")
+            err["gather_twohot_grads"] = max(err["gather_twohot_grads"], e2)
         g = torch.randn(b, c, h * w, generator=torch.Generator().manual_seed(i)).to(dev)
         got = K.splat_twohot_cuda(g, *args, h, w)
         ref = K.splat_twohot_ref(g, *args, h, w)
@@ -702,6 +771,38 @@ def k3_timing(torch, g, args, uv, h, w, bw, flops):
     }
 
 
+def k6_timing(torch, args, bw, flops):
+    """K6's events and device time on ``args`` (alpha, beta, res [b,C,n],
+    u, v [b,n,6]) beside its plain version and the byte bound."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    b, c, n = args[0].shape
+    return {
+        "ms": time_ms(torch, lambda: K.fused_jtj_jtr_cuda(*args)),
+        "device_ms": device_ms(torch, lambda: K.fused_jtj_jtr_cuda(*args)),
+        "plain_ms": time_ms(torch, lambda: K.jtj_jtr_ref(*args)),
+        "library_ms": None,  # no single PyTorch call returns JtJ and JtR
+        **bound(4 * (3 * b * c * n + 2 * b * n * 6 + b * 42), b * n * (10 * c + 144), bw, flops),
+    }
+
+
+def k2_timing(torch, F, args, bw, flops):
+    """K2's events and device time on F [b,h,w,C] at the corner maps
+    ``args`` [b,n], beside its plain version and the byte bound."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    b, h, w, c = F.shape
+    n = args[0].shape[1]
+    planes = b * n * c  # floats of each [b,C,n] output
+    return {
+        "ms": time_ms(torch, lambda: K.gather_twohot_grads_cuda(F, *args)),
+        "device_ms": device_ms(torch, lambda: K.gather_twohot_grads_cuda(F, *args)),
+        "plain_ms": time_ms(torch, lambda: K.gather_twohot_grads_ref(F, *args)),
+        "library_ms": None,  # no single PyTorch call returns the value and both maps
+        **bound(4 * (F.numel() + 4 * b * n + 3 * planes), b * n * (2 + 17 * c), bw, flops),
+    }
+
+
 def flat_inputs(torch, dev, b, h, w, c, seed, coords):
     """F [b,h,w,c], the corner maps [b,h*w] and (u, v) of ``coords``:
     ``random`` (gather_inputs, C_WARP channels), ``smooth``, ``teleported``
@@ -715,7 +816,6 @@ def flat_inputs(torch, dev, b, h, w, c, seed, coords):
 
 def phase_time(torch, dev, name):
     from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
-    from deep_prob_feature_track_torch.ops import kernels as K
 
     bw, flops = peaks(name)
     net = build_tracker("feature", device=dev)
@@ -734,16 +834,7 @@ def phase_time(torch, dev, name):
         for coords in COORDS:
             F, args, uv = flat_inputs(torch, dev, B, h, w, C_WARP, i, coords)
             k1[coords] = k1_timing(torch, F, args, uv, bw, flops)
-        jargs = jtj_inputs(torch, dev, n, seed=10 + i)
-        jbytes = 4 * (3 * B * C_RES * n + 2 * B * n * 6 + B * 42)
-        jflops = B * n * (10 * C_RES + 144)
-        k6 = {
-            "ms": time_ms(torch, lambda: K.fused_jtj_jtr_cuda(*jargs)),
-            "device_ms": device_ms(torch, lambda: K.fused_jtj_jtr_cuda(*jargs)),
-            "plain_ms": time_ms(torch, lambda: K.jtj_jtr_ref(*jargs)),
-            "library_ms": None,
-            **bound(jbytes, jflops, bw, flops),
-        }
+        k6 = k6_timing(torch, jtj_inputs(torch, dev, n, seed=10 + i), bw, flops)
         levels.append({"level": i, "hw": [h, w], "gather_twohot": k1["random"],
                        **{f"gather_twohot_{c}": k1[c] for c in COORDS[1:]},
                        "fused_jtj_jtr": k6})
@@ -757,35 +848,27 @@ def phase_time(torch, dev, name):
 
 
 def phase_time_grads(torch, dev, name):
-    """K2 and K3 at the B=64 levels (K3 on random, smooth, teleported and
-    off-plane coordinates), and K3 at 480x640, B=4 level 0 on smooth ones."""
-    from deep_prob_feature_track_torch.ops import kernels as K
-
+    """K2 and K3 at the B=64 levels on random, smooth, teleported and
+    off-plane coordinates, and K3 at 480x640, B=4 level 0 on smooth ones."""
     bw, flops = peaks(name)
     levels = []
     for i, (h, w) in enumerate(LEVELS):
-        n = h * w
         args, (u, v) = gather_inputs(torch, dev, h, w, seed=20 + i, b=B_TRAIN)
-        planes = B_TRAIN * n * C_WARP  # operand plane = each [B,C,N] map, in floats
-        k2_bytes = 4 * (planes + 4 * B_TRAIN * n + 3 * planes)
-        k2_flops = B_TRAIN * n * (2 + 17 * C_WARP)
-        k2 = {
-            "ms": time_ms(torch, lambda: K.gather_twohot_grads_cuda(*args)),
-            "device_ms": device_ms(torch, lambda: K.gather_twohot_grads_cuda(*args)),
-            "plain_ms": time_ms(torch, lambda: K.gather_twohot_grads_ref(*args)),
-            "library_ms": None,  # no single PyTorch call returns the value and both maps
-            **bound(k2_bytes, k2_flops, bw, flops),
-        }
         g = splat_cotangent(torch, dev, h, w, seed=30 + i)
+        k2 = {"random": k2_timing(torch, args[0], args[1:], bw, flops)}
         k3 = {"random": k3_timing(torch, g, args[1:], (u, v), h, w, bw, flops)}
         for coords in COORDS[1:]:
-            _, flat, uv = flat_inputs(torch, dev, B_TRAIN, h, w, C_WARP, 30 + i, coords)
+            F, flat, uv = flat_inputs(torch, dev, B_TRAIN, h, w, C_WARP, 30 + i, coords)
+            k2[coords] = k2_timing(torch, F, flat, bw, flops)
             k3[coords] = k3_timing(torch, g, flat, uv, h, w, bw, flops)
-        levels.append({"level": i, "hw": [h, w], "gather_twohot_grads": k2,
+        levels.append({"level": i, "hw": [h, w], "gather_twohot_grads": k2["random"],
+                       **{f"gather_twohot_grads_{c}": k2[c] for c in COORDS[1:]},
                        "splat_twohot": k3["random"],
                        **{f"splat_twohot_{c}": k3[c] for c in COORDS[1:]}})
-        log(f"level {i} {h}x{w} B={B_TRAIN}: K2 {k2['ms']:.4f} ms, device "
-            f"{k2['device_ms']:.4f} (plain {k2['plain_ms']:.4f}, bound {k2['bound_ms']:.4f})")
+        for coords, r in k2.items():
+            log(f"level {i} {h}x{w} B={B_TRAIN}, {coords} coordinates: K2 {r['ms']:.4f} ms, "
+                f"device {r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f})")
         for coords, r in k3.items():
             log(f"level {i} {h}x{w} B={B_TRAIN}, {coords} coordinates: K3 {r['ms']:.4f} ms, "
                 f"device {r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, "
@@ -801,6 +884,26 @@ def phase_time_grads(torch, dev, name):
         f"{vga['library_ms']:.4f}, bound {vga['bound_ms']:.4f}, staged share "
         f"{vga['staged_share']:.4f})")
     return levels, vga
+
+
+def phase_time_jtj(torch, dev, name):
+    """K6 at the B=64 training levels (120x160) and the B=8 480x640 levels,
+    each checked against its plain version first."""
+    bw, flops = peaks(name)
+    rows = []
+    for b, levels in ((B_TRAIN, LEVELS), (B, VGA_LEVELS)):
+        for i, (h, w) in enumerate(levels):
+            args = jtj_inputs(torch, dev, h * w, seed=100 + i, b=b)
+            # at 307200 pixels the float32 plain version's own sums stray
+            # past the limit from the float64 ones
+            e = check_jtj(torch, args, f"level {i} [{b},{C_RES},{h * w}]",
+                          plain32=h * w < H_VGA * W_VGA)
+            r = {"b": b, "level": i, "hw": [h, w], "max_abs_err": e,
+                 **k6_timing(torch, args, bw, flops)}
+            rows.append(r)
+            log(f"level {i} {h}x{w} B={b}: K6 {r['ms']:.4f} ms, device {r['device_ms']:.4f} "
+                f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f})")
+    return rows
 
 
 def phase_time_tiles(torch, dev, name):
@@ -868,19 +971,10 @@ def phase_forward(torch, dev, h, w):
 
 
 def profile(torch, fn, label):
-    """Device busy time, span, idle share, launch count and the top kernels
-    of one call of ``fn`` after three warm-up calls (``torch.profiler``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    """Device busy time, span, idle share, launch count, launches by kernel
+    name and the top kernels of one call of ``fn`` after three warm-up
+    calls (``torch.profiler``)."""
+    kernels = traced_kernels(torch, fn, warmup=3)
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -891,10 +985,14 @@ def profile(torch, fn, label):
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    launches_by_kernel = {}
+    for k, (_, n) in sorted(by_name.items()):
+        launches_by_kernel[k[:160]] = launches_by_kernel.get(k[:160], 0) + n
     out = {
         "device_busy_ms": busy, "device_span_ms": span, "idle_share": 1.0 - busy / span,
         "kernel_launches": len(kernels),
         "top": [{"name": k[:80], "ms": ms, "count": n} for k, (ms, n) in top],
+        "launches_by_kernel": launches_by_kernel,
     }
     log(f"profile of one {label}: device busy {busy:.3f} ms over a {span:.3f} ms span "
         f"(idle share {out['idle_share']:.3f}), {len(kernels)} kernel launches")
@@ -910,9 +1008,13 @@ def phase_profile(torch, dev):
         return profile(torch, lambda: net(*batch), "B=8 forward")
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    time_only = argv == ["--time"]
+    if argv and not time_only:
+        print("usage: chip_smoke.py [--time]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -932,6 +1034,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {name} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     set_float32_policy()
+    if time_only:  # phases 1, 2, 13 and 14: to compare two trees in one call
+        t0 = time.monotonic()
+        build_kernels(loader)
+        print(json.dumps({**measure(torch, dev, name), "card": smi}), flush=True)
+        log(f"done in {time.monotonic() - t0:.1f} s")
+        return 0
     kernels = run(torch, loader, dev, name, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -940,10 +1048,7 @@ def main() -> int:
     return 0
 
 
-def run(torch, loader, dev, name, smi):
-    """Every phase on ``dev``; prints the measurements as one JSON line and
-    returns the ``kernels`` record."""
-    t_start = time.monotonic()
+def build_kernels(loader):
     t0 = time.monotonic()
     paths = loader.build()
     log(f"built {sorted(paths)} in {time.monotonic() - t0:.1f} s")
@@ -951,6 +1056,26 @@ def run(torch, loader, dev, name, smi):
         for line in (loader.BUILD_DIR / f"{source}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {source}: {line.strip()}")
+
+
+def measure(torch, dev, name):
+    """The time phases (13, 14): each kernel per level beside its plain
+    version, library call and bound, and the profiled forwards."""
+    timing = phase_time(torch, dev, name)
+    grads_levels, vga_splat = phase_time_grads(torch, dev, name)
+    tiles_levels = phase_time_tiles(torch, dev, name)
+    jtj_levels = phase_time_jtj(torch, dev, name)
+    timing["profile"] = phase_profile(torch, dev)
+    return {"timing": timing, "grads_levels": grads_levels, "jtj_levels": jtj_levels,
+            "tiles_levels": tiles_levels, "vga_splat_level0": vga_splat,
+            "vga_forward": phase_forward(torch, dev, H_VGA, W_VGA)}
+
+
+def run(torch, loader, dev, name, smi):
+    """Every phase on ``dev``; prints the measurements as one JSON line and
+    returns the ``kernels`` record."""
+    t_start = time.monotonic()
+    build_kernels(loader)
 
     errors = phase_kernels(torch, dev)
     errors.update(phase_grads_kernels(torch, dev))
@@ -965,23 +1090,16 @@ def run(torch, loader, dev, name, smi):
     vga_train = phase_train(torch, dev, B_VGA_TRAIN, H_VGA, W_VGA, VGA_TRAIN_SEED,
                             VGA_TRAIN_LAUNCHES)
     scene_shares = phase_scene_share(torch, dev)
-    timing = phase_time(torch, dev, name)
-    grads_levels, vga_splat = phase_time_grads(torch, dev, name)
-    tiles_levels = phase_time_tiles(torch, dev, name)
-    timing["profile"] = phase_profile(torch, dev)
-    vga_forward = phase_forward(torch, dev, H_VGA, W_VGA)
-    print(json.dumps({"timing": timing, "grads_levels": grads_levels, "train": train,
-                      "vga": {"forward": vga_forward, "train": vga_train,
-                              "tiles_levels": tiles_levels, "splat_level0": vga_splat,
-                              "scene_staged_share": scene_shares,
-                              "serve_launches": vga_launches},
+    m = measure(torch, dev, name)
+    print(json.dumps({**m, "train": train, "vga_train": vga_train,
+                      "scene_staged_share": scene_shares, "vga_serve_launches": vga_launches,
                       "card": smi}), flush=True)
 
     # K1 and K6 as the 120x160 serve path launched them, K2 and K3 as the
     # 120x160 train path did; K4 as the 480x640 serve path, K5 as the 480x640
     # train path did
-    level0 = {**timing["levels"][0], **grads_levels[0],
-              **{row["kernel"]: row for row in tiles_levels if row["level"] == 0}}
+    level0 = {**m["timing"]["levels"][0], **m["grads_levels"][0],
+              **{row["kernel"]: row for row in m["tiles_levels"] if row["level"] == 0}}
     launches.update({k: train["launches"][k] for k in ("gather_twohot_grads", "splat_twohot")})
     launches["gather_tiles"] = vga_launches["gather_tiles"]
     launches["gather_tiles_grads"] = vga_train["launches"]["gather_tiles_grads"]
@@ -1006,4 +1124,4 @@ def run(torch, loader, dev, name, smi):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

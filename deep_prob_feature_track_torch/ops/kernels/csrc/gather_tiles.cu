@@ -4,8 +4,8 @@
 //
 // Replaces the Pallas TPU kernels gather_tiles and gather_tiles_grads
 // (deep_prob_feature_track_tpu/ops/pallas/gather_tiles.py:177 _kernel,
-// entries :481 and :504).  The function is K1's (csrc/gather_twohot.cu) and,
-// with GRADS, K2's (csrc/gather_twohot_grads.cu):
+// entries :481 and :504).  The function is K1's and, with GRADS, K2's (both
+// csrc/gather_twohot.cu):
 //
 //   out = c00 (1-du)(1-dv) + c01 du (1-dv) + c10 (1-du) dv + c11 du dv
 //   gx  = (c01 - c00)(1-dv) + (c11 - c10) dv

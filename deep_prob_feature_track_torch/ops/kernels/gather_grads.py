@@ -11,8 +11,9 @@ outputs:
 ``out`` is K1's blend, bit for bit; ``gx`` and ``gy`` are the within-cell
 derivatives along u and v that the gather's backward contracts with the
 output cotangent.  ``gather_twohot_grads`` dispatches on the tensors'
-device alone: CUDA tensors launch the kernel
-(``csrc/gather_twohot_grads.cu``), CPU tensors take
+device alone: CUDA tensors launch the kernel (``csrc/gather_twohot.cu``
+with ``GRADS``: K1's runs of consecutive samples, lanes over the channels
+and one shared tile per output for coalesced stores), CPU tensors take
 ``gather_twohot_grads_ref``.
 """
 

@@ -7,8 +7,9 @@ Replaces ``deep_prob_feature_track_tpu/ops/pallas/jtj.py::fused_jtj_jtr``
         ->  JtJ [B,6,6], JtR [B,6,1]
 
 ``fused_jtj_jtr`` dispatches on the tensors' device alone: CUDA tensors
-launch the kernel (``csrc/fused_jtj_jtr.cu``), CPU tensors take
-``jtj_jtr_ref``.  ``FusedJtJ`` makes the reduction differentiable: its
+launch the kernel (``csrc/fused_jtj_jtr.cu``: one launch, one thread-block
+cluster per image whose rank 0 sums its peers' partial sums in rank order),
+CPU tensors take ``jtj_jtr_ref``.  ``FusedJtJ`` makes the reduction differentiable: its
 forward is ``fused_jtj_jtr`` and its backward the closed-form VJP in tensor
 ops (the JAX package has no backward kernel here: XLA differentiates the
 einsums of ``solvers/jacobians.py:97-120``).
@@ -20,9 +21,7 @@ import torch
 
 from . import loader
 
-_NAME = "fused_jtj_jtr"
-_TILE = 2048  # pixels per CTA of the first pass (kTile, which the launch checks)
-_launch = loader.launcher(_NAME, "fused_jtj_jtr_launch", "8P4ifP")
+_launch = loader.launcher("fused_jtj_jtr", "fused_jtj_jtr_launch", "7P3ifP")
 _F32 = torch.float32
 
 
@@ -70,13 +69,10 @@ def fused_jtj_jtr_cuda(alpha, beta, res, u, v, sign: float = -1.0):
         _check(alpha, beta, res, u, v)
         raise ValueError("fused_jtj_jtr_cuda needs CUDA tensors on one device")
     B, C, HW = s
-    n_tiles = -(-HW // _TILE)
-    partial = alpha.new_empty((B, n_tiles, 27))
     jtj = alpha.new_empty((B, 6, 6))
     jtr = alpha.new_empty((B, 6, 1))
     _launch(alpha.data_ptr(), beta.data_ptr(), res.data_ptr(), u.data_ptr(), v.data_ptr(),
-            partial.data_ptr(), jtj.data_ptr(), jtr.data_ptr(), B, C, HW, n_tiles, float(sign),
-            loader.raw_stream(d))
+            jtj.data_ptr(), jtr.data_ptr(), B, C, HW, float(sign), loader.raw_stream(d))
     return jtj, jtr
 
 

@@ -42,7 +42,7 @@ NVCC_FLAGS = (
 # kernel name -> the csrc/ source that holds it
 SOURCES = {
     "gather_twohot": "gather_twohot",
-    "gather_twohot_grads": "gather_twohot_grads",
+    "gather_twohot_grads": "gather_twohot",
     "splat_twohot": "splat_twohot",
     "fused_jtj_jtr": "fused_jtj_jtr",
     "gather_tiles": "gather_tiles",

@@ -13,7 +13,9 @@ K3 (splat)
 adds with float atomics, within 1e-5 of the largest entry, whichever branch
 (shared-memory sums or global atomics) each tile takes; K6 (JtJ) sums in
 another order than the plain version, rtol 1e-5 with atol 1e-5 of the
-largest entry; the forward atol 1e-4 on R and t; one training step through
+largest entry, against the plain version in float32 and in float64 (at
+307200 pixels the float64 one alone: the float32 one's own sums stray
+past that limit); the forward atol 1e-4 on R and t; one training step through
 the kernels vs through the plain versions: the loss within 1e-5 relative,
 each gradient leaf within 5e-3 of its largest entry (the envelope of 12
 chained Gauss-Newton solves, ``tests/test_torch_port_train.py``).
@@ -143,6 +145,38 @@ def test_gather_kernel_bitwise_on_flat_runs(cuda, coords, C, B, H, W, N):
     torch.testing.assert_close(out, tk.gather_twohot_grads(F, *args)[0], rtol=0, atol=0)
 
 
+def _plane(cuda, B, H, W, C, offset):
+    """F [B,H,W,C] on the card; with ``offset`` a view one float past an
+    aligned allocation, so the kernels' float2 path is refused."""
+    buf = torch.randn(B * H * W * C + 1, generator=torch.Generator().manual_seed(C)).to(cuda)
+    return (buf[1:] if offset else buf[:-1]).view(B, H, W, C)
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
+@pytest.mark.parametrize("C", [1, 3, 10, 17, 40])
+@pytest.mark.parametrize("B,H,W,N", FLAT_CASES + [(64, 15, 20, 300)])
+def test_gather_grads_kernel_on_flat_runs(cuda, offset, coords, C, B, H, W, N):
+    """K2 on compact runs (smooth, off the plane, a 15x20 plane), scattered
+    ones (random) and launches that mix them (teleported), at both chunk
+    sizes of the scattered path (C <= 32 and above), scalar and float2
+    loads: ``out`` bit-exact with its plain version and with K1, gx/gy
+    within 1e-6 of the largest entry."""
+    F = _plane(cuda, B, H, W, C, offset)
+    assert (F.data_ptr() % 8 != 0) == offset
+    args = _flat_coords(cuda, B, H, W, N, coords)
+    n0 = tk.LAUNCHES["gather_twohot_grads"]
+    out, gx, gy = tk.gather_twohot_grads(F, *args)
+    assert tk.LAUNCHES["gather_twohot_grads"] == n0 + 1
+    ref = tk.gather_twohot_grads_ref(F, *args)
+    torch.cuda.synchronize()
+    assert out.shape == gx.shape == gy.shape == (B, C, N)
+    torch.testing.assert_close(out, ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(out, tk.gather_twohot(F, *args), rtol=0, atol=0)
+    for got, r in zip((gx, gy), ref[1:]):
+        torch.testing.assert_close(got, r, rtol=0, atol=1e-6 * r.abs().max().item())
+
+
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
 @pytest.mark.parametrize("C", [1, 3, 10, 17])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES + [(64, 2, 2, 300), (64, 15, 20, 300)])
@@ -194,6 +228,56 @@ def test_jtj_kernel_matches_plain(cuda, B, C, HW):
     torch.testing.assert_close(jtj, jtj.transpose(1, 2), rtol=0, atol=0)
     again = tk.fused_jtj_jtr(*args, sign=-1.0)
     torch.testing.assert_close(again[0], jtj, rtol=0, atol=0)  # no atomics: same every run
+
+
+def _jtj_inputs(cuda, B, C, HW, offset):
+    """alpha, beta, res [B,C,HW] and u, v [B,HW,6] made on the card; with
+    ``offset`` each a view one float past an aligned allocation, so the
+    kernel's float4 path is refused."""
+    g = torch.Generator(device=cuda).manual_seed(HW + B)
+    out = []
+    for shape in ((B, C, HW),) * 3 + ((B, HW, 6),) * 2:
+        n = int(np.prod(shape))
+        buf = torch.randn(n + 1, generator=g, device=cuda)
+        out.append((buf[1:] if offset else buf[:-1]).view(shape))
+    return out
+
+
+def _device_kernels(fn):
+    """Names of the device kernels that one call of ``fn`` ran, from a
+    ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("HW", [1, 300, 2049, 19200, 307200])
+def test_jtj_kernel_one_deterministic_launch(cuda, offset, B, HW):
+    """Every cluster size the launch picks (1 to 16 CTAs an image), float4
+    and scalar loads: within the plain version's tolerance, symmetric, the
+    same bits on a second run, and one device kernel per call."""
+    args = _jtj_inputs(cuda, B, 8, HW, offset)
+    jtj, jtr = tk.fused_jtj_jtr(*args, sign=-1.0)
+    f32 = tk.jtj_jtr_ref(*args, sign=-1.0)
+    f64 = [t.float() for t in tk.jtj_jtr_ref(*[a.double() for a in args], sign=-1.0)]
+    # at 307200 pixels the float32 plain version's own sums stray past the
+    # limit from the float64 ones: the kernel is held to those alone there
+    for ref in (f64, f32) if HW < 307200 else (f64,):
+        for got, r in zip((jtj, jtr), ref):
+            torch.testing.assert_close(got, r, rtol=1e-5, atol=1e-5 * r.abs().max().item())
+    torch.testing.assert_close(jtj, jtj.transpose(1, 2), rtol=0, atol=0)
+    again = tk.fused_jtj_jtr(*args, sign=-1.0)
+    assert torch.equal(again[0], jtj) and torch.equal(again[1], jtr)
+    names = _device_kernels(lambda: tk.fused_jtj_jtr(*args, sign=-1.0))
+    assert len(names) == 1 and "fused_jtj_jtr" in names[0], names
 
 
 def test_forward_kernels_match_plain_on_card(cuda):
