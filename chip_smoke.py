@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py          # every phase below
-    python3 chip_smoke.py --time   # phases 1, 2, 13 and 14 only
+    python3 chip_smoke.py --time   # phases 1, 2, 17 and 18 only
 
 ``--time`` runs the same measurements against whichever port package lies
 beside the script, so that a copy of this script in an unpacked older tree
@@ -26,7 +26,8 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    entry; K3 (float atomics) within 1e-5 of the largest entry;
 6. K4 ``gather_tiles`` (B=8, 480x640) and K5 ``gather_tiles_grads`` (B=4,
    480x640 and 240x320) against their plain versions and against K1 / K2
-   on the same inputs, at C=10 and C=17, on smooth small-motion coordinates
+   on the same inputs, at C=10 and C=17, K4 also at C=1, 3 and 6 and K5 at
+   C=6 (the classical and ICP warps), on smooth small-motion coordinates
    (every tile stages its box in shared memory) and on the same with
    samples teleported across the plane (one launch takes both paths):
    ``out`` bit-exact, gx/gy within 1e-6 of the largest entry;
@@ -40,7 +41,7 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    global atomics; off the plane, the corner tiles stage all their samples
    onto one cell); K2 at B=64 on the same inputs as K3: ``out`` bit-exact
    with its plain version and with K1, gx/gy within 1e-6 of the largest
-   entry;
+   entry; K1 and K2 also at C=1, 3 and 6, where no K3 runs;
 8. serve: ``build_service("feature", "", max_batch=8)`` at 120x160 on the
    card, 12 requests from threads and one HTTP ``POST /track``; with the
    launch counts reset just before and read just after, K1 and K6 must
@@ -48,7 +49,15 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    must be orthonormal and every t finite, and one batch through the
    kernels, through their plain versions on the card and on the CPU must
    agree within atol 1e-4;
-9. train: the feature preset's train state on the card at 120x160, B=64,
+9. serve ``feature_icp`` as in 8: per batch K1 24 times (a feature warp,
+   C=10, and an ICP warp of vertices and normals, C=6, per iteration) and
+   K6 12 times; the kernel forward agrees with the plain one within 1e-5
+   and with the CPU one within 1e-4 on R and t;
+10. the classical presets ``RGB``, ``ICP`` and ``RGB+ICP`` at 120x160 B=8
+   on the served requests: per forward K1 24, 12 and 24 times (C=1; C=6;
+   C=3 and C=6) and K6 0, 0 and 12 times (C=1); kernels against plain
+   within 1e-5 and against the CPU within 1e-4;
+11. train: the feature preset's train state on the card at 120x160, B=64,
    a seeded synthetic batch, 3 steps; with the counts reset before and read
    after each step, K2, K3 and K6 must have run 12 times and K1, K4, K5 not
    at all, and the loss and gradient norm must be finite.  One loss and
@@ -57,16 +66,21 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    5e-3 of its largest entry (the envelope of 12 chained Gauss-Newton
    solves).  The step is timed with the kernels and with the plain versions
    and profiled;
-10. serve at 480x640 as in 8: per batch K4 3 times (level 0), K1 9 times
+12. train ``feature_icp`` as in 11: per step K2 24 times, K3 and K6 12
+   times (the ICP operand, from the input depth, needs no cotangent);
+13. serve at 480x640 as in 8: per batch K4 3 times (level 0), K1 9 times
    (levels 1-3), K6 12 times, K2, K3 and K5 not at all; the kernel and
    plain forwards agree at B=8, the kernel and CPU forwards at B=2;
-11. train at 480x640, B=4 as in 9: per step K5 6 times (levels 0-1), K2 6
+14. ``feature_icp`` at 480x640 B=8 on the served requests: per forward K4
+   6 times (level 0, C=10 and C=6), K1 18 and K6 12 times; kernels against
+   plain within 1e-5;
+15. train at 480x640, B=4 as in 11: per step K5 6 times (levels 0-1), K2 6
    times (levels 2-3), K3 and K6 12 times, K1 and K4 not at all; kernels
    against plain within the same limits; timed and profiled;
-12. the share of K4's, K5's and K3's tiles that staged on the
+16. the share of K4's, K5's and K3's tiles that staged on the
    synthetic scenes' own warps: the 480x640 forward, and one loss and
    backward at 480x640, B=4 and at 120x160, B=64;
-13. time the forwards and each kernel at each level (CUDA events around
+17. time the forwards and each kernel at each level (CUDA events around
    back-to-back calls after warm-up, and the kernels' own device time:
    events around calls queued behind a sleep kernel, so no host launch gap
    falls between them; operands warm in L2 where they fit, as in the
@@ -79,10 +93,16 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    120x160 B=8 levels, and at the B=64 training levels and the 480x640
    B=8 levels, each checked as in 4 (at 480x640 level 0 against the
    float64 plain version alone: there the float32 one's own sums of
-   307,200 pixels stray past the limit);
-14. profile one B=8 forward at 120x160 and at 480x640 (``torch.profiler``):
-   device busy time, the span from its first to its last kernel, the idle
-   share of that span, and device time by kernel name.
+   307,200 pixels stray past the limit); K1 at C=1, 3 and 6 at the 120x160
+   B=8 levels, K2 at C=6 (B=64, level 0) and K4 at C=6 (480x640 B=8), on
+   smooth coordinates; with ``--time``, the 120x160 B=64 train step of
+   ``feature`` and ``feature_icp``;
+18. profile one B=8 forward at 120x160 and at 480x640 (``torch.profiler``),
+   of ``feature`` and, timed too, of ``feature_icp``, and at 120x160 of
+   ``RGB``, ``ICP`` and ``RGB+ICP``: device busy time, the span from its
+   first to its last kernel, the idle share of that span, and launches and
+   device time by kernel name; with ``--time``, the train steps of 17 too
+   (the full run times them in 11 and 12).
 
 The last lines are a JSON ``kernels`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -152,6 +172,20 @@ TRAIN_LAUNCHES = counts(gather_twohot_grads=12, splat_twohot=12, fused_jtj_jtr=1
 VGA_SERVE_LAUNCHES = counts(gather_tiles=3, gather_twohot=9, fused_jtj_jtr=12)
 VGA_TRAIN_LAUNCHES = counts(gather_tiles_grads=6, gather_twohot_grads=6, splat_twohot=12,
                             fused_jtj_jtr=12)
+# feature_icp: one more warp per iteration, the ICP operand [vertex1 | normal1]
+# (C=6); ScaleNet("None") reads no residuals, so none are taken for it
+ICP_SERVE_LAUNCHES = counts(gather_twohot=24, fused_jtj_jtr=12)
+ICP_VGA_LAUNCHES = counts(gather_tiles=6, gather_twohot=18, fused_jtj_jtr=12)
+# the ICP operand comes from the input depth and needs no cotangent: no K3
+ICP_TRAIN_LAUNCHES = counts(gather_twohot_grads=24, splat_twohot=12, fused_jtj_jtr=12)
+# per forward of the classical presets at 120x160: RGB warps the gray image
+# and the occlusion depth (C=1) once each for 3 residuals a level (the last
+# iteration's new residual is not taken), ICP its operand (C=6) once an
+# iteration, RGB+ICP the U_IC operand (C=3) and the ICP operand once each
+CLASSICAL_LAUNCHES = {"RGB": counts(gather_twohot=24), "ICP": counts(gather_twohot=12),
+                      "RGB+ICP": counts(gather_twohot=24, fused_jtj_jtr=12)}
+C_ICP = (1, 3, 6)  # the channel counts of the classical and ICP warps
+PRESET_ATOL = 1e-5  # kernel against plain forward of the presets this slice added
 
 
 def log(msg: str) -> None:
@@ -378,6 +412,11 @@ def tile_inputs(torch, dev, b, h, w, c, seed, coords="smooth"):
 # (kernel, batch, level of VGA_LEVELS) as the 480x640 paths launch them
 TILE_CASES = (("gather_tiles", B, 0), ("gather_tiles_grads", B_VGA_TRAIN, 0),
               ("gather_tiles_grads", B_VGA_TRAIN, 1))
+# the channel counts each tile kernel is checked at: the feature warp's,
+# the un-slimmed one, and the classical and ICP warps' (K4 at C=1 and 3 is
+# checked though the route sends those planes to K1)
+TILE_CHANNELS = {"gather_tiles": C_ICP + (C_WARP, C_FULL),
+                 "gather_tiles_grads": (6, C_WARP, C_FULL)}
 
 
 def phase_tiles_kernels(torch, dev):
@@ -387,7 +426,7 @@ def phase_tiles_kernels(torch, dev):
     err = {"gather_tiles": 0.0, "gather_tiles_grads": 0.0}
     for i, (kname, b, level) in enumerate(TILE_CASES):
         h, w = VGA_LEVELS[level]
-        for c in (C_WARP, C_FULL):
+        for c in TILE_CHANNELS[kname]:
             for teleport in (False, True):
                 F, maps, _ = tile_inputs(torch, dev, b, h, w, c, seed=40 + i,
                                          coords="teleported" if teleport else "smooth")
@@ -426,8 +465,9 @@ def phase_tiles_kernels(torch, dev):
 
 def phase_flat_kernels(torch, dev):
     """K1 (B=8), K2 and K3 (B=64) on smooth, teleported and off-plane
-    coordinates at the four 120x160 levels, C=10 and C=17, and K3 at
-    480x640, B=4 level 0: K1 and K2's ``out`` bit-exact (K2's also with
+    coordinates at the four 120x160 levels, C=10 and C=17, K1 and K2 there
+    at C=1, 3 and 6 (the classical and ICP warps), and K3 at 480x640, B=4
+    level 0: K1 and K2's ``out`` bit-exact (K2's also with
     K1), K2's gx/gy within 1e-6 and K3 within 1e-5 of the largest entry.
     The teleported and off-plane level-0 K3 launches at C=10 must mix
     staged and global tiles, and its smooth launches at C=10 stage every
@@ -437,7 +477,7 @@ def phase_flat_kernels(torch, dev):
 
     err = {"gather_twohot": 0.0, "gather_twohot_grads": 0.0, "splat_twohot": 0.0}
     cases = [(False, i, B_TRAIN, h, w, c, coords) for i, (h, w) in enumerate(LEVELS)
-             for c in (C_WARP, C_FULL) for coords in COORDS[1:]]
+             for c in C_ICP + (C_WARP, C_FULL) for coords in COORDS[1:]]
     cases.append((True, 0, B_VGA_TRAIN, *VGA_LEVELS[0], C_WARP, "smooth"))
     for vga, i, b, h, w, c, coords in cases:
         label = f"level {i} {h}x{w}, C={c}, {coords} coordinates"
@@ -467,6 +507,9 @@ def phase_flat_kernels(torch, dev):
             if not e2 <= 1e-6 * top:
                 raise AssertionError(f"gather_twohot_grads gx/gy disagree on {label}: {e2}")
             err["gather_twohot_grads"] = max(err["gather_twohot_grads"], e2)
+            err["gather_twohot"] = max(err["gather_twohot"], e)
+        if c in C_ICP:  # no K3 for these warps: the ICP operand needs no cotangent,
+            continue    # and the classical presets do not train
         g = torch.randn(b, c, h * w, generator=torch.Generator().manual_seed(i)).to(dev)
         got = K.splat_twohot_cuda(g, *args, h, w)
         ref = K.splat_twohot_ref(g, *args, h, w)
@@ -483,7 +526,6 @@ def phase_flat_kernels(torch, dev):
         if ((vga, i, c) == (False, 0, C_WARP) and coords in ("teleported", "offplane")
                 and not 0.0 < share < 1.0):
             raise AssertionError(f"splat_twohot on {label} did not take both branches ({share})")
-        err["gather_twohot"] = max(err["gather_twohot"], 0.0 if vga else e)
         err["splat_twohot"] = max(err["splat_twohot"], e3)
     return err
 
@@ -501,13 +543,13 @@ def request_items(n: int, h: int, w: int):
     return [{k: a[i] for k, a in zip(KEYS, batch)} for i in range(n)]
 
 
-def phase_serve(torch, dev, h, w, expected):
+def phase_serve(torch, dev, h, w, expected, preset="feature"):
     """Serve 12 requests from threads and one HTTP request at h x w; the
     launch counts must be ``expected`` per served batch."""
     from deep_prob_feature_track_torch.apps.serve import build_service, make_handler
     from deep_prob_feature_track_torch.ops import kernels as K
 
-    service = build_service("feature", "", max_batch=B, H=h, W=w, device=dev)
+    service = build_service(preset, "", max_batch=B, H=h, W=w, device=dev)
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
@@ -544,8 +586,8 @@ def phase_serve(torch, dev, h, w, expected):
 
     if errors or any(th.is_alive() for th in threads):
         raise RuntimeError(f"requests failed: {errors}")
-    log(f"served {len(results)} requests at {h}x{w} ({N_REQUESTS} from threads + 1 HTTP) "
-        f"in {batches} batches; launches {launches}")
+    log(f"{preset}: served {len(results)} requests at {h}x{w} ({N_REQUESTS} from threads + "
+        f"1 HTTP) in {batches} batches; launches {launches}")
     if batches < 2:
         raise AssertionError("expected at least two batches")
     for name, n in launches.items():
@@ -560,60 +602,74 @@ def phase_serve(torch, dev, h, w, expected):
     return launches, items[:B]
 
 
-def phase_agree(torch, dev, items, n_cpu):
+def phase_agree(torch, dev, items, n_cpu, preset="feature", plain_atol=1e-4, expected=None):
     """The forward of ``items`` through the kernels against their plain
-    versions on the card; the forward of the first ``n_cpu`` of them through
-    the kernels against the CPU forward."""
+    versions on the card (within ``plain_atol`` on R and t); the forward of
+    the first ``n_cpu`` of them through the kernels against the CPU forward
+    (within 1e-4).  With ``expected``, the kernel forward's launch counts
+    (reset just before it, read just after) must be those.  Returns the
+    largest differences and the launch counts."""
     from deep_prob_feature_track_torch.apps.serve import build_tracker
+    from deep_prob_feature_track_torch.ops import kernels as K
 
     def pose(batch_items, device, plain=False):
         batch = [torch.from_numpy(np.stack([it[k] for it in batch_items])).to(device)
                  for k in KEYS]
-        net = build_tracker("feature", device=device, plain_kernels=plain)
+        net = build_tracker(preset, device=device, plain_kernels=plain)
         with torch.inference_mode():
+            K.reset_launches()
             R, t = net(*batch)
-        return R.cpu().numpy(), t.cpu().numpy()
+            launches = dict(K.LAUNCHES)
+        return R.cpu().numpy(), t.cpu().numpy(), launches
 
-    kernels = pose(items, dev)
-    pairs = [("plain", kernels, pose(items, dev, plain=True))]
-    few = kernels if n_cpu == len(items) else pose(items[:n_cpu], dev)
-    pairs.append(("cpu", few, pose(items[:n_cpu], torch.device("cpu"))))
+    *kernels, launches = pose(items, dev)
     h, w = items[0]["color0"].shape[1:]
-    for label, (R0, t0), (R, t) in pairs:
+    log(f"{preset}: B={len(items)} {h}x{w} forward through the kernels, launches {launches}")
+    if expected is not None and launches != expected:
+        raise AssertionError(f"{preset} forward launched {launches}, expected {expected}")
+    pairs = [("plain", kernels, pose(items, dev, plain=True)[:2], plain_atol)]
+    if n_cpu:
+        few = kernels if n_cpu == len(items) else pose(items[:n_cpu], dev)[:2]
+        pairs.append(("cpu", few, pose(items[:n_cpu], torch.device("cpu"))[:2], 1e-4))
+    out = {"launches": launches}
+    for label, (R0, t0), (R, t), atol in pairs:
         dR, dt = np.abs(R - R0).max(), np.abs(t - t0).max()
-        log(f"B={len(R)} {h}x{w} forward, kernels vs {label}: max|dR| = {dR:.3e}, "
+        log(f"{preset}: B={len(R)} {h}x{w} forward, kernels vs {label}: max|dR| = {dR:.3e}, "
             f"max|dt| = {dt:.3e}")
-        if not (dR <= 1e-4 and dt <= 1e-4):
-            raise AssertionError(f"kernel forward disagrees with the {label} forward")
+        if not (dR <= atol and dt <= atol):
+            raise AssertionError(f"{preset}: kernel forward disagrees with the {label} forward")
+        out[label] = [float(dR), float(dt)]
+    return out
 
 
-def _train_state(torch, dev, plain=False):
+def _train_state(torch, dev, plain=False, preset="feature"):
     from deep_prob_feature_track_torch.models.presets import get_preset
     from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
     from deep_prob_feature_track_torch.training import train as T
 
     cfg = T.TrainConfig()
-    net = LeastSquareTracking(get_preset("feature"), plain_kernels=plain)
+    net = LeastSquareTracking(get_preset(preset), plain_kernels=plain)
     return cfg, T.create_train_state(net, cfg, seed=1, device=dev)
 
 
-def _loss_and_grads(torch, dev, batch, plain):
+def _loss_and_grads(torch, dev, batch, plain, preset):
     from deep_prob_feature_track_torch.training import train as T
 
-    cfg, state = _train_state(torch, dev, plain)
+    cfg, state = _train_state(torch, dev, plain, preset)
     loss = T.compute_loss(state.net, cfg, batch)
     loss.backward()
     return loss.item(), {k: p.grad for k, p in state.net.named_parameters()}
 
 
-def phase_train(torch, dev, b, h, w, seed, expected):
-    """Three steps at b x h x w, with the launch counts ``expected`` per
-    step; kernels against plain versions; step time, memory, profile."""
+def phase_train(torch, dev, b, h, w, seed, expected, preset="feature"):
+    """Three steps of ``preset`` at b x h x w, with the launch counts
+    ``expected`` per step; kernels against plain versions; step time,
+    memory, profile."""
     from deep_prob_feature_track_torch.ops import kernels as K
     from deep_prob_feature_track_torch.training import train as T
 
     batch = T.synthetic_batch(b, h, w, seed=seed, device=dev)
-    cfg, state = _train_state(torch, dev)
+    cfg, state = _train_state(torch, dev, preset=preset)
     step = T.make_train_step(cfg, steps_per_epoch=100)
     launches = {k: 0 for k in K.LAUNCHES}
     losses = []
@@ -622,8 +678,8 @@ def phase_train(torch, dev, b, h, w, seed, expected):
         state, metrics = step(state, batch)
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
         n = dict(K.LAUNCHES)
-        log(f"B={b} {h}x{w} train step {i}: loss {loss:.6f}, grad norm {norm:.6f}, "
-            f"launches {n}")
+        log(f"{preset}: B={b} {h}x{w} train step {i}: loss {loss:.6f}, grad norm "
+            f"{norm:.6f}, launches {n}")
         if not (np.isfinite(loss) and np.isfinite(norm)):
             raise AssertionError(f"train step {i}: non-finite loss {loss} or grad norm {norm}")
         if n != expected:
@@ -635,7 +691,7 @@ def phase_train(torch, dev, b, h, w, seed, expected):
     # kernels twice (K3's atomics and cuDNN reorder sums from run to run),
     # then the plain versions
     (loss_k, grads_k), (_, grads_k2), (loss_p, grads_p) = (
-        _loss_and_grads(torch, dev, batch, plain) for plain in (False, False, True))
+        _loss_and_grads(torch, dev, batch, plain, preset) for plain in (False, False, True))
 
     def worst_leaf(grads, ref):
         """max over leaves of |grads - ref| / max|ref|, and its leaf"""
@@ -648,7 +704,7 @@ def phase_train(torch, dev, b, h, w, seed, expected):
     spread, spread_key = worst_leaf(grads_k2, grads_k)
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     worst, worst_key = worst_leaf(grads_k, grads_p)
-    log(f"B={b} {h}x{w} train loss, kernels vs plain: {loss_k:.6f} vs {loss_p:.6f} "
+    log(f"{preset}: B={b} {h}x{w} train loss, kernels vs plain: {loss_k:.6f} vs {loss_p:.6f} "
         f"(relative {rel_loss:.2e}); worst gradient leaf {worst_key}: {worst:.2e} of its "
         f"largest entry (kernels vs kernels: {spread:.2e}, {spread_key})")
     if not rel_loss <= 1e-5:
@@ -659,9 +715,9 @@ def phase_train(torch, dev, b, h, w, seed, expected):
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(torch, lambda: step(state, batch), reps=5, warmup=2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _, plain_state = _train_state(torch, dev, plain=True)
+    _, plain_state = _train_state(torch, dev, plain=True, preset=preset)
     step_plain_ms = time_ms(torch, lambda: step(plain_state, batch), reps=5, warmup=2)
-    log(f"B={b} {h}x{w} train step: {step_ms:.3f} ms with the kernels "
+    log(f"{preset}: B={b} {h}x{w} train step: {step_ms:.3f} ms with the kernels "
         f"({b / step_ms * 1e3:.1f} samples/s, peak memory {peak_gb:.2f} GB), "
         f"{step_plain_ms:.3f} ms with their plain versions")
     return {
@@ -669,7 +725,8 @@ def phase_train(torch, dev, b, h, w, seed, expected):
         "worst_grad_leaf": [worst_key, worst], "run_to_run_grad_leaf": [spread_key, spread],
         "step_ms": step_ms,
         "step_plain_ms": step_plain_ms, "peak_memory_gb": peak_gb,
-        "profile": profile(torch, lambda: step(state, batch), f"B={b} {h}x{w} train step"),
+        "profile": profile(torch, lambda: step(state, batch),
+                           f"{preset} B={b} {h}x{w} train step"),
     }
 
 
@@ -952,22 +1009,80 @@ def phase_time_tiles(torch, dev, name):
     return levels
 
 
-def phase_forward(torch, dev, h, w):
-    """The B=8 forward at h x w, with the kernels and with their plain
-    versions, and one profiled forward."""
+def phase_forward(torch, dev, h, w, preset="feature"):
+    """The B=8 forward of ``preset`` at h x w, with the kernels and with
+    their plain versions, and one profiled forward."""
     from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
 
-    net = build_tracker("feature", device=dev)
-    plain = build_tracker("feature", device=dev, plain_kernels=True)
+    net = build_tracker(preset, device=dev)
+    plain = build_tracker(preset, device=dev, plain_kernels=True)
     batch = example_batch(B, h, w, seed=2, device=dev)
     with torch.inference_mode():
         fwd_ms = time_ms(torch, lambda: net(*batch), reps=10, warmup=2)
         fwd_plain_ms = time_ms(torch, lambda: plain(*batch), reps=10, warmup=2)
-        log(f"B={B} {h}x{w} forward: {fwd_ms:.3f} ms with the kernels "
+        log(f"{preset}: B={B} {h}x{w} forward: {fwd_ms:.3f} ms with the kernels "
             f"({B / fwd_ms * 1e3:.1f} frame pairs/s), {fwd_plain_ms:.3f} ms with their "
             f"plain versions")
         return {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
-                "profile": profile(torch, lambda: net(*batch), f"B={B} {h}x{w} forward")}
+                "profile": profile(torch, lambda: net(*batch),
+                                   f"{preset} B={B} {h}x{w} forward")}
+
+
+def phase_step_time(torch, dev, preset):
+    """The 120x160 B=64 train step of ``preset``, with the kernels and with
+    their plain versions (5 steps after 2 of warm-up, each)."""
+    from deep_prob_feature_track_torch.training import train as T
+
+    batch = T.synthetic_batch(B_TRAIN, H, W, seed=TRAIN_SEED, device=dev)
+    out = {}
+    for label, plain in (("step_ms", False), ("step_plain_ms", True)):
+        cfg, state = _train_state(torch, dev, plain=plain, preset=preset)
+        step = T.make_train_step(cfg, steps_per_epoch=100)
+        out[label] = time_ms(torch, lambda: step(state, batch), reps=5, warmup=2)
+    log(f"{preset}: B={B_TRAIN} {H}x{W} train step: {out['step_ms']:.3f} ms with the kernels, "
+        f"{out['step_plain_ms']:.3f} ms with their plain versions")
+    return out
+
+
+def phase_time_channels(torch, dev, name):
+    """K1 (B=8) at the 120x160 levels at C=1, 3 and 6 (the classical and ICP
+    warps), K2 (B=64) at level 0 at C=6 (the ICP warp of the feature_icp
+    step) and K4 at 480x640 B=8 at C=6 (the ICP warp of the 640x480
+    feature_icp forward), on smooth coordinates, beside the plain versions,
+    the library call and the bound."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    bw, flops = peaks(name)
+    rows = []
+    for c in C_ICP:
+        for i, (h, w) in enumerate(LEVELS):
+            F, args, uv = flat_inputs(torch, dev, B, h, w, c, 110 + i, "smooth")
+            rows.append({"kernel": "gather_twohot", "b": B, "level": i, "hw": [h, w], "c": c,
+                         **k1_timing(torch, F, args, uv, bw, flops)})
+    F, args, _ = flat_inputs(torch, dev, B_TRAIN, H, W, 6, 120, "smooth")
+    rows.append({"kernel": "gather_twohot_grads", "b": B_TRAIN, "level": 0, "hw": [H, W],
+                 "c": 6, **k2_timing(torch, F, args, bw, flops)})
+    h, w = VGA_LEVELS[0]
+    F, maps, (u, v) = tile_inputs(torch, dev, B, h, w, 6, seed=121)
+    n, planes = h * w, B * h * w * 6
+    grid = _grid(u, v, B, h, w)
+    F_nchw = F.permute(0, 3, 1, 2).contiguous()
+    rows.append({
+        "kernel": "gather_tiles", "b": B, "level": 0, "hw": [h, w], "c": 6,
+        "ms": time_ms(torch, lambda: K.gather_tiles_cuda(F, *maps)),
+        "device_ms": device_ms(torch, lambda: K.gather_tiles_cuda(F, *maps)),
+        "plain_ms": time_ms(torch, lambda: K.gather_tiles_ref(F, *maps)),
+        "library_ms": time_ms(torch, lambda: torch.nn.functional.grid_sample(
+            F_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
+        **bound(4 * (2 * planes + 4 * B * n), B * n * (2 + 11 * 6), bw, flops),
+    })
+    for r in rows:
+        log(f"{r['kernel']} C={r['c']} level {r['level']} {r['hw'][0]}x{r['hw'][1]} "
+            f"B={r['b']}, smooth coordinates: {r['ms']:.4f} ms, device {r['device_ms']:.4f} "
+            f"(plain {r['plain_ms']:.4f}, library "
+            f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, bound "
+            f"{r['bound_ms']:.4f})")
+    return rows
 
 
 def profile(torch, fn, label):
@@ -1034,7 +1149,7 @@ def main(argv) -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {name} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     set_float32_policy()
-    if time_only:  # phases 1, 2, 13 and 14: to compare two trees in one call
+    if time_only:  # phases 1, 2, 17 and 18: to compare two trees in one call
         t0 = time.monotonic()
         build_kernels(loader)
         print(json.dumps({**measure(torch, dev, name), "card": smi}), flush=True)
@@ -1058,9 +1173,11 @@ def build_kernels(loader):
                 log(f"ptxas {source}: {line.strip()}")
 
 
-def measure(torch, dev, name):
-    """The time phases (13, 14): each kernel per level beside its plain
-    version, library call and bound, and the profiled forwards."""
+def measure(torch, dev, name, train_steps=True):
+    """The time phases (17, 18): each kernel per level beside its plain
+    version, library call and bound, the profiled forwards and, with
+    ``train_steps`` (the full run's train phases time them already), the
+    train steps."""
     timing = phase_time(torch, dev, name)
     grads_levels, vga_splat = phase_time_grads(torch, dev, name)
     tiles_levels = phase_time_tiles(torch, dev, name)
@@ -1068,7 +1185,13 @@ def measure(torch, dev, name):
     timing["profile"] = phase_profile(torch, dev)
     return {"timing": timing, "grads_levels": grads_levels, "jtj_levels": jtj_levels,
             "tiles_levels": tiles_levels, "vga_splat_level0": vga_splat,
-            "vga_forward": phase_forward(torch, dev, H_VGA, W_VGA)}
+            "vga_forward": phase_forward(torch, dev, H_VGA, W_VGA),
+            "channels_levels": phase_time_channels(torch, dev, name),
+            "preset_forwards": {p: phase_forward(torch, dev, H, W, p)
+                                for p in ("feature_icp", *CLASSICAL_LAUNCHES)},
+            "feature_icp_vga_forward": phase_forward(torch, dev, H_VGA, W_VGA, "feature_icp"),
+            "train_steps": {p: phase_step_time(torch, dev, p) for p in ("feature", "feature_icp")
+                            if train_steps}}
 
 
 def run(torch, loader, dev, name, smi):
@@ -1084,16 +1207,26 @@ def run(torch, loader, dev, name, smi):
         errors[k] = max(errors[k], e)
     launches, items = phase_serve(torch, dev, H, W, SERVE_LAUNCHES)
     phase_agree(torch, dev, items, n_cpu=B)
+    icp_launches, icp_items = phase_serve(torch, dev, H, W, ICP_SERVE_LAUNCHES, "feature_icp")
+    presets = {"feature_icp": phase_agree(torch, dev, icp_items, B, "feature_icp", PRESET_ATOL,
+                                          ICP_SERVE_LAUNCHES)}
+    for preset, expected in CLASSICAL_LAUNCHES.items():
+        presets[preset] = phase_agree(torch, dev, items, B, preset, PRESET_ATOL, expected)
     train = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, TRAIN_LAUNCHES)
+    icp_train = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, ICP_TRAIN_LAUNCHES,
+                            "feature_icp")
     vga_launches, vga_items = phase_serve(torch, dev, H_VGA, W_VGA, VGA_SERVE_LAUNCHES)
     phase_agree(torch, dev, vga_items, n_cpu=N_CPU_VGA)
+    presets["feature_icp_vga"] = phase_agree(torch, dev, vga_items, 0, "feature_icp",
+                                             PRESET_ATOL, ICP_VGA_LAUNCHES)
     vga_train = phase_train(torch, dev, B_VGA_TRAIN, H_VGA, W_VGA, VGA_TRAIN_SEED,
                             VGA_TRAIN_LAUNCHES)
     scene_shares = phase_scene_share(torch, dev)
-    m = measure(torch, dev, name)
+    m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
-                      "scene_staged_share": scene_shares, "vga_serve_launches": vga_launches,
-                      "card": smi}), flush=True)
+                      "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
+                      "preset_agree": presets, "scene_staged_share": scene_shares,
+                      "vga_serve_launches": vga_launches, "card": smi}), flush=True)
 
     # K1 and K6 as the 120x160 serve path launched them, K2 and K3 as the
     # 120x160 train path did; K4 as the 480x640 serve path, K5 as the 480x640

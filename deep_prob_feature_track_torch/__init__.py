@@ -5,8 +5,9 @@ which it never imports).  The module layout mirrors the JAX package so each
 counterpart is easy to find.  The bilinear gather, its training variant, its
 adjoint splat and the factored JtJ reduction run as hand-written CUDA
 kernels for Hopper (``ops/kernels``), with a plain PyTorch version of each
-that CPU tensors take.  The ``feature`` preset serves (``apps/serve.py``)
-and trains (``training/train.py``).
+that CPU tensors take.  The presets ``feature``, ``feature_icp``, ``RGB``,
+``ICP`` and ``RGB+ICP`` serve (``apps/serve.py``); ``feature`` and
+``feature_icp`` train (``training/train.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

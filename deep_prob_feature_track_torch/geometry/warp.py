@@ -2,7 +2,7 @@
 point-cloud helpers of the training loss.
 
 Counterpart of ``deep_prob_feature_track_tpu/geometry/warp.py`` for the
-U_IC eval and training paths.  Sampling is ``grid_sample(align_corners=True,
+U_IC, IC and ICP tracks.  Sampling is ``grid_sample(align_corners=True,
 padding_mode='border')``: coordinates clamp to ``[0, size-1]`` and blend
 bilinearly.  Without autograd the gather runs through kernel K1; under
 autograd :class:`BilinearGather` runs K2 in its forward and K3 in its
@@ -68,6 +68,13 @@ def check_occ_prewarped(inv_z_buffer, inv_z_warped, u, v, thres: float = 1e-1):
     _, _, H, W = inv_z_buffer.shape
     inlier = inv_z_buffer > (inv_z_warped - thres)
     return ~(inlier & (u > 0) & (u < W) & (v > 0) & (v < H))
+
+
+def check_occ(inv_z_buffer, inv_z_ref, u, v, thres: float = 1e-1, plain: bool = False):
+    """:func:`check_occ_prewarped` after warping ``inv_z_ref`` to (u, v) in
+    a gather of its own; True where INVALID."""
+    inv_z_warped = warp_features(inv_z_ref, u, v, plain=plain)
+    return check_occ_prewarped(inv_z_buffer, inv_z_warped, u, v, thres)
 
 
 def _corner_weights(operand_shape, u, v):
@@ -173,6 +180,33 @@ def warp_operand(operand, sizes, u, v, plain: bool = False):
         out = sample(operand, *starts)  # [B,Ctot,N]
     out = out.reshape(B, -1, u.shape[2], u.shape[3])
     return list(torch.split(out, sizes, dim=1))
+
+
+def warp_multi(maps, u, v, plain: bool = False):
+    """Sample several ``[B,Ci,H,W]`` maps at (u, v) ``[B,1,h,w]`` in ONE
+    gather of their stacked operand.
+
+    :return: list of per-map ``[B,Ci,h,w]``
+    """
+    return warp_operand(*make_warp_operand(maps), u, v, plain=plain)
+
+
+def warp_features(F, u, v, plain: bool = False):
+    """Sample one map ``F [B,C,H,W]`` at (u, v) ``[B,1,h,w]`` -> ``[B,C,h,w]``."""
+    return warp_multi([F], u, v, plain=plain)[0]
+
+
+def compute_vertex(depth, px, py):
+    """Depth map ``[B,1,H,W]`` -> vertex map ``[px*d, py*d, d]`` ``[B,3,H,W]``."""
+    return torch.cat([px * depth, py * depth, depth], dim=1)
+
+
+def batch_project(xyz, K):
+    """Project a point-cloud map ``[B,3,H,W]`` to pixel coordinates
+    ``[u, v]`` ``[B,2,H,W]``."""
+    x, y, z = xyz[:, 0:1], xyz[:, 1:2], xyz[:, 2:3]
+    fx, fy, cx, cy = (K[:, i, None, None, None] for i in range(4))
+    return torch.cat([fx * x / z + cx, fy * y / z + cy], dim=1)
 
 
 def scale_K(K: torch.Tensor, level: int) -> torch.Tensor:

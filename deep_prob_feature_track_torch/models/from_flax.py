@@ -9,7 +9,9 @@ needed.  Layout conversions:
   ``mean/var`` (batch_stats) -> ``running_mean/running_var``
 
 Every leaf must map; the result also carries ``num_batches_tracked`` so
-``load_state_dict(strict=True)`` passes.
+``load_state_dict(strict=True)`` passes.  ``feature_icp`` has ``feature``'s
+variables; the empty tree of ``RGB``, ``ICP`` and ``RGB+ICP`` maps to an
+empty ``state_dict``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Pose initializer and scale net of the ``feature`` preset.
+"""Pose initializer, ICP scale and M-estimator of the ported presets.
 
-Counterpart of ``SFMPoseNet`` and ``ScaleNet`` in
+Counterpart of ``SFMPoseNet``, ``ScaleNet`` and ``DeepRobustEstimator`` in
 ``deep_prob_feature_track_tpu/models/nets.py``.
 """
 
@@ -25,6 +25,19 @@ class ScaleNet(nn.Module):
 
     def forward(self, residual, another_residual=None, w_prior=None):
         return torch.ones_like(residual) * self.scale
+
+
+class DeepRobustEstimator(nn.Module):
+    """M-estimator weights of the IC track; only ``estimator_type="None"``,
+    constant ones, is ported."""
+
+    def __init__(self, estimator_type: str = "None"):
+        super().__init__()
+        if estimator_type != "None":
+            raise NotImplementedError(f"DeepRobustEstimator({estimator_type!r}) is not ported")
+
+    def forward(self, residual, x0=None, x1=None, w_prior=None):
+        return torch.ones_like(residual)
 
 
 class SFMPoseNet(nn.Module):

@@ -1,8 +1,8 @@
 """Canonical tracker presets.
 
 Counterpart of ``deep_prob_feature_track_tpu/models/presets.py``; the
-table is the same, but only ``feature`` is ported so far: the tracker
-raises ``NotImplementedError`` for the others.
+table is the same.  The tracker runs ``feature``, ``feature_icp``, ``RGB``,
+``ICP`` and ``RGB+ICP``, and raises ``NotImplementedError`` for ``DeepIC``.
 """
 
 from __future__ import annotations

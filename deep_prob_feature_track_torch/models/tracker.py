@@ -1,9 +1,13 @@
-"""LeastSquareTracking: encoder + coarse-to-fine U_IC trust-region solve.
+"""LeastSquareTracking: encoder + coarse-to-fine trust-region solve.
 
 Counterpart of ``deep_prob_feature_track_tpu/models/tracker.py`` for the
-eval and training forwards of the ``feature`` preset (ConvRGBD2 encoder,
-laplacian sigma, U_IC, SFMPoseNet initial pose).  Every other encoder,
-track and head raises ``NotImplementedError``.
+eval and training forwards of the presets ``feature`` and ``feature_icp``
+(ConvRGBD2 encoder, laplacian sigma, U_IC, SFMPoseNet initial pose, with
+the fused ICP term in ``feature_icp``) and the eval forwards of the
+classical presets ``RGB`` (grayscale IC), ``ICP`` (point-to-plane ICP) and
+``RGB+ICP`` (grayscale U_IC with the fused ICP term), which start from the
+identity pose.  Every other encoder, track and head raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,10 +20,11 @@ from torch import nn
 
 from ..geometry import warp as W
 from ..ops.image import image_pyramid
-from ..solvers.trust_region import tr_uic_level
+from ..solvers.icp import ICPSigmaModel
+from ..solvers.trust_region import DirectSolver, tr_ic_level, tr_icp_level, tr_uic_level
 from .encoder import FeaturePyramid
 from .layers import color_normalize_nchw, seeded_init_
-from .nets import ScaleNet, SFMPoseNet
+from .nets import DeepRobustEstimator, ScaleNet, SFMPoseNet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,18 +66,31 @@ class TrackerConfig:
             return "U_IC"
         raise ValueError("unsupported (uncertainty, direction) combination")
 
+    @property
+    def predicts_init_pose(self) -> bool:
+        return self.init_pose_type != "identity"
+
+
+_PORTED = {
+    "encoder_name": ("ConvRGBD2", "RGB", "ICP"),
+    "track_type": ("U_IC", "IC", "ICP"),
+    "mest_type": ("None",),
+    "solver_type": ("Direct-Nodamping",),
+    "init_pose_type": ("sfm_net", "identity"),
+    "uncer_prop": (False,),
+    "no_weight_sharing": (False,),
+}
+
 
 def _check_ported(cfg: TrackerConfig) -> None:
-    ported = {
-        "encoder_name": "ConvRGBD2", "track_type": "U_IC", "mest_type": "None",
-        "solver_type": "Direct-Nodamping", "combine_icp": False,
-        "init_pose_type": "sfm_net", "uncer_prop": False, "no_weight_sharing": False,
-    }
-    for key, value in ported.items():
-        if getattr(cfg, key) != value:
+    for key, values in _PORTED.items():
+        if getattr(cfg, key) not in values:
             raise NotImplementedError(
                 f"TrackerConfig.{key}={getattr(cfg, key)!r} is not ported "
-                f"(only the 'feature' preset's {key}={value!r})")
+                f"(ported: {', '.join(map(repr, values))})")
+    if cfg.encoder_name != "ConvRGBD2" and cfg.predicts_init_pose:
+        raise NotImplementedError(
+            f"a predicted initial pose over the {cfg.encoder_name} encoder is not ported")
 
 
 class LeastSquareTracking(nn.Module):
@@ -80,9 +98,9 @@ class LeastSquareTracking(nn.Module):
 
     In eval mode (the default) ``forward(img0, img1, depth0, depth1, K)``
     returns the final pose ``(R [B,3,3], t [B,3])``.  After ``.train()`` it
-    returns the pose pyramid ``(pyr_R [B,5,3,3], pyr_t [B,5,3])``: the
-    initial pose (with ``train_init_pose``), then the pose after each level
-    3 -> 0.
+    returns the pose pyramid ``(pyr_R [B,N,3,3], pyr_t [B,N,3])``: the
+    predicted initial pose (with ``train_init_pose``; N=5), then the pose
+    after each level 3 -> 0.
 
     :param plain_kernels: run the plain PyTorch versions of the CUDA
         kernels, on any device (for comparison on the card)
@@ -93,41 +111,60 @@ class LeastSquareTracking(nn.Module):
         _check_ported(cfg)
         self.cfg = cfg
         self.plain_kernels = plain_kernels
-        self.encoder = FeaturePyramid(
-            in_channels=8,
-            feature_channel=cfg.feature_channel,
-            uncertainty_channel=cfg.uncertainty_channel,
-            feature_extract=cfg.feature_extract,
-            uncertainty_type=cfg.uncertainty_type,
-        )
+        self.encoder = None
+        if cfg.encoder_name == "ConvRGBD2":
+            self.encoder = FeaturePyramid(
+                in_channels=8,
+                feature_channel=cfg.feature_channel,
+                uncertainty_channel=cfg.uncertainty_channel,
+                feature_extract=cfg.feature_extract,
+                uncertainty_type=cfg.uncertainty_type,
+            )
+        self.mest_func = DeepRobustEstimator(cfg.mest_type)
         self.scaler_func = ScaleNet(
             cfg.scaler, scale=cfg.scale_scaler if cfg.scale_scaler is not None else 0.01)
-        self.pose_predictor = SFMPoseNet(
-            in_channels=2 * 128,
-            scale_motion=cfg.scale_init_pose,
-            multi_hypo=cfg.multi_hypo,
-            res_input=cfg.res_input,
-        )
+        self.pose_predictor = None
+        if cfg.predicts_init_pose:
+            self.pose_predictor = SFMPoseNet(
+                in_channels=2 * 128,
+                scale_motion=cfg.scale_init_pose,
+                multi_hypo=cfg.multi_hypo,
+                res_input=cfg.res_input,
+            )
         self.eval()  # eval by default; .train() selects the training forward
 
     def reset_parameters(self, seed: int = 0) -> "LeastSquareTracking":
         """Seeded init of every weight, drawn on the CPU so that the same
-        seed gives the same weights on every device."""
-        g = torch.Generator().manual_seed(seed)
-        device = next(self.parameters()).device
+        seed gives the same weights on every device; nothing to do for a
+        tracker without weights (``RGB``, ``ICP``, ``RGB+ICP``)."""
+        param = next(self.parameters(), None)
+        if param is None:
+            return self
+        device = param.device
         self.to("cpu")
-        seeded_init_(self, g)
+        seeded_init_(self, torch.Generator().manual_seed(seed))
         return self.to(device)
 
     def _slim_sigma(self, sigmas):
-        """Keep one channel of a broadcast 1-channel laplacian sigma: the
-        copies are identical and bilinear warping is per-channel linear, so
-        the warp operand shrinks from C=17 to C=10 with identical values."""
-        if self.cfg.uncertainty_channel != 1:
+        """Keep one channel of a broadcast sigma: the encoder repeats a
+        1-channel laplacian head to every feature channel ("identity" is
+        all-ones), and bilinear warping is per-channel linear, so the warp
+        operand shrinks (C=17 to C=10 in ``feature``) with identical values.
+        The grayscale encoders' sigma has one channel already."""
+        cfg = self.cfg
+        if cfg.uncertainty_type != "identity" and cfg.uncertainty_channel != 1:
             return sigmas
         return [s[:, :1] for s in sigmas]
 
+    @staticmethod
+    def _encode_gray(I):
+        """The ``RGB`` / ``ICP`` encoder: the grayscale of the normalized
+        colors, avg-pooled to four levels, with all-ones sigma."""
+        x = image_pyramid((I[:, 0] * 0.299 + I[:, 1] * 0.587 + I[:, 2] * 0.114)[:, None])
+        return x, [torch.ones_like(a) for a in x]
+
     def _preprocess(self, img0, img1, depth0, depth1):
+        cfg = self.cfg
         invD0 = torch.clamp(1.0 / depth0, 0.0, 10.0)
         invD1 = torch.clamp(1.0 / depth1, 0.0, 10.0)
         # zero out truncated inverse depths (batch-global min/max)
@@ -136,26 +173,70 @@ class LeastSquareTracking(nn.Module):
         I0 = color_normalize_nchw(img0)
         I1 = color_normalize_nchw(img1)
 
-        m0 = torch.cat([I0, invD0, I1, invD1], dim=1)
-        m1 = torch.cat([I1, invD1, I0, invD0], dim=1)
-        if self.training:
-            # two encoder passes: each normalizes with its own batch
-            # statistics and the running statistics chain through both
-            x0, sigma0, raw0 = self.encoder(m0)
-            x1, sigma1, raw1 = self.encoder(m1)
+        if self.encoder is None:
+            x0, sigma0 = self._encode_gray(I0)
+            x1, sigma1 = self._encode_gray(I1)
         else:
-            # both view orders in ONE stacked encoder pass (eval BatchNorm
-            # makes the two halves independent)
-            B = img0.shape[0]
-            f_all, s_all, raw_all = self.encoder(torch.cat([m0, m1], dim=0))
-            x0, x1 = [f[:B] for f in f_all], [f[B:] for f in f_all]
-            sigma0, sigma1 = [s[:B] for s in s_all], [s[B:] for s in s_all]
-            raw0, raw1 = [r[:B] for r in raw_all], [r[B:] for r in raw_all]
+            m0 = torch.cat([I0, invD0, I1, invD1], dim=1)
+            m1 = torch.cat([I1, invD1, I0, invD0], dim=1)
+            if self.training:
+                # two encoder passes: each normalizes with its own batch
+                # statistics and the running statistics chain through both
+                x0, sigma0, raw0 = self.encoder(m0)
+                x1, sigma1, raw1 = self.encoder(m1)
+            else:
+                # both view orders in ONE stacked encoder pass (eval
+                # BatchNorm makes the two halves independent)
+                B = img0.shape[0]
+                f_all, s_all, raw_all = self.encoder(torch.cat([m0, m1], dim=0))
+                x0, x1 = [f[:B] for f in f_all], [f[B:] for f in f_all]
+                sigma0, sigma1 = [s[:B] for s in s_all], [s[B:] for s in s_all]
+                raw0, raw1 = [r[:B] for r in raw_all], [r[B:] for r in raw_all]
         inv_d0 = image_pyramid(invD0, pool="max")
         inv_d1 = image_pyramid(invD1, pool="max")
-        pose = self.pose_predictor(raw0[3], raw1[3])
+        if cfg.track_type == "ICP" or cfg.combine_icp:
+            dpt0 = image_pyramid(depth0, pool="max")
+            dpt1 = image_pyramid(depth1, pool="max")
+        else:
+            dpt0 = dpt1 = [None] * 4
+        if self.pose_predictor is not None:
+            pose = self.pose_predictor(raw0[3], raw1[3])
+        else:
+            B = img0.shape[0]
+            pose = (torch.eye(3, dtype=invD0.dtype, device=invD0.device).repeat(B, 1, 1),
+                    invD0.new_zeros((B, 3)))
         return (x0, x1, self._slim_sigma(sigma0), self._slim_sigma(sigma1), inv_d0, inv_d1,
-                pose)
+                dpt0, dpt1, pose)
+
+    def _level_update(self, pose, x0, x1, sigma0, sigma1, invD0, invD1, dpt0, dpt1, K,
+                      w_prior):
+        """One pyramid level of the configured track: ``(pose, weights)``."""
+        cfg = self.cfg
+        track = cfg.track_type
+        if track == "U_IC":
+            # ScaleNet("None") reads only the shape of the ICP residual at
+            # the incoming pose, [B,1,H,W] like invD0: the residual is not
+            # computed
+            w_icp = self.scaler_func(invD0, None, w_prior) if cfg.combine_icp else None
+            pose, weights, _ = tr_uic_level(
+                pose, x0, x1, invD0, invD1, K, sigma0, sigma1,
+                depth0=dpt0, depth1=dpt1, w_icp=w_icp,
+                max_iter=cfg.max_iter_per_pyr, remove_tru_sigma=cfg.remove_tru_sigma,
+                plain=self.plain_kernels,
+            )
+        elif track == "IC":
+            pose, weights, _ = tr_ic_level(
+                pose, x0, x1, invD0, invD1, K, self.mest_func,
+                DirectSolver("nodamping", cfg.direction), w_prior=w_prior,
+                max_iter=cfg.max_iter_per_pyr, plain=self.plain_kernels,
+            )
+        else:  # ICP
+            pose, weights, _ = tr_icp_level(
+                pose, dpt0, dpt1, K, w_prior=w_prior, max_iter=cfg.max_iter_per_pyr,
+                direction=cfg.direction, sigma_model=ICPSigmaModel(baseline=1.0),
+                plain=self.plain_kernels,
+            )
+        return pose, weights
 
     def forward(self, img0, img1, depth0, depth1, K):
         """:param img0/img1: [B,3,H,W] RGB in [0,1]
@@ -163,17 +244,14 @@ class LeastSquareTracking(nn.Module):
         :param K: [B,4] intrinsics [fx,fy,cx,cy]
         :return: eval: final pose (R, t); training: (pyr_R, pyr_t)
         """
-        x0, x1, sigma0, sigma1, inv_d0, inv_d1, pose = self._preprocess(
+        x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, pose = self._preprocess(
             img0, img1, depth0, depth1)
-        poses = [pose] if self.cfg.train_init_pose else []
+        poses = [pose] if self.cfg.predicts_init_pose and self.cfg.train_init_pose else []
+        w_prior = torch.ones_like(inv_d0[3]) * 0.001
         for level in (3, 2, 1, 0):
-            pose, _ = tr_uic_level(
-                pose, x0[level], x1[level], inv_d0[level], inv_d1[level],
-                W.scale_K(K, level), sigma0[level], sigma1[level],
-                max_iter=self.cfg.max_iter_per_pyr,
-                remove_tru_sigma=self.cfg.remove_tru_sigma,
-                plain=self.plain_kernels,
-            )
+            pose, w_prior = self._level_update(
+                pose, x0[level], x1[level], sigma0[level], sigma1[level], inv_d0[level],
+                inv_d1[level], dpt0[level], dpt1[level], W.scale_K(K, level), w_prior)
             poses.append(pose)
         if self.training:
             return torch.stack([R for R, _ in poses], 1), torch.stack([t for _, t in poses], 1)

@@ -1,5 +1,5 @@
-"""Image-space ops: Sobel gradients, pooling pyramids and the loss's
-bilinear resize.
+"""Image-space ops: Sobel gradients, pooling pyramids, normal maps and the
+loss's bilinear resize.
 
 Counterpart of ``deep_prob_feature_track_tpu/ops/image.py``.
 """
@@ -47,6 +47,17 @@ def image_pyramid(
     """Multi-scale pyramid, each level pooled from ``x`` by 2^s."""
     fn = {"avg": avg_pool2, "max": max_pool2}[pool]
     return [fn(x, 1 << s) for s in scales]
+
+
+def compute_normal(vertex_map: torch.Tensor) -> torch.Tensor:
+    """Normal map ``[B,3,H,W]`` of a vertex map: the cross product of its
+    unnormalized Sobel derivatives, L2-normalized, and zero where the depth
+    (channel 2) equals its batch-global min or max (truncated depth)."""
+    gx, gy = sobel_gradients(vertex_map, normalize_gradient=False)
+    normal = torch.linalg.cross(gx, gy, dim=1)
+    normal = normal / (torch.linalg.vector_norm(normal, dim=1, keepdim=True) + 1e-8)
+    depth = vertex_map[:, 2:3]
+    return normal.masked_fill((depth == depth.amin()) | (depth == depth.amax()), 0.0)
 
 
 def bilinear_resize(x: torch.Tensor, H: int, W: int) -> torch.Tensor:

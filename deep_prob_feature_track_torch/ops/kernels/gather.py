@@ -26,14 +26,16 @@ _F32, _I32 = torch.float32, torch.int32
 
 def corners(F, v0, u0):
     """The four corner values ``(c00, c01, c10, c11)`` of each sample's
-    cell, each [B,C,N]; ``cYX = F[b, v0+Y, u0+X, :]``."""
+    cell, each [B,C,N] and contiguous: the kernels' output layout, so that
+    the ops after a plain gather see the strides, and round as, they do
+    after the kernel; ``cYX = F[b, v0+Y, u0+X, :]``."""
     B, H, W, C = F.shape
     flat = F.reshape(B, H * W, C)
     idx = v0.long().clamp(0, H - 2) * W + u0.long().clamp(0, W - 2)  # [B,N]
 
     def corner(offset):
         i = (idx + offset)[..., None].expand(-1, -1, C)
-        return torch.gather(flat, 1, i).transpose(1, 2)
+        return torch.gather(flat, 1, i).transpose(1, 2).contiguous()
 
     return corner(0), corner(1), corner(W), corner(W + 1)
 

@@ -4,7 +4,9 @@ Counterpart of ``deep_prob_feature_track_tpu/solvers/jacobians.py``.  The
 chained Jacobian has rank-2 structure per pixel,
 ``J[b,c,p,:] = alpha[b,c,p] u[b,p,:] + beta[b,c,p] v[b,p,:]``, so it is
 never materialized: ``jtj_jtr`` reduces the factors directly, through
-kernel K6 on CUDA tensors (``ops/kernels/jtj.py``), differentiably.
+kernel K6 on CUDA tensors (``ops/kernels/jtj.py``), differentiably.  With
+per-pixel weights (the IC track) the reduction is the JAX package's einsum
+path in tensor ops, on every device, as there.
 """
 
 from __future__ import annotations
@@ -45,12 +47,16 @@ class FactoredJtJ(NamedTuple):
     sign: float          # +1 forward / -1 inverse-compositional
 
 
-def jtj_jtr(fac: FactoredJtJ, residual: torch.Tensor, plain: bool = False):
-    """``(JtWJ [B,6,6], JtWr [B,6,1])`` of ``J = sign*(alpha u + beta v)``.
+def jtj_jtr(fac: FactoredJtJ, residual: torch.Tensor, weights=None, plain: bool = False):
+    """``(JtWJ [B,6,6], JtWr [B,6,1])`` of ``J = sign*(alpha u + beta v)``
+    and ``W = diag(weights)``.
 
-    K6 on CUDA tensors, its plain version on CPU tensors or with
+    Unweighted: K6 on CUDA tensors, its plain version on CPU tensors or with
     ``plain=True``; under autograd the closed-form VJP of ``FusedJtJ``.
+    Weighted (``weights`` ``[B,1 or C,H,W]``): tensor ops.
     """
+    if weights is not None:
+        return _weighted_jtj_jtr(fac, residual, weights)
     B, C, H, W = residual.shape
     args = (
         fac.alpha.reshape(B, C, H * W).contiguous(),
@@ -62,6 +68,55 @@ def jtj_jtr(fac: FactoredJtJ, residual: torch.Tensor, plain: bool = False):
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return FusedJtJ.apply(*args, fac.sign, plain)
     return (jtj_jtr_ref if plain else fused_jtj_jtr)(*args, sign=fac.sign)
+
+
+def _flat(fac: FactoredJtJ, residual):
+    B, C, H, W = residual.shape
+    return [t.reshape(B, C, H * W) for t in (fac.alpha, fac.beta, residual)]
+
+
+def _weighted_jtj_jtr(fac: FactoredJtJ, residual, weights):
+    """The JAX ``jtj_jtr``'s weighted einsums: the channel-collapsed
+    quadratic coefficients, then two ``[B,6,HW] @ [B,HW,6]`` products."""
+    alpha, beta, r = _flat(fac, residual)
+    w = weights.reshape(alpha.shape[0], -1, alpha.shape[2])
+    wa, wb = w * alpha, w * beta
+    A = torch.einsum("bcp,bcp->bp", wa, alpha)
+    Bx = torch.einsum("bcp,bcp->bp", wa, beta)
+    Cc = torch.einsum("bcp,bcp->bp", wb, beta)
+    ar = torch.einsum("bcp,bcp->bp", wa, r)
+    br = torch.einsum("bcp,bcp->bp", wb, r)
+    u, v = fac.u, fac.v
+    left1 = u * A[..., None] + v * Bx[..., None]
+    left2 = u * Bx[..., None] + v * Cc[..., None]
+    JtWJ = torch.einsum("bpi,bpj->bij", left1, u) + torch.einsum("bpi,bpj->bij", left2, v)
+    JtR = torch.einsum("bpi,bp->bi", u, ar) + torch.einsum("bpi,bp->bi", v, br)
+    return JtWJ, (fac.sign * JtR)[..., None]
+
+
+def jtr_only(fac: FactoredJtJ, residual, weights=None):
+    """``J^T (w * r)`` ``[B,6,1]`` alone, in tensor ops."""
+    alpha, beta, r = _flat(fac, residual)
+    if weights is not None:
+        r = weights.reshape(alpha.shape[0], -1, alpha.shape[2]) * r
+    ar = torch.einsum("bcp,bcp->bp", alpha, r)
+    br = torch.einsum("bcp,bcp->bp", beta, r)
+    JtR = torch.einsum("bpi,bp->bi", fac.u, ar) + torch.einsum("bpi,bp->bi", fac.v, br)
+    return (fac.sign * JtR)[..., None]
+
+
+class ICPrecomp(NamedTuple):
+    """Template-side precomputation of the plain IC track."""
+
+    fac: FactoredJtJ  # alpha/beta = normalized template feature gradients
+
+
+def precompute_ic(invD0, f0, px, py, K) -> ICPrecomp:
+    """The IC track's fixed Jacobian: normalized template gradients and the
+    warp Jacobians, no sigma, sign +1."""
+    gxf, gyf = sobel_gradients(f0)
+    u, v = compute_jacobian_warping(invD0, K, px, py)
+    return ICPrecomp(FactoredJtJ(alpha=gxf, beta=gyf, u=u, v=v, sign=1.0))
 
 
 class UICPrecomp(NamedTuple):

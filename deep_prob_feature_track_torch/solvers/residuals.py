@@ -1,4 +1,5 @@
-"""Warped, uncertainty-normalized feature-metric residuals (U_IC).
+"""Warped feature-metric residuals: uncertainty-normalized (U_IC) and
+plain (IC).
 
 Counterpart of ``deep_prob_feature_track_tpu/solvers/residuals.py``.
 """
@@ -55,3 +56,19 @@ def build_inverse_warp_operand(invD1, x1, sigma1):
     """Stacked channels-last operand ``[invD1 | x1 | sigma1]`` of the maps
     the U_IC iteration warps (loop-invariant: built once per level)."""
     return W.make_warp_operand([invD1, x1, sigma1])
+
+
+def compute_warped_residual(pose10, invD0, invD1, x0, x1, px, py, K,
+                            obj_mask0=None, obj_mask1=None, plain: bool = False):
+    """Plain warped residual ``x1(w(x)) - x0`` of the IC track, 1e-3 where
+    invalid.  ``x1`` and ``invD1`` (for the occlusion test) warp in one
+    gather each, as in the JAX package.  Object masks are not ported.
+
+    :return: ``(residuals [B,C,H,W], invalid [B,1,H,W])``
+    """
+    if obj_mask0 is not None or obj_mask1 is not None:
+        raise NotImplementedError("object masks are not ported")
+    u, v, inv_z = W.batch_warp_inverse_depth(px, py, invD0, pose10, K)
+    x1_warped = W.warp_features(x1, u, v, plain=plain)
+    occ = W.check_occ(inv_z, invD1, u, v, plain=plain)
+    return (x1_warped - x0).masked_fill(occ, 1e-3), occ

@@ -1,4 +1,5 @@
-"""Training step of the ``feature`` preset: EPE3D loss, clip -> L2 -> Adam.
+"""Training step of the ``feature`` and ``feature_icp`` presets: EPE3D
+loss, clip -> L2 -> Adam.
 
 Counterpart of ``TrainConfig``, ``make_lr_schedule``, ``make_optimizer``,
 ``compute_loss``, ``create_train_state`` and ``make_train_step`` in
@@ -6,8 +7,10 @@ Counterpart of ``TrainConfig``, ``make_lr_schedule``, ``make_optimizer``,
 the JAX package's optax chain: the gradients are clipped to a global norm
 of 5.0, then ``torch.optim.Adam`` folds the L2 weight decay into them
 (``clip_by_global_norm`` -> ``add_decayed_weights`` -> ``scale_by_adam`` ->
-learning rate).  A step under autograd runs kernels K2 and K6 in the
-forward and K3 in the backward, 12 times each.
+learning rate).  A step of ``feature`` under autograd runs kernels K2 and
+K6 in the forward and K3 in the backward, 12 times each; ``feature_icp``
+runs K2 24 times, once more per iteration for the ICP warp of the input
+depth's vertices and normals, whose operand needs no cotangent (no K3).
 
 Not ported, and raising ``NotImplementedError``: the RPE / URPE / UEPE3D
 losses, object masks, gradient accumulation (``accum_steps > 1``), the

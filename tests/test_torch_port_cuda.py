@@ -15,7 +15,8 @@ adds with float atomics, within 1e-5 of the largest entry, whichever branch
 another order than the plain version, rtol 1e-5 with atol 1e-5 of the
 largest entry, against the plain version in float32 and in float64 (at
 307200 pixels the float64 one alone: the float32 one's own sums stray
-past that limit); the forward atol 1e-4 on R and t; one training step through
+past that limit); the forward atol 1e-4 on R and t (1e-5 for the presets
+``feature_icp``, ``RGB`` and ``ICP``: ``PRESET_ATOL``); one training step through
 the kernels vs through the plain versions: the loss within 1e-5 relative,
 each gradient leaf within 5e-3 of its largest entry (the envelope of 12
 chained Gauss-Newton solves, ``tests/test_torch_port_train.py``).
@@ -132,7 +133,7 @@ FLAT_CASES = [(3, 30, 40, 30 * 40 - 13), (2, 120, 160, 120 * 160 - 13)]
 
 
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
-@pytest.mark.parametrize("C", [1, 3, 10, 17])
+@pytest.mark.parametrize("C", [1, 3, 6, 10, 17])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES)
 def test_gather_kernel_bitwise_on_flat_runs(cuda, coords, C, B, H, W, N):
     F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(C)).to(cuda)
@@ -154,7 +155,7 @@ def _plane(cuda, B, H, W, C, offset):
 
 @pytest.mark.parametrize("offset", [False, True])
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
-@pytest.mark.parametrize("C", [1, 3, 10, 17, 40])
+@pytest.mark.parametrize("C", [1, 3, 6, 10, 17, 40])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES + [(64, 15, 20, 300)])
 def test_gather_grads_kernel_on_flat_runs(cuda, offset, coords, C, B, H, W, N):
     """K2 on compact runs (smooth, off the plane, a 15x20 plane), scattered
@@ -214,7 +215,8 @@ def test_splat_launch_mixes_staged_and_global_tiles(cuda):
     assert 0.0 < shares["offplane"] < 1.0, shares
 
 
-@pytest.mark.parametrize("B,C,HW", [(8, 8, 19200), (8, 8, 300), (2, 3, 2049), (1, 8, 1)])
+@pytest.mark.parametrize("B,C,HW", [(8, 8, 19200), (8, 1, 19200), (8, 8, 300), (2, 3, 2049),
+                                    (1, 8, 1)])
 def test_jtj_kernel_matches_plain(cuda, B, C, HW):
     g = torch.Generator().manual_seed(1)
     args = [torch.randn(*s, generator=g).to(cuda)
@@ -367,6 +369,8 @@ def _tile_maps(cuda, B, H, W, Hs, Ws, coords, seed=0):
     (4, 240, 320, 10, 240, 320),  # K5 at level 1 of the 640x480 step
     (2, 240, 320, 17, 240, 320),  # the un-slimmed operand
     (2, 96, 448, 10, 83, 301),    # a sample grid that is not a multiple of the tile
+    (8, 480, 640, 6, 480, 640),   # K4 on the ICP warp of the 640x480 feature_icp forward
+    (4, 480, 640, 6, 480, 640),   # K5 on it in the 640x480 feature_icp step
 ])
 def test_tiles_kernels_match_plain(cuda, coords, B, H, W, C, Hs, Ws):
     from deep_prob_feature_track_torch.ops.kernels import tiles
@@ -419,3 +423,143 @@ def test_96x448_forward_and_step_route_level_0_through_the_tile_kernels(cuda):
     assert np.isfinite(metrics["loss"].item()) and np.isfinite(metrics["grad_norm"].item())
     assert tk.LAUNCHES == {"gather_twohot": 0, "gather_twohot_grads": 9, "splat_twohot": 12,
                            "fused_jtj_jtr": 12, "gather_tiles": 0, "gather_tiles_grads": 3}
+
+
+# per forward at 120x160: feature_icp adds an ICP warp (C=6) per iteration;
+# RGB warps the gray image and the occlusion depth (C=1) for 3 residuals a
+# level, ICP its vertices and normals (C=6) once an iteration, RGB+ICP the
+# U_IC operand (C=3) and the ICP operand
+PRESET_LAUNCHES = {
+    "feature_icp": {"gather_twohot": 24, "fused_jtj_jtr": 12},
+    "RGB": {"gather_twohot": 24},
+    "ICP": {"gather_twohot": 12},
+    "RGB+ICP": {"gather_twohot": 24, "fused_jtj_jtr": 12},
+}
+
+
+def _launches(**n):
+    return {k: n.get(k, 0) for k in tk.LAUNCHES}
+
+
+# kernel against plain forward on R and t.  RGB+ICP on these uniform-noise
+# inputs is held to the feature forward's 1e-4: the whole gap is K6's
+# rounding, which is closer to float64 sums than the plain einsums', and
+# flips pixels of the ICP occlusion mask (|T v0 - v1_r| > 0.1) from level 1
+# on (test_rgb_icp_forward_gap_is_k6_alone; scripts/torch_rgb_icp_gap.py
+# prints the gap, 3.3e-5 on an H100, and the flipped pixels)
+PRESET_ATOL = {"feature_icp": 1e-5, "RGB": 1e-5, "ICP": 1e-5, "RGB+ICP": 1e-4}
+
+
+@pytest.mark.parametrize("preset", sorted(PRESET_LAUNCHES))
+def test_preset_forward_kernels_match_plain_on_card(cuda, preset):
+    from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
+
+    batch = example_batch(8, 120, 160, seed=3, device=cuda)
+    kern = build_tracker(preset, device=cuda)
+    plain = build_tracker(preset, device=cuda, plain_kernels=True)
+    tk.reset_launches()
+    with torch.inference_mode():
+        R, t = kern(*batch)
+        assert tk.LAUNCHES == _launches(**PRESET_LAUNCHES[preset])
+        Rp, tp = plain(*batch)
+    assert tk.LAUNCHES == _launches(**PRESET_LAUNCHES[preset])
+    torch.testing.assert_close(R, Rp, rtol=0, atol=PRESET_ATOL[preset])
+    torch.testing.assert_close(t, tp, rtol=0, atol=PRESET_ATOL[preset])
+    eye = torch.eye(3, device=cuda).expand_as(R)
+    assert (R.transpose(1, 2) @ R - eye).abs().max() < 1e-4
+    assert np.isfinite(t.cpu().numpy()).all()
+
+
+def test_rgb_icp_forward_gap_is_k6_alone(cuda, monkeypatch):
+    """The RGB+ICP forward's kernel-vs-plain gap comes from K6 alone: with
+    the plain K6 the kernel gathers give the plain forward bit for bit, with
+    K6 the plain gathers give the kernel forward bit for bit, and K6's sums
+    are no farther from float64 sums of the same inputs than the plain
+    version's."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
+    from deep_prob_feature_track_torch.solvers import jacobians
+
+    batch = example_batch(8, 120, 160, seed=3, device=cuda)
+    k6_inputs = []
+
+    def k6(*a, **k):
+        k6_inputs.append([x.clone() for x in a])
+        return tk.fused_jtj_jtr_cuda(*a, **k)
+
+    def pose(plain, swap_k6=False):
+        with monkeypatch.context() as mp:
+            if swap_k6:  # the other route for the normal equations only
+                mp.setattr(jacobians, "jtj_jtr_ref" if plain else "fused_jtj_jtr",
+                           k6 if plain else tk.jtj_jtr_ref)
+            with torch.inference_mode():
+                return torch.cat([x.flatten(1) for x in build_tracker(
+                    "RGB+ICP", device=cuda, plain_kernels=plain)(*batch)], 1)
+
+    kern, plain = pose(False), pose(True)
+    assert torch.equal(pose(False, swap_k6=True), plain)
+    assert torch.equal(pose(True, swap_k6=True), kern)
+    assert len(k6_inputs) == 12
+    for args in k6_inputs:
+        ref = tk.jtj_jtr_ref(*[x.double() for x in args])
+        for got_k6, got_plain, r in zip(tk.fused_jtj_jtr_cuda(*args), tk.jtj_jtr_ref(*args), ref):
+            assert (got_k6.double() - r).abs().max() <= (got_plain.double() - r).abs().max()
+
+
+def test_feature_icp_train_step_on_card(cuda):
+    """One loss and backward of feature_icp through the kernels and through
+    their plain versions at 60x80: K2 24 times (the feature and the ICP
+    warps), K3 12 (the ICP operand needs no cotangent), K6 12."""
+    from deep_prob_feature_track_torch.models.presets import get_preset
+    from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
+    from deep_prob_feature_track_torch.training import train as tt
+
+    batch = tt.synthetic_batch(4, 60, 80, seed=3, device=cuda)
+    results = []
+    for plain in (False, True):
+        net = LeastSquareTracking(get_preset("feature_icp"), plain_kernels=plain)
+        state = tt.create_train_state(net, tt.TrainConfig(), seed=1, device=cuda)
+        tk.reset_launches()
+        loss = tt.compute_loss(state.net, tt.TrainConfig(), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        if not plain:
+            assert tk.LAUNCHES == _launches(gather_twohot_grads=24, splat_twohot=12,
+                                            fused_jtj_jtr=12)
+        results.append((loss.item(), {k: p.grad for k, p in net.named_parameters()}))
+    assert tk.LAUNCHES == _launches()  # the plain step launched nothing
+    (loss, grads), (loss_p, grads_p) = results
+    assert np.isfinite(loss) and abs(loss - loss_p) <= 1e-5 * abs(loss_p)
+    for key, ref in grads_p.items():
+        torch.testing.assert_close(grads[key], ref, rtol=0,
+                                   atol=5e-3 * ref.abs().max().item(), msg=key)
+
+
+def test_feature_icp_640x480_routes_the_icp_warp_through_the_tile_kernels(cuda):
+    """At 640x480 the ICP operand (C=6) takes K4 at level 0 of the forward
+    and K5 at level 0 of the step, as the JAX package routes it; at level 1
+    of the step it takes K2 where the feature operand (C=10) takes K5."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
+    from deep_prob_feature_track_torch.models.presets import get_preset
+    from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
+    from deep_prob_feature_track_torch.training import train as tt
+
+    batch = example_batch(2, 480, 640, seed=3, device=cuda)
+    kern = build_tracker("feature_icp", device=cuda)
+    plain = build_tracker("feature_icp", device=cuda, plain_kernels=True)
+    tk.reset_launches()
+    with torch.inference_mode():
+        R, t = kern(*batch)
+        assert tk.LAUNCHES == _launches(gather_tiles=6, gather_twohot=18, fused_jtj_jtr=12)
+        Rp, tp = plain(*batch)
+    torch.testing.assert_close(R, Rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(t, tp, rtol=0, atol=1e-5)
+
+    cfg = tt.TrainConfig()
+    state = tt.create_train_state(LeastSquareTracking(get_preset("feature_icp")), cfg,
+                                  device=cuda)
+    step = tt.make_train_step(cfg, steps_per_epoch=100)
+    tk.reset_launches()
+    state, metrics = step(state, tt.synthetic_batch(2, 480, 640, seed=4, device=cuda))
+    assert np.isfinite(metrics["loss"].item()) and np.isfinite(metrics["grad_norm"].item())
+    assert tk.LAUNCHES == _launches(gather_tiles_grads=9, gather_twohot_grads=15,
+                                    splat_twohot=12, fused_jtj_jtr=12)

@@ -16,7 +16,7 @@ import torch
 
 from deep_prob_feature_track_torch.models.encoder import FeaturePyramid
 from deep_prob_feature_track_torch.models.from_flax import from_flax
-from deep_prob_feature_track_torch.models.presets import PRESETS, get_preset
+from deep_prob_feature_track_torch.models.presets import get_preset
 from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
 from deep_prob_feature_track_tpu.models import presets as jp
 from deep_prob_feature_track_tpu.models.import_torch import convert_state_dict
@@ -165,7 +165,7 @@ def test_seeded_init_is_deterministic():
     assert torch.equal(a["encoder.net0.0.1.running_var"], torch.ones(16))
 
 
-@pytest.mark.parametrize("preset", sorted(set(PRESETS) - {"feature"}))
+@pytest.mark.parametrize("preset", ["DeepIC"])
 def test_unported_presets_raise(preset):
     with pytest.raises(NotImplementedError):
         LeastSquareTracking(get_preset(preset))

@@ -98,7 +98,7 @@ def test_tr_uic_level_matches_jax(rng):
     level = jax.jit(lambda p, *a: jtr.tr_uic_level(p, *a, max_iter=3, remove_tru_sigma=True))
     (Rj, tj), _, JtWJ_j = level((jnp.asarray(R0), jnp.asarray(t0)), *map(jnp.asarray, args))
     for plain in (False, True):
-        (R, t), JtWJ = tr_uic_level((torch.from_numpy(R0), torch.from_numpy(t0)),
+        (R, t), _, JtWJ = tr_uic_level((torch.from_numpy(R0), torch.from_numpy(t0)),
                                     *map(torch.from_numpy, args), max_iter=3,
                                     remove_tru_sigma=True, plain=plain)
         np.testing.assert_allclose(R.numpy(), np.asarray(Rj), atol=1e-5)
