@@ -87,16 +87,18 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    Gauss-Newton loop that reuses them), beside the plain version, one PyTorch library
    call computing the same function where there is one, and the least time
    the card could take (bytes moved over the memory rate, or flops over the
-   f32 rate); K1 (B=8), K2 and K3 (B=64) on random, smooth, teleported and
-   off-plane coordinates, K3 at 480x640, B=4 level 0 (smooth); K4 and K5
-   at the 480x640 shapes beside K1 and K2 on the same inputs; K6 at the
-   120x160 B=8 levels, and at the B=64 training levels and the 480x640
-   B=8 levels, each checked as in 4 (at 480x640 level 0 against the
-   float64 plain version alone: there the float32 one's own sums of
-   307,200 pixels stray past the limit); K1 at C=1, 3 and 6 at the 120x160
-   B=8 levels, K2 at C=6 (B=64, level 0) and K4 at C=6 (480x640 B=8), on
-   smooth coordinates; with ``--time``, the 120x160 B=64 train step of
-   ``feature`` and ``feature_icp``;
+   f32 rate); ``grid_sample``'s events and device time; K1 (B=8), K2 and
+   K3 (B=64) on random, smooth, teleported and off-plane coordinates, K3
+   at 480x640, B=4 level 0 (smooth); K4 at 480x640 B=8 at C=1, 3, 6, 10
+   and 17, and K5 at the 480x640 training shapes, beside K1 and K2 on the
+   same inputs; K6 at the 120x160 B=8 levels, and at the B=64 training
+   levels and the 480x640 B=8 levels, each checked as in 4 (at 480x640
+   level 0 against the float64 plain version alone: there the float32
+   one's own sums of 307,200 pixels stray past the limit); K1 at C=1, 3
+   and 6 at the 120x160 B=8 levels, K2 at C=6 (B=64, level 0) and K6 at
+   C=1 (120x160 B=8 level 0, checked as in 4), on smooth coordinates;
+   with ``--time``, the 120x160 B=64 train step of ``feature`` and
+   ``feature_icp``;
 18. profile one B=8 forward at 120x160 and at 480x640 (``torch.profiler``),
    of ``feature`` and, timed too, of ``feature_icp``, and at 120x160 of
    ``RGB``, ``ICP`` and ``RGB+ICP``: device busy time, the span from its
@@ -263,9 +265,9 @@ def gather_inputs(torch, dev, h, w, seed, b=B):
     return (F.to(dev), *_corner_weights(F.shape, u, v)), (u, v)
 
 
-def jtj_inputs(torch, dev, hw, seed, b=B):
+def jtj_inputs(torch, dev, hw, seed, b=B, c=C_RES):
     g = torch.Generator().manual_seed(seed)
-    shapes = ((b, C_RES, hw),) * 3 + ((b, hw, 6),) * 2
+    shapes = ((b, c, hw),) * 3 + ((b, hw, 6),) * 2
     return [torch.randn(*s, generator=g).to(dev) for s in shapes]
 
 
@@ -421,7 +423,7 @@ TILE_CHANNELS = {"gather_tiles": C_ICP + (C_WARP, C_FULL),
 
 def phase_tiles_kernels(torch, dev):
     from deep_prob_feature_track_torch.ops import kernels as K
-    from deep_prob_feature_track_torch.ops.kernels.tiles import staged_share
+    from deep_prob_feature_track_torch.ops.kernels.tiles import grads_staged_share, staged_share
 
     err = {"gather_tiles": 0.0, "gather_tiles_grads": 0.0}
     for i, (kname, b, level) in enumerate(TILE_CASES):
@@ -431,7 +433,8 @@ def phase_tiles_kernels(torch, dev):
                 F, maps, _ = tile_inputs(torch, dev, b, h, w, c, seed=40 + i,
                                          coords="teleported" if teleport else "smooth")
                 flat = [m.reshape(b, -1) for m in maps]
-                share = staged_share(maps[0], maps[2], h, w, c)
+                share = (staged_share if kname == "gather_tiles" else grads_staged_share)(
+                    maps[0], maps[2], h, w, c)
                 if kname == "gather_tiles":
                     got = (K.gather_tiles_cuda(F, *maps),)
                     ref = (K.gather_tiles_ref(F, *maps),)
@@ -738,10 +741,11 @@ def phase_scene_share(torch, dev):
     from deep_prob_feature_track_torch.apps.serve import build_tracker
     from deep_prob_feature_track_torch.geometry import warp
     from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
-    from deep_prob_feature_track_torch.ops.kernels.tiles import staged_share
+    from deep_prob_feature_track_torch.ops.kernels.tiles import grads_staged_share, staged_share
     from deep_prob_feature_track_torch.training import train as T
 
     kernels = {k: getattr(warp, k) for k in ("gather_tiles", "gather_tiles_grads", "splat_twohot")}
+    tile_share = {"gather_tiles": staged_share, "gather_tiles_grads": grads_staged_share}
     shares = {}
     scene = [""]
 
@@ -750,7 +754,7 @@ def phase_scene_share(torch, dev):
             if hw:  # K3: the plane's H, W; x is the cotangent [B,C,N]
                 size, share = hw, splat_staged_share(v0, u0, *hw, x.shape[1])
             else:  # K4 / K5: the sample grid
-                size, share = tuple(v0.shape[1:]), staged_share(v0, u0, *x.shape[1:])
+                size, share = tuple(v0.shape[1:]), tile_share[name](v0, u0, *x.shape[1:])
             shares.setdefault(f"{name} {scene[0]}", []).append((size, share))
             return kernels[name](x, v0, dv, u0, du, *hw)
         return call
@@ -784,6 +788,21 @@ def _grid(u, v, b, h, w):
                         v.reshape(b, 1, n) * (2.0 / (h - 1)) - 1], dim=-1)
 
 
+def grid_sample_timing(torch, F, uv):
+    """Events and device time of ``grid_sample`` (bilinear, border,
+    align_corners=True) of F [b,h,w,C] at the raw coordinates ``uv``: the
+    library call that computes K1's and K4's function."""
+    b, h, w, _ = F.shape
+    grid = _grid(*uv, b, h, w)
+    F_nchw = F.permute(0, 3, 1, 2).contiguous()
+
+    def call():
+        return torch.nn.functional.grid_sample(F_nchw, grid, mode="bilinear",
+                                               padding_mode="border", align_corners=True)
+
+    return {"library_ms": time_ms(torch, call, windows=5), "library_device_ms": device_ms(torch, call)}
+
+
 def k1_timing(torch, F, args, uv, bw, flops):
     """K1's events and device time on F [b,h,w,C] at the corner maps
     ``args`` [b,n], beside its plain version, ``grid_sample`` at the same
@@ -792,14 +811,11 @@ def k1_timing(torch, F, args, uv, bw, flops):
 
     b, h, w, c = F.shape
     n = h * w
-    grid = _grid(*uv, b, h, w)
-    F_nchw = F.permute(0, 3, 1, 2).contiguous()
     return {
         "ms": time_ms(torch, lambda: K.gather_twohot_cuda(F, *args), windows=5),
         "device_ms": device_ms(torch, lambda: K.gather_twohot_cuda(F, *args)),
         "plain_ms": time_ms(torch, lambda: K.gather_twohot_ref(F, *args)),
-        "library_ms": time_ms(torch, lambda: torch.nn.functional.grid_sample(
-            F_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True), windows=5),
+        **grid_sample_timing(torch, F, uv),
         **bound(4 * (F.numel() + 4 * b * n + b * c * n), b * n * (2 + 11 * c), bw, flops),
     }
 
@@ -964,48 +980,51 @@ def phase_time_jtj(torch, dev, name):
 
 
 def phase_time_tiles(torch, dev, name):
-    """K4 and K5 at the 480x640 shapes on smooth coordinates, beside their
+    """K4 at 480x640 B=8 at each channel count it is checked at, and K5 at
+    the 480x640 training shapes (C=10), on smooth coordinates, beside their
     plain versions, K1 / K2 on the same inputs (the same function over the
-    whole plane) and, for K4, ``grid_sample``."""
+    whole plane) and, for K4, ``grid_sample`` (events and device time) and
+    the share of its tiles that staged."""
     from deep_prob_feature_track_torch.ops import kernels as K
+    from deep_prob_feature_track_torch.ops.kernels.tiles import staged_share
 
     bw, flops = peaks(name)
     levels = []
     for i, (kname, b, level) in enumerate(TILE_CASES):
         h, w = VGA_LEVELS[level]
         n = h * w
-        F, maps, (u, v) = tile_inputs(torch, dev, b, h, w, C_WARP, seed=60 + i)
-        flat = [m.reshape(b, -1) for m in maps]
-        planes = b * n * C_WARP  # floats of the operand plane and of each output
-        if kname == "gather_tiles":
-            kern, plain, full = K.gather_tiles_cuda, K.gather_tiles_ref, K.gather_twohot_cuda
-            nbytes, nflops = 4 * (planes + 4 * b * n + planes), b * n * (2 + 11 * C_WARP)
-            grid = torch.stack([u.reshape(b, 1, n) * (2.0 / (w - 1)) - 1,
-                                v.reshape(b, 1, n) * (2.0 / (h - 1)) - 1], dim=-1)
-            F_nchw = F.permute(0, 3, 1, 2).contiguous()
-            library = time_ms(torch, lambda: torch.nn.functional.grid_sample(
-                F_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True))
-        else:
-            kern, plain = K.gather_tiles_grads_cuda, K.gather_tiles_grads_ref
-            full = K.gather_twohot_grads_cuda
-            nbytes, nflops = 4 * (planes + 4 * b * n + 3 * planes), b * n * (2 + 17 * C_WARP)
-            library = None  # no single PyTorch call returns the value and both maps
-        row = {
-            "ms": time_ms(torch, lambda: kern(F, *maps)),
-            "device_ms": device_ms(torch, lambda: kern(F, *maps)),
-            "plain_ms": time_ms(torch, lambda: plain(F, *maps)),
-            "library_ms": library,
-            **bound(nbytes, nflops, bw, flops),
-            "full_plane_ms": time_ms(torch, lambda: full(F, *flat)),
-            "full_plane_device_ms": device_ms(torch, lambda: full(F, *flat)),
-        }
-        levels.append({"kernel": kname, "level": level, "b": b, "hw": [h, w], **row})
-        log(f"{kname} level {level} B={b} {h}x{w}: {row['ms']:.4f} ms, device "
-            f"{row['device_ms']:.4f} (plain {row['plain_ms']:.4f}, "
-            f"{'K1' if library is not None else 'K2'} on the same inputs "
-            f"{row['full_plane_ms']:.4f}, device {row['full_plane_device_ms']:.4f}, "
-            f"grid_sample {'-' if library is None else f'{library:.4f}'}, "
-            f"bound {row['bound_ms']:.4f})")
+        for c in TILE_CHANNELS[kname] if kname == "gather_tiles" else (C_WARP,):
+            F, maps, uv = tile_inputs(torch, dev, b, h, w, c, seed=60 + i)
+            flat = [m.reshape(b, -1) for m in maps]
+            planes = b * n * c  # floats of the operand plane and of each output
+            if kname == "gather_tiles":
+                kern, plain, full = K.gather_tiles_cuda, K.gather_tiles_ref, K.gather_twohot_cuda
+                nbytes, nflops = 4 * (2 * planes + 4 * b * n), b * n * (2 + 11 * c)
+                library = {**grid_sample_timing(torch, F, uv),
+                           "staged_share": staged_share(maps[0], maps[2], h, w, c)}
+            else:
+                kern, plain = K.gather_tiles_grads_cuda, K.gather_tiles_grads_ref
+                full = K.gather_twohot_grads_cuda
+                nbytes, nflops = 4 * (4 * planes + 4 * b * n), b * n * (2 + 17 * c)
+                library = {"library_ms": None}  # no single call returns the value and both maps
+            row = {
+                "ms": time_ms(torch, lambda: kern(F, *maps)),
+                "device_ms": device_ms(torch, lambda: kern(F, *maps)),
+                "plain_ms": time_ms(torch, lambda: plain(F, *maps)),
+                **library,
+                **bound(nbytes, nflops, bw, flops),
+                "full_plane_ms": time_ms(torch, lambda: full(F, *flat)),
+                "full_plane_device_ms": device_ms(torch, lambda: full(F, *flat)),
+            }
+            levels.append({"kernel": kname, "level": level, "b": b, "c": c, "hw": [h, w], **row})
+            lib = ("grid_sample -" if row["library_ms"] is None else
+                   f"grid_sample {row['library_ms']:.4f}, device {row['library_device_ms']:.4f}, "
+                   f"staged share {row['staged_share']:.4f}")
+            log(f"{kname} level {level} B={b} {h}x{w} C={c}: {row['ms']:.4f} ms, device "
+                f"{row['device_ms']:.4f} (plain {row['plain_ms']:.4f}, "
+                f"{'K1' if kname == 'gather_tiles' else 'K2'} on the same inputs "
+                f"{row['full_plane_ms']:.4f}, device {row['full_plane_device_ms']:.4f}, {lib}, "
+                f"bound {row['bound_ms']:.4f})")
     return levels
 
 
@@ -1046,12 +1065,11 @@ def phase_step_time(torch, dev, preset):
 
 def phase_time_channels(torch, dev, name):
     """K1 (B=8) at the 120x160 levels at C=1, 3 and 6 (the classical and ICP
-    warps), K2 (B=64) at level 0 at C=6 (the ICP warp of the feature_icp
-    step) and K4 at 480x640 B=8 at C=6 (the ICP warp of the 640x480
-    feature_icp forward), on smooth coordinates, beside the plain versions,
-    the library call and the bound."""
-    from deep_prob_feature_track_torch.ops import kernels as K
-
+    warps) and K2 (B=64) at level 0 at C=6 (the ICP warp of the feature_icp
+    step), on smooth coordinates, and K6 at the 120x160 B=8 level 0 at C=1
+    (the IC track of RGB+ICP), checked as in 4 first, beside the plain
+    versions, the library call and the bound.  K4 at C=6 (the ICP warp of
+    the 640x480 feature_icp forward) is timed in ``phase_time_tiles``."""
     bw, flops = peaks(name)
     rows = []
     for c in C_ICP:
@@ -1062,26 +1080,17 @@ def phase_time_channels(torch, dev, name):
     F, args, _ = flat_inputs(torch, dev, B_TRAIN, H, W, 6, 120, "smooth")
     rows.append({"kernel": "gather_twohot_grads", "b": B_TRAIN, "level": 0, "hw": [H, W],
                  "c": 6, **k2_timing(torch, F, args, bw, flops)})
-    h, w = VGA_LEVELS[0]
-    F, maps, (u, v) = tile_inputs(torch, dev, B, h, w, 6, seed=121)
-    n, planes = h * w, B * h * w * 6
-    grid = _grid(u, v, B, h, w)
-    F_nchw = F.permute(0, 3, 1, 2).contiguous()
-    rows.append({
-        "kernel": "gather_tiles", "b": B, "level": 0, "hw": [h, w], "c": 6,
-        "ms": time_ms(torch, lambda: K.gather_tiles_cuda(F, *maps)),
-        "device_ms": device_ms(torch, lambda: K.gather_tiles_cuda(F, *maps)),
-        "plain_ms": time_ms(torch, lambda: K.gather_tiles_ref(F, *maps)),
-        "library_ms": time_ms(torch, lambda: torch.nn.functional.grid_sample(
-            F_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
-        **bound(4 * (2 * planes + 4 * B * n), B * n * (2 + 11 * 6), bw, flops),
-    })
+    args = jtj_inputs(torch, dev, H * W, seed=122, c=1)
+    e = check_jtj(torch, args, f"level 0 [{B},1,{H * W}]")
+    rows.append({"kernel": "fused_jtj_jtr", "b": B, "level": 0, "hw": [H, W], "c": 1,
+                 "max_abs_err": e, **k6_timing(torch, args, bw, flops)})
     for r in rows:
+        lib = "-" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f}, device {r['library_device_ms']:.4f}")
+        coords = "" if r["kernel"] == "fused_jtj_jtr" else ", smooth coordinates"
         log(f"{r['kernel']} C={r['c']} level {r['level']} {r['hw'][0]}x{r['hw'][1]} "
-            f"B={r['b']}, smooth coordinates: {r['ms']:.4f} ms, device {r['device_ms']:.4f} "
-            f"(plain {r['plain_ms']:.4f}, library "
-            f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, bound "
-            f"{r['bound_ms']:.4f})")
+            f"B={r['b']}{coords}: {r['ms']:.4f} ms, device {r['device_ms']:.4f} "
+            f"(plain {r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.4f})")
     return rows
 
 
@@ -1169,7 +1178,7 @@ def build_kernels(loader):
     log(f"built {sorted(paths)} in {time.monotonic() - t0:.1f} s")
     for source in sorted(paths):
         for line in (loader.BUILD_DIR / f"{source}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"ptxas {source}: {line.strip()}")
 
 
@@ -1232,7 +1241,8 @@ def run(torch, loader, dev, name, smi):
     # 120x160 train path did; K4 as the 480x640 serve path, K5 as the 480x640
     # train path did
     level0 = {**m["timing"]["levels"][0], **m["grads_levels"][0],
-              **{row["kernel"]: row for row in m["tiles_levels"] if row["level"] == 0}}
+              **{row["kernel"]: row for row in m["tiles_levels"]
+                 if row["level"] == 0 and row["c"] == C_WARP}}
     launches.update({k: train["launches"][k] for k in ("gather_twohot_grads", "splat_twohot")})
     launches["gather_tiles"] = vga_launches["gather_tiles"]
     launches["gather_tiles_grads"] = vga_train["launches"]["gather_tiles_grads"]

@@ -14,12 +14,17 @@ Replaces ``deep_prob_feature_track_tpu/ops/pallas/gather_tiles.py``:
 
 The functions are K1's and K2's on a 2-D sample grid, so the plain versions
 flatten the maps and call K1's and K2's plain versions.  The kernels
-(``csrc/gather_tiles.cu``) give each CTA one ``TILE_H x TILE_W`` tile of
-the sample grid: it stages its samples' corner box of the plane in
-``BOX_FLOATS`` floats of shared memory when the box fits, and reads the
-corners from device memory when it does not.  ``gather_tiles`` and
-``gather_tiles_grads`` dispatch on the tensors' device alone: CUDA tensors
-launch a kernel, CPU tensors take the plain version.
+(``csrc/gather_tiles.cu``) take the sample grid in tiles of ``rows x
+TILE_W`` samples; a tile stages its samples' corner box of the plane in
+shared memory when the box fits, and reads the corners from device memory
+when it does not.  K4's persistent CTAs walk tiles of :func:`tile_rows`
+rows through a ring of four ``BOX_FLOATS`` box buffers, filled
+asynchronously; K5 gives each CTA one ``GRADS_TILE_H`` row tile and
+``GRADS_BOX_FLOATS`` floats.  :func:`staged_share` and
+:func:`grads_staged_share` count the tiles that stage as the kernels
+decide it.  ``gather_tiles`` and ``gather_tiles_grads`` dispatch on the
+tensors' device alone: CUDA tensors launch a kernel, CPU tensors take the
+plain version.
 
 :func:`use_tiles` is the JAX package's route: the warp takes these kernels
 exactly where the JAX package would take its tile kernels.
@@ -27,17 +32,48 @@ exactly where the JAX package would take its tile kernels.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import loader
 from .gather import cuda_dims, gather_twohot_ref, raise_bad_args
 from .gather_grads import gather_twohot_grads_ref
 
-TILE_H, TILE_W = 8, 32  # one warp per tile row: coalesced coordinate loads and stores
-BOX_FLOATS = 6656  # 26 KB of shared memory per CTA: an SM holds eight such CTAs
+TILE_W = 32  # one warp per tile row: coalesced coordinate loads and stores
+# K4: four ring buffers of 44 KB (with the warps' coordinate rings 217 KB of
+# shared memory: one CTA an SM); a multiple of 32 floats, so that every
+# buffer starts on 128 bytes, as TMA copies need
+BOX_FLOATS = 11264
+MAX_TILE_ROWS = 16  # one consumer warp per tile row
+# K5: 8-row tiles, 26 KB of shared memory per CTA
+GRADS_TILE_H, GRADS_BOX_FLOATS = 8, 6656
+
+
+def box_pitch(cols: int, C: int) -> int:
+    """Floats of one K4 box row of ``cols`` cells in shared memory: the row's
+    ``cols * C`` floats, up to 3 more in front where its start rounds down
+    to 16 bytes, rounded up to 16 bytes."""
+    return (cols * C + 6) // 4 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def tile_rows(C: int) -> int:
+    """K4's rows per tile at C channels: the most, up to ``MAX_TILE_ROWS``,
+    whose box near identity motion fits a buffer: the tile's rows (columns),
+    the cells' second row (column) and two more for the motion.  Up to C=15
+    the kernel copies such a box with one TMA request."""
+    th = MAX_TILE_ROWS
+    while th > 1 and (th + 3) * box_pitch(TILE_W + 3, C) > BOX_FLOATS:
+        th //= 2
+    return th
+
 
 _LAUNCH = {name: loader.launcher(name, f"{name}_launch", "8P8iP")
            for name in ("gather_tiles", "gather_tiles_grads")}
+# kernel -> (tile rows, floats of a box buffer) at C channels
+_TILING = {"gather_tiles": lambda C: (tile_rows(C), BOX_FLOATS),
+           "gather_tiles_grads": lambda C: (GRADS_TILE_H, GRADS_BOX_FLOATS)}
 
 
 # ------------------------------------------------------------------ route
@@ -138,7 +174,7 @@ def _launch(name, n_out, F, v0, dv, u0, du):
     outs = [F.new_empty((B, C, Hs * Ws)) for _ in range(n_out)]
     ptrs = [o.data_ptr() for o in outs] + [0] * (3 - n_out)
     _LAUNCH[name](F.data_ptr(), v0.data_ptr(), dv.data_ptr(), u0.data_ptr(), du.data_ptr(),
-                  *ptrs, B, H, W, C, Hs, Ws, TILE_H, BOX_FLOATS,
+                  *ptrs, B, H, W, C, Hs, Ws, *_TILING[name](C),
                   loader.raw_stream(F.get_device()))
     return outs
 
@@ -169,21 +205,46 @@ def gather_tiles_grads(F, v0, dv, u0, du):
     return gather_tiles_grads_ref(F, v0, dv, u0, du)
 
 
-def staged_share(v0, u0, H: int, W: int, C: int) -> float:
-    """Share of the kernels' CTAs that stage their corner box in shared
-    memory for these corner starts [B,Hs,Ws], computed as the kernels decide
-    it: per TILE_H x TILE_W tile, the clamped starts' box
-    ``(vmax - vmin + 2) x (umax - umin + 2) x C`` floats against BOX_FLOATS."""
+def _tile_boxes(v0, u0, H: int, W: int, th: int):
+    """Per ``th x TILE_W`` tile of the corner starts [B,Hs,Ws], clamped to
+    [0, size-2]: (vmin, vmax, umin, umax), each [B, tiles down, tiles
+    across]."""
     B, Hs, Ws = v0.shape
-    Ht, Wt = -(-Hs // TILE_H), -(-Ws // TILE_W)
+    Ht, Wt = -(-Hs // th), -(-Ws // TILE_W)
     # repeat the last row and column into the ragged tiles: their extent is
     # that of the live samples
-    rows = torch.arange(Ht * TILE_H, device=v0.device).clamp(max=Hs - 1)
+    rows = torch.arange(Ht * th, device=v0.device).clamp(max=Hs - 1)
     cols = torch.arange(Wt * TILE_W, device=v0.device).clamp(max=Ws - 1)
 
-    def extent(m, hi):
-        m = m.clamp(0, hi)[:, rows][:, :, cols].reshape(B, Ht, TILE_H, Wt, TILE_W)
-        return m.amax(dim=(2, 4)) - m.amin(dim=(2, 4)) + 2
+    def tiled(m, hi):
+        return m.long().clamp(0, hi)[:, rows][:, :, cols].reshape(B, Ht, th, Wt, TILE_W)
 
-    box = extent(v0.long(), H - 2) * extent(u0.long(), W - 2) * C
-    return (box <= BOX_FLOATS).double().mean().item()
+    v, u = tiled(v0, H - 2), tiled(u0, W - 2)
+    return v.amin(dim=(2, 4)), v.amax(dim=(2, 4)), u.amin(dim=(2, 4)), u.amax(dim=(2, 4))
+
+
+def staged_share(v0, u0, H: int, W: int, C: int) -> float:
+    """Share of K4's tiles that stage their corner box in shared memory for
+    these corner starts [B,Hs,Ws] of a plane [B,H,W,C], as the kernel
+    decides it: per ``tile_rows(C) x TILE_W`` tile, the clamped starts' box
+    of ``rows = vmax - vmin + 2`` rows of ``box_pitch(umax - umin + 2, C)``
+    floats must fit ``BOX_FLOATS``, and its last row's end, rounded up to 16
+    bytes, must lie inside the plane.  (The kernel stages only from a
+    16-byte aligned plane, as PyTorch allocates them.)"""
+    B = v0.shape[0]
+    vlo, vhi, ulo, uhi = _tile_boxes(v0, u0, H, W, tile_rows(C))
+    b = torch.arange(B, device=v0.device)[:, None, None]
+    end = ((b * H + vhi + 1) * W + uhi + 2) * C
+    staged = (((vhi - vlo + 2) * box_pitch(uhi - ulo + 2, C) <= BOX_FLOATS)
+              & ((end + 3) // 4 * 4 <= B * H * W * C))
+    return staged.double().mean().item()
+
+
+def grads_staged_share(v0, u0, H: int, W: int, C: int) -> float:
+    """Share of K5's tiles that stage, as the kernel decides it: per
+    ``GRADS_TILE_H x TILE_W`` tile, the clamped starts' box
+    ``(vmax - vmin + 2) x (umax - umin + 2) x C`` floats against
+    ``GRADS_BOX_FLOATS``."""
+    vlo, vhi, ulo, uhi = _tile_boxes(v0, u0, H, W, GRADS_TILE_H)
+    box = (vhi - vlo + 2) * (uhi - ulo + 2) * C
+    return (box <= GRADS_BOX_FLOATS).double().mean().item()

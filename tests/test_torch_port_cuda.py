@@ -347,7 +347,9 @@ def _tile_maps(cuda, B, H, W, Hs, Ws, coords, seed=0):
     """Corner starts and weights [B,Hs,Ws] on the card: ``smooth`` small
     motion (every tile stages its box), ``global`` uniform random coordinates
     (no tile does), ``mixed`` the smooth ones with a few samples teleported
-    across the plane (one launch takes both paths)."""
+    across the plane (one launch takes both paths), ``offplane`` the smooth
+    ones zoomed out 4x about the centre (most samples clamp to the border)
+    with a few NaN coordinates and a few starts at the int32 extremes."""
     rng = np.random.RandomState(seed)
     if coords == "global":
         u = rng.uniform(-3, W + 2, (B, 1, Hs, Ws))
@@ -360,8 +362,16 @@ def _tile_maps(cuda, B, H, W, Hs, Ws, coords, seed=0):
         for b, y, x in zip(rng.randint(0, B, 6), rng.randint(0, Hs, 6), rng.randint(0, Ws, 6)):
             u[b, 0, y, x] = (u[b, 0, y, x] + W / 2) % (W - 1)
             v[b, 0, y, x] = (v[b, 0, y, x] + H / 2) % (H - 1)
+    if coords == "offplane":
+        u, v = (u - W / 2) * 4 + W / 2, (v - H / 2) * 4 + H / 2
+        for m in (u, v):
+            m[rng.randint(0, B, 5), 0, rng.randint(0, Hs, 5), rng.randint(0, Ws, 5)] = np.nan
     u, v = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (u, v))
-    return [t.reshape(B, Hs, Ws) for t in tw._corner_weights((B, H, W, 1), u, v)]
+    maps = [t.reshape(B, Hs, Ws) for t in tw._corner_weights((B, H, W, 1), u, v)]
+    if coords == "offplane":  # starts that no clamp of the coordinates made
+        for m, extreme in ((maps[0], -2**31), (maps[2], 2**31 - 1), (maps[0], 2**31 - 1)):
+            m[rng.randint(0, B, 3), rng.randint(0, Hs, 3), rng.randint(0, Ws, 3)] = extreme
+    return maps
 
 
 @pytest.mark.parametrize("coords", ["smooth", "global", "mixed"])
@@ -377,22 +387,120 @@ def test_tiles_kernels_match_plain(cuda, coords, B, H, W, C, Hs, Ws):
 
     F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(5)).to(cuda)
     maps = _tile_maps(cuda, B, H, W, Hs, Ws, coords)
-    share = tiles.staged_share(maps[0], maps[2], H, W, C)
-    assert {"smooth": share == 1.0, "global": share == 0.0,
-            "mixed": 0.0 < share < 1.0}[coords], share
+    for share in (tiles.staged_share(maps[0], maps[2], H, W, C),
+                  tiles.grads_staged_share(maps[0], maps[2], H, W, C)):
+        assert {"smooth": share == 1.0, "global": share == 0.0,
+                "mixed": 0.0 < share < 1.0}[coords], share
     n0 = dict(tk.LAUNCHES)
     out = tk.gather_tiles(F, *maps)
     got = tk.gather_tiles_grads(F, *maps)
     assert tk.LAUNCHES["gather_tiles"] == n0["gather_tiles"] + 1
     assert tk.LAUNCHES["gather_tiles_grads"] == n0["gather_tiles_grads"] + 1
     ref = tk.gather_tiles_grads_ref(F, *maps)
+    k1 = tk.gather_twohot_cuda(F, *[m.reshape(B, -1) for m in maps])
     torch.cuda.synchronize()
     assert out.shape == (B, C, Hs * Ws)
     torch.testing.assert_close(out, ref[0], rtol=0, atol=0)
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
     torch.testing.assert_close(out, tk.gather_tiles_ref(F, *maps), rtol=0, atol=0)
+    torch.testing.assert_close(out, k1, rtol=0, atol=0)
     for g, r in zip(got[1:], ref[1:]):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-6 * r.abs().max().item())
+
+
+def _k4_matches_plain_and_k1(F, maps):
+    """K4 on F and the corner maps, launched once: bit for bit its plain
+    version and K1 on the flattened maps (NaN where they are NaN)."""
+    B = F.shape[0]
+    n0 = tk.LAUNCHES["gather_tiles"]
+    out = tk.gather_tiles(F, *maps)
+    assert tk.LAUNCHES["gather_tiles"] == n0 + 1
+    ref = tk.gather_tiles_ref(F, *maps)
+    k1 = tk.gather_twohot_cuda(F, *[m.reshape(B, -1) for m in maps])
+    torch.cuda.synchronize()
+    assert out.shape == (B, F.shape[3], maps[0][0].numel())
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(out, k1, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("C", [1, 3, 6, 10, 17])
+@pytest.mark.parametrize("coords", ["smooth", "mixed", "offplane"])
+@pytest.mark.parametrize("B,H,W,Hs,Ws", [
+    (1, 480, 640, 480, 640),  # 600 tiles (1200 at C=17): more than the persistent grid's CTAs
+    (8, 96, 448, 83, 301),    # a ragged sample grid, 480 tiles (960 at C=17)
+    (2, 180, 283, 170, 260),  # rows of W*C floats that are not whole 16-byte runs
+])
+def test_gather_tiles_ring_matches_plain_and_k1(cuda, C, coords, B, H, W, Hs, Ws):
+    """K4 at the channel counts of every warp, on smooth coordinates (every
+    tile stages), teleported samples (staged and global tiles in one launch)
+    and coordinates off the plane, NaN or at the int32 extremes."""
+    from deep_prob_feature_track_torch.ops.kernels import tiles
+
+    F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(C)).to(cuda)
+    maps = _tile_maps(cuda, B, H, W, Hs, Ws, coords, seed=C)
+    share = tiles.staged_share(maps[0], maps[2], H, W, C)
+    assert share == 1.0 if coords == "smooth" else 0.0 < share < 1.0, share
+    _k4_matches_plain_and_k1(F, maps)
+
+
+@pytest.mark.parametrize("C", [3, 10])
+def test_gather_tiles_on_an_unaligned_plane(cuda, C):
+    """A plane that is not 16-byte aligned stages no box: every tile reads
+    its corners from device memory, bit for bit as K1."""
+    B, H, W = 2, 96, 160
+    flat = torch.randn(B * H * W * C + 1, generator=torch.Generator().manual_seed(2)).to(cuda)
+    F = flat[1:].view(B, H, W, C)
+    assert F.data_ptr() % 16 != 0 and F.is_contiguous()
+    _k4_matches_plain_and_k1(F, _tile_maps(cuda, B, H, W, H, W, "smooth", seed=C))
+
+
+def _box_at_capacity(C, max_rows):
+    """(rows, cols) of a K4 box of at most ``max_rows`` rows that fills a
+    buffer exactly."""
+    from deep_prob_feature_track_torch.ops.kernels import tiles
+
+    for cols in range(2, 400):
+        pitch = tiles.box_pitch(cols, C)
+        if tiles.BOX_FLOATS % pitch == 0 and tiles.BOX_FLOATS // pitch <= max_rows:
+            return tiles.BOX_FLOATS // pitch, cols
+    raise AssertionError(f"no box fills {tiles.BOX_FLOATS} floats at C={C}")
+
+
+def capacity_maps(B, H, W, Hs, Ws, C, seed=0):
+    """Identity corner starts [B,Hs,Ws] with random weights, except that
+    image 0's first tile spans a box that fills a K4 buffer exactly and its
+    second tile one row more.  Returns (v0, dv, u0, du) on the CPU and the
+    number of tiles that take the global path (1)."""
+    from deep_prob_feature_track_torch.ops.kernels import tiles
+
+    rows, cols = _box_at_capacity(C, H - 3)
+    th = tiles.tile_rows(C)
+    assert Ws >= 2 * tiles.TILE_W and Hs >= th and W >= 42 + cols
+    g = torch.Generator().manual_seed(seed)
+    v0 = torch.arange(Hs, dtype=torch.int32)[:, None].expand(B, Hs, Ws).contiguous()
+    u0 = torch.arange(Ws, dtype=torch.int32)[None, :].expand(B, Hs, Ws).contiguous()
+    for i, r in enumerate((rows, rows + 1)):
+        x0 = i * tiles.TILE_W
+        v0[0, :th, x0:x0 + tiles.TILE_W] = 1
+        u0[0, :th, x0:x0 + tiles.TILE_W] = 2 + 40 * i
+        v0[0, 1, x0 + 1] = 1 + r - 2
+        u0[0, 1, x0 + 1] = 2 + 40 * i + cols - 2
+    dv, du = torch.rand(B, Hs, Ws, generator=g), torch.rand(B, Hs, Ws, generator=g)
+    return (v0, dv, u0, du), 1
+
+
+@pytest.mark.parametrize("C", [6, 10])
+def test_gather_tiles_boxes_at_and_just_over_capacity(cuda, C):
+    """A tile whose box fills a ring buffer exactly stages; one row more
+    sends its tile to the global path; both are bit-exact."""
+    from deep_prob_feature_track_torch.ops.kernels import tiles
+
+    B, H, W, Hs, Ws = 2, 96, 160, 40, 80
+    maps, n_global = capacity_maps(B, H, W, Hs, Ws, C)
+    n_tiles = B * -(-Hs // tiles.tile_rows(C)) * -(-Ws // tiles.TILE_W)
+    assert tiles.staged_share(maps[0], maps[2], H, W, C) == 1.0 - n_global / n_tiles
+    F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(1)).to(cuda)
+    _k4_matches_plain_and_k1(F, [m.to(cuda) for m in maps])
 
 
 def test_96x448_forward_and_step_route_level_0_through_the_tile_kernels(cuda):

@@ -173,16 +173,14 @@ def _c_structs():
     out = {}
     for src in loader.CSRC.glob("*.cu"):
         text = src.read_text()
-        structs = {}
-        for name, body in re.findall(r"struct (\w+) \{(.*?)\n\};", text, re.S):
+        for symbol, name in re.findall(r'extern "C" int (\w+)\(const (\w+)\* a\)', text):
+            body = re.search(rf"struct {name} \{{(.*?)\n\}};", text, re.S).group(1)
             fields = []
             for decl in re.sub(r"//[^\n]*", "", body).split(";"):
                 m = re.match(r"\s*((?:const )?\w+\*?)\s+(.+)", decl.strip())
                 if m:
                     fields += [(f.strip(), _CTYPES[m.group(1)]) for f in m.group(2).split(",")]
-            structs[name] = fields
-        for symbol, name in re.findall(r'extern "C" int (\w+)\(const (\w+)\* a\)', text):
-            out[symbol] = structs[name]
+            out[symbol] = fields
     return out
 
 

@@ -165,21 +165,24 @@ def test_tiles_args_are_checked():
 
 
 def test_staged_share_follows_the_coordinates(rng):
-    """Smooth small motion stages every tile; one teleported sample sends its
-    own tile to the global path; uniform random coordinates send them all."""
+    """Smooth small motion stages every tile of K4 and K5; one teleported
+    sample sends its own tile to the global path; uniform random coordinates
+    send them all."""
     H, W, C = 72, 96, 10
     _, (v0, _, u0, _) = _tile_inputs(rng, H, W, C)
     v0, u0 = torch.from_numpy(v0), torch.from_numpy(u0)
-    n_tiles = 2 * (H // tiles.TILE_H) * (W // tiles.TILE_W)
-    assert tiles.staged_share(v0, u0, H, W, C) == 1.0
-    v0[0, 3, 4] = H - 2
-    assert tiles.staged_share(v0, u0, H, W, C) == pytest.approx(1.0 - 1.0 / n_tiles)
     noise = torch.from_numpy(rng.randint(0, H - 1, v0.shape).astype(np.int32))
-    assert tiles.staged_share(noise, noise, H, W, C) == 0.0
-    # a ragged sample grid (not a multiple of the tile) counts its edge tiles
-    ragged = tiles.staged_share(v0[:, :70, :90].contiguous(), u0[:, :70, :90].contiguous(),
-                                H, W, C)
-    assert ragged == pytest.approx(1.0 - 1.0 / (2 * 9 * 3))
+    for share, th in ((tiles.staged_share, tiles.tile_rows(C)),
+                      (tiles.grads_staged_share, tiles.GRADS_TILE_H)):
+        rows, cols = -(-H // th), -(-W // tiles.TILE_W)
+        assert share(v0, u0, H, W, C) == 1.0
+        moved = v0.clone()
+        moved[0, 3, 4] = H - 2
+        assert share(moved, u0, H, W, C) == pytest.approx(1.0 - 1.0 / (2 * rows * cols))
+        assert share(noise, noise, H, W, C) == 0.0
+        # a ragged sample grid (not a multiple of the tile) counts its edge tiles
+        ragged = share(moved[:, :70, :90].contiguous(), u0[:, :70, :90].contiguous(), H, W, C)
+        assert ragged == pytest.approx(1.0 - 1.0 / (2 * -(-70 // th) * -(-90 // tiles.TILE_W)))
 
 
 # --------------------------------------------- the warp through the route
