@@ -78,7 +78,8 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    times (levels 2-3), K3 and K6 12 times, K1 and K4 not at all; kernels
    against plain within the same limits; timed and profiled;
 16. the share of K4's, K5's and K3's tiles that staged on the
-   synthetic scenes' own warps: the 480x640 forward, and one loss and
+   synthetic scenes' own warps: the 480x640 ``feature`` and ``feature_icp``
+   forwards, and one loss and
    backward at 480x640, B=4 and at 120x160, B=64;
 17. time the forwards and each kernel at each level (CUDA events around
    back-to-back calls after warm-up, and the kernels' own device time:
@@ -91,8 +92,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    K3 (B=64) on random, smooth, teleported and off-plane coordinates, K3
    at 480x640, B=4 level 0 (smooth); K4 at 480x640 B=8 at C=1, 3, 6, 10
    and 17, and K5 at the 480x640 training shapes, beside K1 and K2 on the
-   same inputs; K6 at the 120x160 B=8 levels, and at the B=64 training
-   levels and the 480x640 B=8 levels, each checked as in 4 (at 480x640
+   same inputs, K4 at C=6 and 10 also on tracking-like coordinates whose
+   tiles mostly miss its window; K6 at the 120x160 B=8 levels, and at the
+   B=64 training levels and the 480x640 B=8 levels, each checked as in 4 (at 480x640
    level 0 against the float64 plain version alone: there the float32
    one's own sums of 307,200 pixels stray past the limit); K1 at C=1, 3
    and 6 at the 120x160 B=8 levels, K2 at C=6 (B=64, level 0) and K6 at
@@ -387,8 +389,11 @@ def tile_inputs(torch, dev, b, h, w, c, seed, coords="smooth"):
     fits in shared memory), ``teleported``, the same with 64 samples per
     image moved half the plane away (their tiles take the global path), or
     ``offplane``, the smooth flow zoomed out 4x about the plane's centre (a
-    large motion: ~94% of the samples clamp to the border).  Also returns
-    (u, v)."""
+    large motion: ~94% of the samples clamp to the border), or ``tracking``,
+    the JAX package's tracking-like flow of its tile tests (3-pixel
+    sinusoids, ``tests/test_gather_tiles.py::make_coords``), whose motion
+    gradient (up to 0.43 pixels a pixel) sends most of K4's tiles out of
+    its window.  Also returns (u, v)."""
     from deep_prob_feature_track_torch.geometry.warp import _corner_weights
 
     g = torch.Generator().manual_seed(seed)
@@ -396,8 +401,12 @@ def tile_inputs(torch, dev, b, h, w, c, seed, coords="smooth"):
     yy = torch.arange(h, dtype=torch.float32)[:, None]
     xx = torch.arange(w, dtype=torch.float32)[None, :]
     phase = torch.rand(b, 1, 1, 1, generator=g) * 3
-    u = (xx + 0.8 * torch.sin(yy / 9.0 + phase) + 0.3).contiguous()
-    v = (yy + 0.8 * torch.cos(xx / 11.0 + phase) + 0.2).contiguous()
+    if coords == "tracking":
+        u = (xx + 3.0 * torch.sin(yy / 7.0 + phase)).contiguous()
+        v = (yy + 3.0 * torch.cos(xx / 9.0 + phase)).contiguous()
+    else:
+        u = (xx + 0.8 * torch.sin(yy / 9.0 + phase) + 0.3).contiguous()
+        v = (yy + 0.8 * torch.cos(xx / 11.0 + phase) + 0.2).contiguous()
     if coords == "offplane":
         u = (u - w / 2) * 4 + w / 2
         v = (v - h / 2) * 4 + h / 2
@@ -735,8 +744,9 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature"):
 
 def phase_scene_share(torch, dev):
     """The share of K4's, K5's and K3's tiles that staged on the
-    synthetic scenes, recorded from the warp's kernel calls: the 480x640
-    forward's own level-0 warps, then one loss and backward at 480x640, B=4
+    synthetic scenes, recorded from the warp's kernel calls (the other
+    tiles take the global path): the level-0 warps of the 480x640
+    ``feature`` and ``feature_icp`` forwards, then one loss and backward at 480x640, B=4
     (K5 at levels 0-1, K3 at every level) and at 120x160, B=64 (K3)."""
     from deep_prob_feature_track_torch.apps.serve import build_tracker
     from deep_prob_feature_track_torch.geometry import warp
@@ -762,10 +772,11 @@ def phase_scene_share(torch, dev):
     for name in kernels:
         setattr(warp, name, recorder(name))
     try:
-        scene[0] = f"B={B} {H_VGA}x{W_VGA} forward"
         batch = T.synthetic_batch(B, H_VGA, W_VGA, seed=VGA_TRAIN_SEED, device=dev)
-        with torch.inference_mode():
-            build_tracker("feature", device=dev)(*[batch[k] for k in KEYS])
+        for preset in ("feature", "feature_icp"):
+            scene[0] = f"B={B} {H_VGA}x{W_VGA} {preset} forward"
+            with torch.inference_mode():
+                build_tracker(preset, device=dev)(*[batch[k] for k in KEYS])
         for b, h, w, seed in ((B_VGA_TRAIN, H_VGA, W_VGA, VGA_TRAIN_SEED), (B_TRAIN, H, W, TRAIN_SEED)):
             scene[0] = f"B={b} {h}x{w} loss and backward"
             cfg, state = _train_state(torch, dev)
@@ -984,7 +995,9 @@ def phase_time_tiles(torch, dev, name):
     the 480x640 training shapes (C=10), on smooth coordinates, beside their
     plain versions, K1 / K2 on the same inputs (the same function over the
     whole plane) and, for K4, ``grid_sample`` (events and device time) and
-    the share of its tiles that staged."""
+    the share of its tiles that staged; K4 at C=6 and 10 also on the
+    tracking-like coordinates of ``tile_inputs``, where most tiles take the
+    global path."""
     from deep_prob_feature_track_torch.ops import kernels as K
     from deep_prob_feature_track_torch.ops.kernels.tiles import staged_share
 
@@ -993,8 +1006,11 @@ def phase_time_tiles(torch, dev, name):
     for i, (kname, b, level) in enumerate(TILE_CASES):
         h, w = VGA_LEVELS[level]
         n = h * w
-        for c in TILE_CHANNELS[kname] if kname == "gather_tiles" else (C_WARP,):
-            F, maps, uv = tile_inputs(torch, dev, b, h, w, c, seed=60 + i)
+        cases = ([(c, "smooth") for c in TILE_CHANNELS[kname]]
+                 + [(c, "tracking") for c in (6, C_WARP)] if kname == "gather_tiles"
+                 else [(C_WARP, "smooth")])
+        for c, coords in cases:
+            F, maps, uv = tile_inputs(torch, dev, b, h, w, c, seed=60 + i, coords=coords)
             flat = [m.reshape(b, -1) for m in maps]
             planes = b * n * c  # floats of the operand plane and of each output
             if kname == "gather_tiles":
@@ -1016,11 +1032,13 @@ def phase_time_tiles(torch, dev, name):
                 "full_plane_ms": time_ms(torch, lambda: full(F, *flat)),
                 "full_plane_device_ms": device_ms(torch, lambda: full(F, *flat)),
             }
-            levels.append({"kernel": kname, "level": level, "b": b, "c": c, "hw": [h, w], **row})
+            levels.append({"kernel": kname, "level": level, "b": b, "c": c, "hw": [h, w],
+                           "coords": coords, **row})
             lib = ("grid_sample -" if row["library_ms"] is None else
                    f"grid_sample {row['library_ms']:.4f}, device {row['library_device_ms']:.4f}, "
                    f"staged share {row['staged_share']:.4f}")
-            log(f"{kname} level {level} B={b} {h}x{w} C={c}: {row['ms']:.4f} ms, device "
+            log(f"{kname} level {level} B={b} {h}x{w} C={c}, {coords} coordinates: "
+                f"{row['ms']:.4f} ms, device "
                 f"{row['device_ms']:.4f} (plain {row['plain_ms']:.4f}, "
                 f"{'K1' if kname == 'gather_tiles' else 'K2'} on the same inputs "
                 f"{row['full_plane_ms']:.4f}, device {row['full_plane_device_ms']:.4f}, {lib}, "
@@ -1242,7 +1260,7 @@ def run(torch, loader, dev, name, smi):
     # train path did
     level0 = {**m["timing"]["levels"][0], **m["grads_levels"][0],
               **{row["kernel"]: row for row in m["tiles_levels"]
-                 if row["level"] == 0 and row["c"] == C_WARP}}
+                 if row["level"] == 0 and row["c"] == C_WARP and row["coords"] == "smooth"}}
     launches.update({k: train["launches"][k] for k in ("gather_twohot_grads", "splat_twohot")})
     launches["gather_tiles"] = vga_launches["gather_tiles"]
     launches["gather_tiles_grads"] = vga_train["launches"]["gather_tiles_grads"]

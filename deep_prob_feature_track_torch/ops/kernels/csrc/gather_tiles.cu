@@ -26,8 +26,9 @@
 // [vmin, vmax+1] x [umin, umax+1] with warp reductions.  The decision is per
 // tile, inside the kernel, with no host sync:
 //
-// - staged: the box fits the shared memory the tile is given; it is copied
-//   there and the samples blend from shared memory.
+// - staged: the box fits the shared memory the tile is given (K4: it lies
+//   in the window that K4 copies); it is copied there and the samples blend
+//   from shared memory.
 // - global: otherwise the tile reads its corners straight from device
 //   memory, as K1 does.  A tile that leaves its box costs speed, never
 //   accuracy.
@@ -52,23 +53,22 @@
 //   loop: every hand-over is an mbarrier.
 // - A ring of kStages box buffers in dynamic shared memory (44 KB each;
 //   with the coordinate rings a CTA takes 217 KB), filled asynchronously
-//   kLead tiles ahead of the blend.  A tile stages when its box of rows x cols cells, held as rows
-//   of pitch = roundup4(cols*C + 3) floats, fits a buffer, and the last
-//   row's end rounded up to 16 bytes lies inside the plane.  The copy:
-//   * one TMA tensor copy (cp.async.bulk.tensor over the plane viewed as
-//     [B*H][W*C/32][32] floats, 128-byte inner units) of a fixed window of
-//     tile_h + 3 rows by the 128-byte chunks that 35 cells can span, where
-//     the box lies inside it: the tiles of a smooth warp, one request each;
-//   * else one cp.async.bulk per box row, its start rounded down to 16
-//     bytes and its length up (a box too tall or wide for the window, or a
-//     plane whose rows are not whole 128-byte chunks).
-//   Both complete on the stage's `full` mbarrier with the bytes they bring.
-// - Taller tiles.  tile_h is 16 where a box of tile_h + 3 rows by 35 cells
-//   fits a buffer (C <= 16), else 8, 4, 2 or 1 (ops/kernels/tiles.py::
-//   tile_rows); the window, 128-byte chunks wide, fits one at C <= 15.  Near identity
-//   motion a 16 x 32 tile's box spans ~19 x 35 cells, 1.3x its samples, an
-//   8 x 32 tile's 11 x 35, 1.5x.  32 x 32 tiles would need 47 KB boxes at
-//   C = 10, so fewer stages.
+//   kLead tiles ahead of the blend by one TMA tensor copy each
+//   (cp.async.bulk.tensor over the plane viewed as [B*H][W*C/32][32]
+//   floats, 128-byte inner units) of a fixed window: tile_h + 3 rows by the
+//   128-byte chunks that 35 cells can span, from the chunk that holds the
+//   box's first float.  A tile stages when its box lies inside that window;
+//   the copy completes on the stage's `full` mbarrier with the window's
+//   bytes.  A plane whose rows are not whole chunks has no window, and all
+//   its tiles take the global path.
+// - Taller tiles.  tile_h is 16 where the window of a 16-row tile fits a
+//   buffer (C <= 15), else 8, 4, 2 or 1 (ops/kernels/tiles.py::tile_rows).
+//   The window holds the box of a tile whose starts move by at most 2 cells
+//   across it, down and across: smooth flow near identity motion, where a
+//   16 x 32 tile's box spans ~19 x 35 cells, 1.3x its samples (an 8 x 32
+//   tile's 11 x 35, 1.5x).  32 x 32 tiles would need 47 KB boxes at
+//   C = 10, so fewer stages.  A larger motion gradient (a zoom, a fast
+//   rotation) or a teleported sample sends the tile to the global path.
 // - A conflict-free blend.  Where C is even (and the plane 8-byte aligned)
 //   a lane reads channel pairs as float2: neighbouring lanes sit C/2 eight-
 //   byte words apart, an odd stride at C = 6 and 10, so a half-warp hits 16
@@ -267,12 +267,11 @@ constexpr int kSlots = kLead + kLoadAhead + 1;   // a consumer warp's ring of co
 constexpr size_t kMaxShared = 227 * 1024;
 constexpr unsigned kMaxPolls = 1u << 30;          // a barrier that never completes
 
-// what the producer tells the consumers of a stage's tile: its box's first
-// cell, its rows' pitch in floats, and the mask that a box row's offset
-// from F takes to give how far into the row the row's first float lies
-// (-1: the tile takes the global path)
+// what the producer tells the consumers of a stage's tile: the window's
+// first row and its first float in a plane row (-1: the tile takes the
+// global path)
 struct Header {
-  int vlo, ulo, pitch, lead;
+  int vlo, c0;
 };
 
 // dynamic shared memory: [kStages][capacity] box floats, [kStages] headers,
@@ -329,15 +328,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "memory");
     if (++polls == kMaxPolls) __trap();  // fail rather than hang
   } while (!done);
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(smem(dst)),
-      "l"(src), "r"(bytes), "r"(smem(bar))
-      : "memory");
 }
 
 // one TMA copy of the window at (chunk q, row r) of the plane viewed as
@@ -437,12 +427,12 @@ struct Ring {
 };
 
 // The producer warp: for each tile of this CTA, combine the consumer warps'
-// row boxes into the tile's box and, when the box fits a buffer, copy it
-// there: the window in one TMA copy, else one cp.async.bulk per box row.
-// The stage's header and its full barrier tell the consumers.
+// row boxes into the tile's box and, when the box lies in the window that
+// starts at its first row and at the 128-byte chunk of its first float,
+// copy the window to a buffer with one TMA request.  The stage's header
+// and its full barrier tell the consumers.
 __device__ __forceinline__ void produce(const Grid& g, const CUtensorMap* map, const Ring& ring) {
   const int lane = threadIdx.x & 31;
-  const long long total = (long long)g.B * g.H * g.W * g.C;
   Cursor at(g, 0);
   for (int j = 0; at.live(g); ++j, at.next(g)) {
     const int b = at.b;
@@ -455,43 +445,21 @@ __device__ __forceinline__ void produce(const Grid& g, const CUtensorMap* map, c
     const int vhi = __reduce_max_sync(0xffffffffu, r.y);
     const int ulo = __reduce_min_sync(0xffffffffu, r.z);
     const int uhi = __reduce_max_sync(0xffffffffu, r.w);
-    const int rows = vhi - vlo + 2;
-    const int run = (uhi - ulo + 2) * g.C;  // floats of a box row
-    const int pitch = (run + 6) & ~3;
-    // one past the last float of the box's last row, from F
-    const long long end = (((long long)b * g.H + vhi + 1) * g.W + uhi + 2) * g.C;
-    const bool staged = (long long)rows * pitch <= g.capacity && ((end + 3) & ~3LL) <= total;
+    const long long c0 = (long long)ulo * g.C & ~31LL;  // the window's first float in a row
+    // the box's rows lie in the window's, its last float in its chunks (no
+    // window: 0 rows)
+    const bool staged = vhi - vlo + 2 <= g.window_rows &&
+                        (long long)(uhi + 2) * g.C - c0 <= 32LL * g.window_chunks;
 
     if (n > 0) mbar_wait(&ring.empty[s], (n - 1) & 1);  // tile j - kStages is blended
-    const long long row0 = (((long long)b * g.H + vlo) * g.W + ulo) * g.C;
-    // the whole box in one TMA copy where the window holds it: rows of
-    // 32 * window_chunks floats from the 128-byte chunk that holds row0
-    const bool window = rows <= g.window_rows && (int)(row0 & 31) + run <= 32 * g.window_chunks;
-    if (lane == 0)
-      ring.head[s] = !staged ? Header{0, 0, 0, -1}
-                   : window  ? Header{vlo, ulo, 32 * g.window_chunks, 31}
-                             : Header{vlo, ulo, pitch, 3};
-    float* buf = ring.boxes + (size_t)s * g.capacity;
-    if (!staged) {
-      if (lane == 0) mbar_arrive(&ring.full[s]);
-    } else if (window) {
-      if (lane == 0) {
+    if (lane == 0) {
+      ring.head[s] = Header{vlo, staged ? (int)c0 : -1};
+      if (staged) {
         mbar_expect(&ring.full[s], 128u * g.window_rows * g.window_chunks);
-        tensor_copy(buf, map, ulo * g.C >> 5, b * g.H + vlo, &ring.full[s]);
-      }
-    } else {
-      const long long stride = (long long)g.W * g.C;
-      unsigned bytes = 0;
-      for (int i = lane; i < rows; i += 32)
-        bytes += (unsigned)(((int)((row0 + i * stride) & 3) + run + 3) & ~3) * 4u;
-      bytes = __reduce_add_sync(0xffffffffu, bytes);
-      if (lane == 0) mbar_expect(&ring.full[s], bytes);
-      __syncwarp();
-      for (int i = lane; i < rows; i += 32) {
-        const long long start = row0 + i * stride;
-        const int l = (int)(start & 3);
-        bulk_copy(buf + i * pitch, g.F + (start - l), (unsigned)((l + run + 3) & ~3) * 4u,
-                  &ring.full[s]);
+        tensor_copy(ring.boxes + (size_t)s * g.capacity, map, (int)(c0 >> 5), b * g.H + vlo,
+                    &ring.full[s]);
+      } else {
+        mbar_arrive(&ring.full[s]);
       }
     }
   }
@@ -558,14 +526,12 @@ __device__ __forceinline__ void consume(const Grid& g, const Ring& ring, int w) 
       const float fv = __int_as_float(c.z), fu = __int_as_float(c.w);
       float* const o = g.out + (long long)b * C * g.N + (long long)(at.y0 + w) * g.Ws + at.x0 + lane;
       const Header h = ring.head[s];
-      if (h.lead >= 0) {
-        // box row v holds F's floats from ((b*H + v)*W + ulo)*C, its offset
-        // from F masked by h.lead floats in
-        const long long r0 = ((long long)b * H + vi) * W + h.ulo;
-        const int lead0 = (int)((r0 * C) & h.lead), lead1 = (int)(((r0 + W) * C) & h.lead);
-        const float* buf = ring.boxes + (size_t)s * g.capacity + (ui - h.ulo) * C;
-        blend<VEC>(buf + (vi - h.vlo) * h.pitch + lead0, buf + (vi + 1 - h.vlo) * h.pitch + lead1,
-                   C, fu, fv, o, g.N);
+      if (h.c0 >= 0) {
+        // window row r holds the floats c0, c0 + 1, ... of plane row vlo + r
+        const int pitch = 32 * g.window_chunks;
+        const float* p0 =
+            ring.boxes + (size_t)s * g.capacity + (vi - h.vlo) * pitch + (ui * C - h.c0);
+        blend<VEC>(p0, p0 + pitch, C, fu, fv, o, g.N);
       } else {
         const float* p0 = g.F + (((long long)b * H + vi) * W + ui) * C;
         blend<VEC>(p0, p0 + (long long)W * C, C, fu, fv, o, g.N);
@@ -605,34 +571,40 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // The tensor map of the plane F viewed as [B*H][W*C/32][32] floats whose
 // box is a tile's window: tile_h + 3 rows of the 128-byte chunks that 35
-// cells can span (the box of a tile near identity motion, which
-// tiles.py::tile_rows makes fit a buffer).  False where the view or the
-// window does not exist: a row is not whole chunks, or the window does not
-// fit a buffer (which must start on 128 bytes; an unaligned plane gets
-// none).
-bool encode_window(const TilesArgs& a, int capacity, CUtensorMap* map, int* rows, int* chunks) {
+// cells can span from any float of a chunk (the box of a tile near
+// identity motion, which tiles.py::tile_rows makes fit a buffer).  Sets
+// *rows to 0 where the view or the window does not exist: a row is not
+// whole chunks, or the window does not fit a buffer (an unaligned plane
+// gets a capacity of 0).  Returns the error of a driver call that fails
+// for a plane that has the view (the driver's CUresult, whose common
+// codes are cudaError's).
+int encode_window(const TilesArgs& a, int capacity, CUtensorMap* map, int* rows, int* chunks) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  *rows = a.tile_h + 3;
+  *rows = 0;
   *chunks = ((kTileW + 3) * a.C + 31 + 31) / 32;
   const long long WC = (long long)a.W * a.C;
-  if (WC % 32 || *chunks > 256 || capacity % 32 || (long long)*rows * 32 * *chunks > capacity)
-    return false;
+  if (WC % 32 || *chunks > 256 || (long long)(a.tile_h + 3) * 32 * *chunks > capacity) return 0;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-                                        12000, cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), 12000, cudaEnableDefault,
+        &found);
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) {
       encode = nullptr;
-      return false;
+      return e != cudaSuccess ? (int)e : (int)cudaErrorSymbolNotFound;
     }
   }
   const cuuint64_t dims[3] = {32, (cuuint64_t)(WC / 32), (cuuint64_t)a.B * a.H};
   const cuuint64_t strides[2] = {128, (cuuint64_t)WC * 4};  // bytes, of dims 1 and 2
-  const cuuint32_t box[3] = {32, (cuuint32_t)*chunks, (cuuint32_t)*rows};
+  const cuuint32_t box[3] = {32, (cuuint32_t)*chunks, (cuuint32_t)(a.tile_h + 3)};
   const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(a.F), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(a.F), dims, strides, box,
+             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)r;
+  *rows = a.tile_h + 3;
+  return 0;
 }
 
 template <int VEC>
@@ -673,7 +645,8 @@ int launch(const TilesArgs& a, int capacity) {
   g.step_y = (int)(grid % per_image) / g.tiles_x;
   g.step_x = (int)(grid % per_image) % g.tiles_x;
   CUtensorMap map{};
-  if (!encode_window(a, capacity, &map, &g.window_rows, &g.window_chunks)) g.window_rows = 0;
+  const int e = encode_window(a, capacity, &map, &g.window_rows, &g.window_chunks);
+  if (e != 0) return e;
   gather_tiles_ring_kernel<VEC><<<grid, kThreads, shared, (cudaStream_t)a.stream>>>(g, map);
   return (int)cudaGetLastError();
 }
@@ -681,11 +654,12 @@ int launch(const TilesArgs& a, int capacity) {
 }  // namespace ring
 
 // Returns the cudaError_t of the launch (gx, gy unused).  The box buffers
-// stage only from a 16-byte aligned plane, where the rounded row copies
-// start; float2 loads need C even and an 8-byte aligned plane.
+// (a multiple of 32 floats each, so that each starts on 128 bytes, as TMA
+// copies need) stage only from a 16-byte aligned plane, as a tensor map
+// needs; float2 loads need C even and an 8-byte aligned plane.
 extern "C" int gather_tiles_launch(const TilesArgs* a) {
   if (a->B == 0 || a->Hs == 0 || a->Ws == 0) return 0;
-  if (a->tile_h < 1 || a->tile_h > ring::kMaxRows || a->capacity < 0 || a->capacity % 4)
+  if (a->tile_h < 1 || a->tile_h > ring::kMaxRows || a->capacity < 0 || a->capacity % 32)
     return (int)cudaErrorInvalidValue;
   const uintptr_t f = reinterpret_cast<uintptr_t>(a->F);
   const int capacity = f % 16 ? 0 : a->capacity;

@@ -18,8 +18,8 @@ flatten the maps and call K1's and K2's plain versions.  The kernels
 TILE_W`` samples; a tile stages its samples' corner box of the plane in
 shared memory when the box fits, and reads the corners from device memory
 when it does not.  K4's persistent CTAs walk tiles of :func:`tile_rows`
-rows through a ring of four ``BOX_FLOATS`` box buffers, filled
-asynchronously; K5 gives each CTA one ``GRADS_TILE_H`` row tile and
+rows through a ring of four ``BOX_FLOATS`` box buffers, each filled
+asynchronously with one copy of a fixed window of the plane; K5 gives each CTA one ``GRADS_TILE_H`` row tile and
 ``GRADS_BOX_FLOATS`` floats.  :func:`staged_share` and
 :func:`grads_staged_share` count the tiles that stage as the kernels
 decide it.  ``gather_tiles`` and ``gather_tiles_grads`` dispatch on the
@@ -50,23 +50,27 @@ MAX_TILE_ROWS = 16  # one consumer warp per tile row
 GRADS_TILE_H, GRADS_BOX_FLOATS = 8, 6656
 
 
-def box_pitch(cols: int, C: int) -> int:
-    """Floats of one K4 box row of ``cols`` cells in shared memory: the row's
-    ``cols * C`` floats, up to 3 more in front where its start rounds down
-    to 16 bytes, rounded up to 16 bytes."""
-    return (cols * C + 6) // 4 * 4
+def window_chunks(C: int) -> int:
+    """128-byte chunks a K4 window row spans: those that a run of
+    ``TILE_W + 3`` cells can reach from any float of its first chunk."""
+    return ((TILE_W + 3) * C + 31 + 31) // 32
 
 
 @functools.lru_cache(maxsize=None)
 def tile_rows(C: int) -> int:
     """K4's rows per tile at C channels: the most, up to ``MAX_TILE_ROWS``,
-    whose box near identity motion fits a buffer: the tile's rows (columns),
-    the cells' second row (column) and two more for the motion.  Up to C=15
-    the kernel copies such a box with one TMA request."""
+    whose window (the tile's rows and three more, for the cells' second row
+    and two cells of motion) fits a buffer."""
     th = MAX_TILE_ROWS
-    while th > 1 and (th + 3) * box_pitch(TILE_W + 3, C) > BOX_FLOATS:
+    while th > 1 and (th + 3) * 32 * window_chunks(C) > BOX_FLOATS:
         th //= 2
     return th
+
+
+def has_window(W: int, C: int) -> bool:
+    """Whether K4 copies windows of a plane [., ., W, C]: its rows are whole
+    128-byte chunks and the window fits a buffer."""
+    return W * C % 32 == 0 and (tile_rows(C) + 3) * 32 * window_chunks(C) <= BOX_FLOATS
 
 
 _LAUNCH = {name: loader.launcher(name, f"{name}_launch", "8P8iP")
@@ -226,18 +230,17 @@ def _tile_boxes(v0, u0, H: int, W: int, th: int):
 def staged_share(v0, u0, H: int, W: int, C: int) -> float:
     """Share of K4's tiles that stage their corner box in shared memory for
     these corner starts [B,Hs,Ws] of a plane [B,H,W,C], as the kernel
-    decides it: per ``tile_rows(C) x TILE_W`` tile, the clamped starts' box
-    of ``rows = vmax - vmin + 2`` rows of ``box_pitch(umax - umin + 2, C)``
-    floats must fit ``BOX_FLOATS``, and its last row's end, rounded up to 16
-    bytes, must lie inside the plane.  (The kernel stages only from a
-    16-byte aligned plane, as PyTorch allocates them.)"""
-    B = v0.shape[0]
-    vlo, vhi, ulo, uhi = _tile_boxes(v0, u0, H, W, tile_rows(C))
-    b = torch.arange(B, device=v0.device)[:, None, None]
-    end = ((b * H + vhi + 1) * W + uhi + 2) * C
-    staged = (((vhi - vlo + 2) * box_pitch(uhi - ulo + 2, C) <= BOX_FLOATS)
-              & ((end + 3) // 4 * 4 <= B * H * W * C))
-    return staged.double().mean().item()
+    decides it: where the plane :func:`has_window`, per ``tile_rows(C) x
+    TILE_W`` tile, the clamped starts' box of ``vmax - vmin + 2`` rows must
+    lie in the window's ``tile_rows(C) + 3``, and its last float,
+    ``(umax + 2) * C`` into a row, in the ``window_chunks(C)`` chunks from
+    the chunk that holds its first, ``umin * C``.  (The kernel stages only
+    from a 16-byte aligned plane, as PyTorch allocates them.)"""
+    th = tile_rows(C)
+    vlo, vhi, ulo, uhi = _tile_boxes(v0, u0, H, W, th)
+    c0 = ulo * C // 32 * 32
+    staged = (vhi - vlo + 2 <= th + 3) & ((uhi + 2) * C - c0 <= 32 * window_chunks(C))
+    return staged.double().mean().item() if has_window(W, C) else 0.0
 
 
 def grads_staged_share(v0, u0, H: int, W: int, C: int) -> float:

@@ -345,7 +345,8 @@ def test_train_step_launches_each_kernel_12_times(cuda):
 
 def _tile_maps(cuda, B, H, W, Hs, Ws, coords, seed=0):
     """Corner starts and weights [B,Hs,Ws] on the card: ``smooth`` small
-    motion (every tile stages its box), ``global`` uniform random coordinates
+    motion (every tile stages its box, K4's where the grid samples the plane
+    about 1:1), ``global`` uniform random coordinates
     (no tile does), ``mixed`` the smooth ones with a few samples teleported
     across the plane (one launch takes both paths), ``offplane`` the smooth
     ones zoomed out 4x about the centre (most samples clamp to the border)
@@ -387,10 +388,14 @@ def test_tiles_kernels_match_plain(cuda, coords, B, H, W, C, Hs, Ws):
 
     F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(5)).to(cuda)
     maps = _tile_maps(cuda, B, H, W, Hs, Ws, coords)
-    for share in (tiles.staged_share(maps[0], maps[2], H, W, C),
-                  tiles.grads_staged_share(maps[0], maps[2], H, W, C)):
-        assert {"smooth": share == 1.0, "global": share == 0.0,
-                "mixed": 0.0 < share < 1.0}[coords], share
+    # K4's window holds a smooth tile's box where the grid samples the plane
+    # about 1:1; the 83x301 grid, stretched 1.5x across the 96x448 plane,
+    # leaves it in most tiles
+    stretched = (Hs, Ws) != (H, W)
+    for share, smooth in ((tiles.staged_share(maps[0], maps[2], H, W, C), not stretched),
+                          (tiles.grads_staged_share(maps[0], maps[2], H, W, C), True)):
+        assert {"smooth": share == 1.0 if smooth else 0.0 < share < 1.0,
+                "global": share == 0.0, "mixed": 0.0 < share < 1.0}[coords], share
     n0 = dict(tk.LAUNCHES)
     out = tk.gather_tiles(F, *maps)
     got = tk.gather_tiles_grads(F, *maps)
@@ -425,21 +430,28 @@ def _k4_matches_plain_and_k1(F, maps):
 
 @pytest.mark.parametrize("C", [1, 3, 6, 10, 17])
 @pytest.mark.parametrize("coords", ["smooth", "mixed", "offplane"])
-@pytest.mark.parametrize("B,H,W,Hs,Ws", [
-    (1, 480, 640, 480, 640),  # 600 tiles (1200 at C=17): more than the persistent grid's CTAs
-    (8, 96, 448, 83, 301),    # a ragged sample grid, 480 tiles (960 at C=17)
-    (2, 180, 283, 170, 260),  # rows of W*C floats that are not whole 16-byte runs
+@pytest.mark.parametrize("B,H,W,Hs,Ws,smooth", [
+    (1, 480, 640, 480, 640, "all"),   # 600 tiles (1200 at C=17): more than the grid's CTAs
+    (2, 90, 448, 90, 440, "all"),     # a ragged sample grid, 84 tiles (168 at C=17)
+    (8, 96, 448, 83, 301, "some"),    # ragged and stretched 1.5x: most boxes miss the window
+    (2, 180, 283, 170, 260, "none"),  # rows of W*C floats that are not whole chunks: no window
 ])
-def test_gather_tiles_ring_matches_plain_and_k1(cuda, C, coords, B, H, W, Hs, Ws):
+def test_gather_tiles_ring_matches_plain_and_k1(cuda, C, coords, B, H, W, Hs, Ws, smooth):
     """K4 at the channel counts of every warp, on smooth coordinates (every
-    tile stages), teleported samples (staged and global tiles in one launch)
-    and coordinates off the plane, NaN or at the int32 extremes."""
+    tile whose box lies in the window stages), teleported samples (staged
+    and global tiles in one launch) and coordinates off the plane, NaN or at
+    the int32 extremes."""
     from deep_prob_feature_track_torch.ops.kernels import tiles
 
     F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(C)).to(cuda)
     maps = _tile_maps(cuda, B, H, W, Hs, Ws, coords, seed=C)
     share = tiles.staged_share(maps[0], maps[2], H, W, C)
-    assert share == 1.0 if coords == "smooth" else 0.0 < share < 1.0, share
+    if smooth == "none":
+        assert share == 0.0, share
+    elif coords == "smooth" and smooth == "all":
+        assert share == 1.0, share
+    else:
+        assert 0.0 < share < 1.0, share
     _k4_matches_plain_and_k1(F, maps)
 
 
@@ -454,49 +466,40 @@ def test_gather_tiles_on_an_unaligned_plane(cuda, C):
     _k4_matches_plain_and_k1(F, _tile_maps(cuda, B, H, W, H, W, "smooth", seed=C))
 
 
-def _box_at_capacity(C, max_rows):
-    """(rows, cols) of a K4 box of at most ``max_rows`` rows that fills a
-    buffer exactly."""
+def window_maps(B, H, W, Hs, Ws, C):
+    """Identity corner starts [B,Hs,Ws] int32, except in image 0's first
+    three tiles: the first spans a box that fills K4's window exactly (its
+    ``tile_rows(C) + 3`` rows, and as many columns as the 128-byte chunks
+    that 35 cells can span hold), the second one row more, the third one
+    column more.  Returns (v0, u0) on the CPU and the number of tiles that
+    take the global path (2)."""
     from deep_prob_feature_track_torch.ops.kernels import tiles
 
-    for cols in range(2, 400):
-        pitch = tiles.box_pitch(cols, C)
-        if tiles.BOX_FLOATS % pitch == 0 and tiles.BOX_FLOATS // pitch <= max_rows:
-            return tiles.BOX_FLOATS // pitch, cols
-    raise AssertionError(f"no box fills {tiles.BOX_FLOATS} floats at C={C}")
-
-
-def capacity_maps(B, H, W, Hs, Ws, C, seed=0):
-    """Identity corner starts [B,Hs,Ws] with random weights, except that
-    image 0's first tile spans a box that fills a K4 buffer exactly and its
-    second tile one row more.  Returns (v0, dv, u0, du) on the CPU and the
-    number of tiles that take the global path (1)."""
-    from deep_prob_feature_track_torch.ops.kernels import tiles
-
-    rows, cols = _box_at_capacity(C, H - 3)
     th = tiles.tile_rows(C)
-    assert Ws >= 2 * tiles.TILE_W and Hs >= th and W >= 42 + cols
-    g = torch.Generator().manual_seed(seed)
-    v0 = torch.arange(Hs, dtype=torch.int32)[:, None].expand(B, Hs, Ws).contiguous()
-    u0 = torch.arange(Ws, dtype=torch.int32)[None, :].expand(B, Hs, Ws).contiguous()
-    for i, r in enumerate((rows, rows + 1)):
-        x0 = i * tiles.TILE_W
+    rows, cols = th + 3, 32 * -(-(35 * C + 31) // 32) // C
+    assert Ws > 2 * tiles.TILE_W and Hs >= th and H >= rows + 2 and W >= 64 + cols + 2
+    v0 = np.broadcast_to(np.arange(Hs, dtype=np.int32)[:, None], (B, Hs, Ws)).copy()
+    u0 = np.broadcast_to(np.arange(Ws, dtype=np.int32)[None, :], (B, Hs, Ws)).copy()
+    for i, (r, c) in enumerate(((rows, cols), (rows + 1, cols), (rows, cols + 1))):
+        x0 = ulo = i * tiles.TILE_W  # ulo * C on a chunk: the window starts at the box
         v0[0, :th, x0:x0 + tiles.TILE_W] = 1
-        u0[0, :th, x0:x0 + tiles.TILE_W] = 2 + 40 * i
+        u0[0, :th, x0:x0 + tiles.TILE_W] = ulo
         v0[0, 1, x0 + 1] = 1 + r - 2
-        u0[0, 1, x0 + 1] = 2 + 40 * i + cols - 2
-    dv, du = torch.rand(B, Hs, Ws, generator=g), torch.rand(B, Hs, Ws, generator=g)
-    return (v0, dv, u0, du), 1
+        u0[0, 1, x0 + 1] = ulo + c - 2
+    return (v0, u0), 2
 
 
 @pytest.mark.parametrize("C", [6, 10])
 def test_gather_tiles_boxes_at_and_just_over_capacity(cuda, C):
-    """A tile whose box fills a ring buffer exactly stages; one row more
-    sends its tile to the global path; both are bit-exact."""
+    """A tile whose box fills K4's window exactly stages; one row or one
+    column more sends its tile to the global path; all are bit-exact."""
     from deep_prob_feature_track_torch.ops.kernels import tiles
 
     B, H, W, Hs, Ws = 2, 96, 160, 40, 80
-    maps, n_global = capacity_maps(B, H, W, Hs, Ws, C)
+    (v0, u0), n_global = window_maps(B, H, W, Hs, Ws, C)
+    g = torch.Generator().manual_seed(0)
+    maps = [torch.from_numpy(v0), torch.rand(B, Hs, Ws, generator=g),
+            torch.from_numpy(u0), torch.rand(B, Hs, Ws, generator=g)]
     n_tiles = B * -(-Hs // tiles.tile_rows(C)) * -(-Ws // tiles.TILE_W)
     assert tiles.staged_share(maps[0], maps[2], H, W, C) == 1.0 - n_global / n_tiles
     F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(1)).to(cuda)

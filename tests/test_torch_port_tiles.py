@@ -165,11 +165,11 @@ def test_tiles_args_are_checked():
 
 
 def test_staged_share_follows_the_coordinates(rng):
-    """Smooth small motion stages every tile of K4 and K5; one teleported
-    sample sends its own tile to the global path; uniform random coordinates
-    send them all."""
+    """Smooth small motion (0.8-pixel sinusoids, whose boxes K4's window
+    holds) stages every tile of K4 and K5; one teleported sample sends its
+    own tile to the global path; uniform random coordinates send them all."""
     H, W, C = 72, 96, 10
-    _, (v0, _, u0, _) = _tile_inputs(rng, H, W, C)
+    v0, _, u0, _ = make_coords(rng, 2, H, W, H, W, disp=0.8)
     v0, u0 = torch.from_numpy(v0), torch.from_numpy(u0)
     noise = torch.from_numpy(rng.randint(0, H - 1, v0.shape).astype(np.int32))
     for share, th in ((tiles.staged_share, tiles.tile_rows(C)),

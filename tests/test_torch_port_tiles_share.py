@@ -3,10 +3,10 @@
 No card and no JAX here.  ``tiles.staged_share`` (K4) and
 ``tiles.grads_staged_share`` (K5) must count the tiles that stage their
 corner box exactly as a loop over the kernels' tiles does
-(``csrc/gather_tiles.cu``): K4 per ``tile_rows(C) x 32`` tile, a box of
-``rows`` rows of ``box_pitch(cols, C)`` floats within ``BOX_FLOATS`` whose
-last row, rounded up to 16 bytes, ends inside the plane; K5 per 8 x 32
-tile, ``rows * cols * C`` floats within ``GRADS_BOX_FLOATS``.  Starts are
+(``csrc/gather_tiles.cu``): K4 per ``tile_rows(C) x 32`` tile, where the
+plane's rows are whole 128-byte chunks, a box that lies in the window K4
+copies (``tile_rows(C) + 3`` rows of the chunks that 35 cells can span,
+from the chunk of the box's first float); K5 per 8 x 32 tile, ``rows * cols * C`` floats within ``GRADS_BOX_FLOATS``.  Starts are
 clamped to [0, size-2] first, the int32 extremes that NaN coordinates turn
 into included.
 """
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from deep_prob_feature_track_torch.ops.kernels import tiles
+from tests.test_torch_port_cuda import window_maps
 
 torch.set_num_threads(2)
 
@@ -32,14 +33,18 @@ def _boxes(v0, u0, H, W, th):
                 yield b, v.min(), v.max(), u.min(), u.max()
 
 
+def _window(C):
+    """K4's window at C channels: (rows, floats of a row), from 35 cells
+    that start anywhere in a 32-float chunk."""
+    return tiles.tile_rows(C) + 3, 32 * -(-(35 * C + 31) // 32)
+
+
 def _k4_share(v0, u0, H, W, C):
-    total = v0.shape[0] * H * W * C
-    staged = []
-    for b, vlo, vhi, ulo, uhi in _boxes(v0, u0, H, W, tiles.tile_rows(C)):
-        fits = (vhi - vlo + 2) * tiles.box_pitch(uhi - ulo + 2, C) <= tiles.BOX_FLOATS
-        end = ((b * H + vhi + 1) * W + uhi + 2) * C
-        staged.append(fits and -(-end // 4) * 4 <= total)
-    return np.mean(staged)
+    rows, floats = _window(C)
+    if W * C % 32 or rows * floats > tiles.BOX_FLOATS:  # no window: every tile reads F
+        return 0.0
+    return np.mean([vhi - vlo + 2 <= rows and (uhi + 2) * C - ulo * C // 32 * 32 <= floats
+                    for _, vlo, vhi, ulo, uhi in _boxes(v0, u0, H, W, tiles.tile_rows(C))])
 
 
 def _k5_share(v0, u0, H, W, C):
@@ -91,32 +96,25 @@ def test_staged_shares_match_a_per_tile_count(C, coords, B, H, W, Hs, Ws):
 
 @pytest.mark.parametrize("C", [1, 3, 6, 10, 15, 16, 17, 32, 128])
 def test_tile_rows_fit_the_box_of_a_smooth_tile(C):
-    """The most rows, up to 16, whose box near identity motion (3 rows and
-    columns more than the tile) fits a buffer; fewer only where it must."""
+    """The most rows, up to 16, whose window (3 rows and columns more than
+    the tile, the columns rounded out to whole chunks) fits a buffer; fewer
+    only where it must.  Up to C=15 a 16-row tile's window fits; at C=128
+    none does, and no tile stages."""
     th = tiles.tile_rows(C)
-    fits = [(t + 3) * tiles.box_pitch(tiles.TILE_W + 3, C) <= tiles.BOX_FLOATS
-            for t in (16, 8, 4, 2, 1)]
+    floats = _window(C)[1]
+    fits = [(t + 3) * floats <= tiles.BOX_FLOATS for t in (16, 8, 4, 2, 1)]
     assert th == ((16, 8, 4, 2, 1)[fits.index(True)] if any(fits) else 1)
-    assert (th == 16) == (C <= 16)
+    assert (th == 16) == (C <= 15)
+    assert tiles.has_window(640, C) == any(fits) == (C != 128)
 
 
 @pytest.mark.parametrize("C", [6, 10])
 def test_a_box_at_capacity_stages_and_one_row_more_does_not(C):
-    """Identity starts, except that image 0's first tile spans a box of
-    exactly BOX_FLOATS floats and its second one row more."""
+    """Identity starts, except that image 0's first tile spans a box that
+    fills K4's window exactly, its second one row more and its third one
+    column more: only the first of the three stages."""
     B, H, W, Hs, Ws = 2, 96, 160, 40, 80
-    th = tiles.tile_rows(C)
-    rows, cols = next((tiles.BOX_FLOATS // tiles.box_pitch(c, C), c) for c in range(2, 400)
-                      if tiles.BOX_FLOATS % tiles.box_pitch(c, C) == 0
-                      and tiles.BOX_FLOATS // tiles.box_pitch(c, C) <= H - 3)
-    v0 = np.broadcast_to(np.arange(Hs, dtype=np.int32)[:, None], (B, Hs, Ws)).copy()
-    u0 = np.broadcast_to(np.arange(Ws, dtype=np.int32)[None, :], (B, Hs, Ws)).copy()
-    for i, r in enumerate((rows, rows + 1)):
-        x0 = i * tiles.TILE_W
-        v0[0, :th, x0:x0 + tiles.TILE_W] = 1
-        u0[0, :th, x0:x0 + tiles.TILE_W] = 2 + 40 * i
-        v0[0, 1, x0 + 1] = r - 1
-        u0[0, 1, x0 + 1] = 2 + 40 * i + cols - 2
-    n_tiles = B * -(-Hs // th) * -(-Ws // tiles.TILE_W)
+    (v0, u0), n_global = window_maps(B, H, W, Hs, Ws, C)
+    n_tiles = B * -(-Hs // tiles.tile_rows(C)) * -(-Ws // tiles.TILE_W)
     share = tiles.staged_share(torch.from_numpy(v0), torch.from_numpy(u0), H, W, C)
-    assert share == pytest.approx(1.0 - 1.0 / n_tiles) == _k4_share(v0, u0, H, W, C)
+    assert share == pytest.approx(1.0 - n_global / n_tiles) == _k4_share(v0, u0, H, W, C)
