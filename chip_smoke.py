@@ -103,10 +103,28 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    ``feature_icp``;
 18. profile one B=8 forward at 120x160 and at 480x640 (``torch.profiler``),
    of ``feature`` and, timed too, of ``feature_icp``, and at 120x160 of
-   ``RGB``, ``ICP`` and ``RGB+ICP``: device busy time, the span from its
-   first to its last kernel, the idle share of that span, and launches and
-   device time by kernel name; with ``--time``, the train steps of 17 too
-   (the full run times them in 11 and 12).
+   ``RGB``, ``ICP``, ``RGB+ICP`` and ``DeepIC``: device busy time, the span
+   from its first to its last kernel, the idle share of that span, and
+   launches and device time by kernel name; with ``--time``, the train
+   steps of 17 too (the full run times them in 11, 12 and 21), and K1 at
+   ``DeepIC``'s folded level-0 shape (80 planes of 120x160, C=1: the 10
+   damping samples of B=8) beside ``grid_sample`` and the byte bound;
+19. ``DeepIC``'s new kernel shapes (C=1), against the plain versions: K1
+   (bit-exact) at the 10 folded damping samples of B=8 (80 planes) at each
+   120x160 level and at the prior weights' upsamples (B=8, 15x20 -> 30x40,
+   30x40 -> 60x80, 60x80 -> 120x160: 4 samples a cell); K2 (``out``
+   bit-exact, gx/gy within 1e-6 of the largest entry) and K3 (within 1e-5)
+   at the training shapes: 640 folded planes at each level and the
+   upsamples at B=64;
+20. serve ``DeepIC`` as in 8: per batch K1 51 times (12 a level: the first
+   residual, the folded samples of 3 iterations and 2 new residuals, each
+   warping x1 and the occlusion depth; and 3 upsamples), nothing else; the
+   kernel forward agrees with the plain one within 1e-5 and with the CPU
+   one within 1e-4;
+21. train ``DeepIC`` as in 11: per step K1 once (level 3's first occlusion
+   depth, where neither the operand nor the identity pose needs a
+   gradient), K2 50 and K3 27 times (6 ``x1`` warps a level and the 3
+   upsamples), no K4-K6.
 
 The last lines are a JSON ``kernels`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -182,6 +200,16 @@ ICP_SERVE_LAUNCHES = counts(gather_twohot=24, fused_jtj_jtr=12)
 ICP_VGA_LAUNCHES = counts(gather_tiles=6, gather_twohot=18, fused_jtj_jtr=12)
 # the ICP operand comes from the input depth and needs no cotangent: no K3
 ICP_TRAIN_LAUNCHES = counts(gather_twohot_grads=24, splat_twohot=12, fused_jtj_jtr=12)
+# DeepIC: the IC track with the learned M-estimator and the Direct-ResVol
+# solve.  Per level the first residual, the S=10 damping samples of each of
+# 3 iterations (folded into the batch: one gather of x1 and one of the
+# occlusion depth for all S*B poses) and 2 new residuals warp x1 and invD1
+# (C=1); the M-estimator upsamples the prior weights at levels 2, 1, 0
+S_DAMP = 10
+DEEPIC_SERVE_LAUNCHES = counts(gather_twohot=51)
+# training: level 3's first invD1 warp needs no gradient (K1); every other
+# warp takes K2, and x1's and the upsamples' operands a cotangent (K3)
+DEEPIC_TRAIN_LAUNCHES = counts(gather_twohot=1, gather_twohot_grads=50, splat_twohot=27)
 # per forward of the classical presets at 120x160: RGB warps the gray image
 # and the occlusion depth (C=1) once each for 3 residuals a level (the last
 # iteration's new residual is not taken), ICP its operand (C=6) once an
@@ -540,6 +568,87 @@ def phase_flat_kernels(torch, dev):
             raise AssertionError(f"splat_twohot on {label} did not take both branches ({share})")
         err["splat_twohot"] = max(err["splat_twohot"], e3)
     return err
+
+
+def upsample_inputs(torch, dev, b, h, w, seed):
+    """A plane F [b,h,w,1] and the corner maps [b,4hw] of its align-corners
+    upsample to 2h x 2w (``ops/image.py::bilinear_resize_align``)."""
+    from deep_prob_feature_track_torch.geometry.warp import _corner_weights
+
+    H2, W2 = 2 * h, 2 * w
+    v = torch.arange(H2, dtype=torch.float32) * ((h - 1.0) / (H2 - 1.0))
+    u = torch.arange(W2, dtype=torch.float32) * ((w - 1.0) / (W2 - 1.0))
+    u = u[None, None, None, :].expand(b, 1, H2, W2).to(dev)
+    v = v[None, None, :, None].expand(b, 1, H2, W2).to(dev)
+    F = torch.randn(b, h, w, 1, generator=torch.Generator().manual_seed(seed)).to(dev)
+    return F, list(_corner_weights(F.shape, u, v))
+
+
+def phase_deepic_kernels(torch, dev):
+    """K1 at DeepIC's eval shapes (the folded samples of B=8 at each level
+    and the upsamples at B=8), K2 and K3 at its training shapes (the folded
+    samples of B=64 and the upsamples at B=64), C=1: K1 and K2's ``out``
+    bit-exact, gx/gy within 1e-6 and K3 within 1e-5 of the largest entry."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    err = {"gather_twohot": 0.0, "gather_twohot_grads": 0.0, "splat_twohot": 0.0}
+    cases = []
+    for train, b in ((False, B), (True, B_TRAIN)):
+        for i, (h, w) in enumerate(LEVELS):
+            F, maps, _ = tile_inputs(torch, dev, S_DAMP * b, h, w, 1, seed=130 + i)
+            cases.append((f"folded level {i} {h}x{w}", train, S_DAMP * b, h, w, F,
+                          [m.reshape(S_DAMP * b, -1) for m in maps]))
+        for i, (h, w) in enumerate(LEVELS[1:]):
+            cases.append((f"upsample {h}x{w} -> {2 * h}x{2 * w}", train, b, h, w,
+                          *upsample_inputs(torch, dev, b, h, w, seed=140 + i)))
+    for label, train, b, h, w, F, args in cases:
+        if not train:  # the eval shapes: K1
+            out, ref = K.gather_twohot_cuda(F, *args), K.gather_twohot_ref(F, *args)
+            torch.cuda.synchronize()
+            e = (out - ref).abs().max().item()
+            log(f"K1 gather_twohot DeepIC {label}, {b} planes: max|kernel - plain| = {e:.3e}")
+            if e != 0.0:
+                raise AssertionError(f"gather_twohot is not bit-exact at DeepIC {label}: {e}")
+            continue
+        got, ref = K.gather_twohot_grads_cuda(F, *args), K.gather_twohot_grads_ref(F, *args)
+        torch.cuda.synchronize()
+        e_out = (got[0] - ref[0]).abs().max().item()
+        e2 = max((a - r).abs().max().item() for a, r in zip(got[1:], ref[1:]))
+        top = max(r.abs().max().item() for r in ref[1:])
+        g = torch.randn(b, 1, args[0].shape[1], generator=torch.Generator().manual_seed(b))
+        g = g.to(dev)
+        got3, ref3 = K.splat_twohot_cuda(g, *args, h, w), K.splat_twohot_ref(g, *args, h, w)
+        torch.cuda.synchronize()
+        e3 = (got3 - ref3).abs().max().item()
+        top3 = ref3.abs().max().item()
+        log(f"K2/K3 DeepIC {label}, {b} planes: K2 max|out - plain| = {e_out:.3e}, "
+            f"max|gx,gy - plain| = {e2:.3e} ({e2 / top:.2e} of the largest entry); K3 "
+            f"max|kernel - plain| = {e3:.3e} ({e3 / top3:.2e} of the largest entry)")
+        if e_out != 0.0:
+            raise AssertionError(f"gather_twohot_grads out is not bit-exact at DeepIC {label}")
+        if not e2 <= 1e-6 * top:
+            raise AssertionError(f"gather_twohot_grads gx/gy disagree at DeepIC {label}: {e2}")
+        if not e3 <= 1e-5 * top3:
+            raise AssertionError(f"splat_twohot disagrees at DeepIC {label}: {e3}")
+        err["gather_twohot_grads"] = max(err["gather_twohot_grads"], e2)
+        err["splat_twohot"] = max(err["splat_twohot"], e3)
+    return err
+
+
+def phase_time_deepic(torch, dev, name):
+    """K1 at DeepIC's folded level-0 shape (the 10 damping samples of B=8:
+    80 planes of 120x160, C=1) on smooth coordinates, beside its plain
+    version, ``grid_sample`` and the byte bound."""
+    bw, flops = peaks(name)
+    b = S_DAMP * B
+    F, maps, uv = tile_inputs(torch, dev, b, H, W, 1, seed=150)
+    r = {"b": b, "hw": [H, W], "c": 1,
+         **k1_timing(torch, F, [m.reshape(b, -1) for m in maps], uv, bw, flops)}
+    log(f"DeepIC folded level 0, {b} planes of {H}x{W}, C=1, smooth coordinates: K1 "
+        f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, "
+        f"grid_sample {r['library_ms']:.4f}, device {r['library_device_ms']:.4f}, bound "
+        f"{r['bound_ms']:.4f})")
+    return r
 
 
 def _payload(item) -> bytes:
@@ -1215,10 +1324,11 @@ def measure(torch, dev, name, train_steps=True):
             "vga_forward": phase_forward(torch, dev, H_VGA, W_VGA),
             "channels_levels": phase_time_channels(torch, dev, name),
             "preset_forwards": {p: phase_forward(torch, dev, H, W, p)
-                                for p in ("feature_icp", *CLASSICAL_LAUNCHES)},
+                                for p in ("feature_icp", *CLASSICAL_LAUNCHES, "DeepIC")},
             "feature_icp_vga_forward": phase_forward(torch, dev, H_VGA, W_VGA, "feature_icp"),
-            "train_steps": {p: phase_step_time(torch, dev, p) for p in ("feature", "feature_icp")
-                            if train_steps}}
+            "deepic_k1_folded_level0": phase_time_deepic(torch, dev, name),
+            "train_steps": {p: phase_step_time(torch, dev, p)
+                            for p in ("feature", "feature_icp", "DeepIC") if train_steps}}
 
 
 def run(torch, loader, dev, name, smi):
@@ -1249,9 +1359,18 @@ def run(torch, loader, dev, name, smi):
     vga_train = phase_train(torch, dev, B_VGA_TRAIN, H_VGA, W_VGA, VGA_TRAIN_SEED,
                             VGA_TRAIN_LAUNCHES)
     scene_shares = phase_scene_share(torch, dev)
+    for k, e in phase_deepic_kernels(torch, dev).items():
+        errors[k] = max(errors[k], e)
+    deepic_launches, deepic_items = phase_serve(torch, dev, H, W, DEEPIC_SERVE_LAUNCHES,
+                                                "DeepIC")
+    presets["DeepIC"] = phase_agree(torch, dev, deepic_items, B, "DeepIC", PRESET_ATOL,
+                                    DEEPIC_SERVE_LAUNCHES)
+    deepic_train = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, DEEPIC_TRAIN_LAUNCHES,
+                               "DeepIC")
     m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
                       "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
+                      "deepic_train": deepic_train, "deepic_serve_launches": deepic_launches,
                       "preset_agree": presets, "scene_staged_share": scene_shares,
                       "vga_serve_launches": vga_launches, "card": smi}), flush=True)
 

@@ -15,8 +15,8 @@ as npz.
 Run: python -m deep_prob_feature_track_torch.apps.serve --preset feature \
         --checkpoint ckpt.pt --port 8642
 
-``--preset`` takes ``feature``, ``feature_icp``, ``RGB``, ``ICP`` or
-``'RGB+ICP'`` (quoted in a shell).  A checkpoint is a ``torch.save`` of the
+``--preset`` takes ``feature``, ``feature_icp``, ``DeepIC``, ``RGB``, ``ICP``
+or ``'RGB+ICP'`` (quoted in a shell).  A checkpoint is a ``torch.save`` of the
 tracker's ``state_dict``; without one the weights come from a seeded init
 (the classical presets ``RGB``, ``ICP`` and ``RGB+ICP`` have no weights).  Float32 convolutions and matmuls
 run without TF32, so the encoder matches its float32 reference.

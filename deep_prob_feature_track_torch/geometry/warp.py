@@ -70,13 +70,6 @@ def check_occ_prewarped(inv_z_buffer, inv_z_warped, u, v, thres: float = 1e-1):
     return ~(inlier & (u > 0) & (u < W) & (v > 0) & (v < H))
 
 
-def check_occ(inv_z_buffer, inv_z_ref, u, v, thres: float = 1e-1, plain: bool = False):
-    """:func:`check_occ_prewarped` after warping ``inv_z_ref`` to (u, v) in
-    a gather of its own; True where INVALID."""
-    inv_z_warped = warp_features(inv_z_ref, u, v, plain=plain)
-    return check_occ_prewarped(inv_z_buffer, inv_z_warped, u, v, thres)
-
-
 def _corner_weights(operand_shape, u, v):
     """Clamp to the plane, clamp the cell start to ``size-2`` so the 2x2
     window always fits, and split into (start, fraction).

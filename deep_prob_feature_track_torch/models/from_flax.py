@@ -4,14 +4,16 @@ Input is ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
 arrays (e.g. ``jax.tree.map(np.asarray, variables)``); no JAX import is
 needed.  Layout conversions:
 
-* Conv2d kernel HWIO -> OIHW; Conv1d kernel ``(1, in, out)`` -> ``(out, in, 1)``
+* Conv2d kernel HWIO -> OIHW; Conv1d kernel ``(1, in, out)`` -> ``(out, in, 1)``;
+  Dense kernel ``(in, out)`` -> Linear weight ``(out, in)``
 * BatchNorm ``scale/bias`` -> ``weight/bias`` and
   ``mean/var`` (batch_stats) -> ``running_mean/running_var``
 
 Every leaf must map; the result also carries ``num_batches_tracked`` so
 ``load_state_dict(strict=True)`` passes.  ``feature_icp`` has ``feature``'s
-variables; the empty tree of ``RGB``, ``ICP`` and ``RGB+ICP`` maps to an
-empty ``state_dict``.
+variables; ``DeepIC`` has the encoder's stages, the M-estimator
+(``mests_0``) and the damping MLP (``damping_nets_0``); the empty tree of
+``RGB``, ``ICP`` and ``RGB+ICP`` maps to an empty ``state_dict``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ _BLOCKS = (
     (r"encoder/s_heads_(\d)_0", r"encoder.sigma_conv\1.0"),
     (r"pose_predictor/ConvBlock_(\d)", r"pose_predictor.net.\1"),
     (r"pose_predictor/Conv1dBlock_0", r"pose_predictor.final_layer.0"),
+    (r"mests_0/ConvBlock_(\d)", r"mEst_func.net.\1"),
 )
 _BLOCK_LEAVES = {
     "Conv_0/kernel": "0.weight",
@@ -37,10 +40,11 @@ _BLOCK_LEAVES = {
     "BatchNorm_0/mean": "1.running_mean",
     "BatchNorm_0/var": "1.running_var",
 }
-# plain flax conv -> torch conv
+# plain flax conv or dense -> torch conv or linear
 _CONVS = (
     (r"encoder/s_heads_(\d)_1", r"encoder.sigma_conv\1.1"),
     (r"pose_predictor/Conv_0", r"pose_predictor.final_layer.1"),
+    (r"damping_nets_0/FcRelu_(\d)/Dense_0", r"solver_func.net.\1.0"),
 )
 _CONV_LEAVES = {"kernel": "weight", "bias": "bias"}
 
@@ -68,6 +72,8 @@ def _kernel(k: np.ndarray) -> np.ndarray:
         return np.transpose(k, (3, 2, 0, 1))
     if k.ndim == 3:  # (k, in, out) -> (out, in, k)
         return np.transpose(k, (2, 1, 0))
+    if k.ndim == 2:  # (in, out) -> (out, in)
+        return k.T
     return k
 
 

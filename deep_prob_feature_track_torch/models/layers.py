@@ -1,4 +1,4 @@
-"""Basic NN building blocks (conv + BN + ELU).
+"""Basic NN building blocks (conv + BN + ELU, linear + ReLU).
 
 Counterpart of ``deep_prob_feature_track_tpu/models/layers.py``.  Blocks
 are ``nn.Sequential``s so their ``state_dict`` keys are the reference
@@ -84,16 +84,25 @@ class Conv1dBlock(nn.Sequential):
         )
 
 
+class FcRelu(nn.Sequential):
+    """Linear + ReLU; the reference layout ``{0: linear}``."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__(nn.Linear(in_features, out_features), nn.ReLU())
+
+
 def seeded_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """Initialize every conv and BatchNorm below ``module`` from ``generator``.
+    """Initialize every conv, linear and BatchNorm below ``module`` from
+    ``generator``.
 
     Follows the JAX package's initializers: xavier-uniform kernels in conv
-    blocks, lecun-normal kernels and zero biases in plain convs, BatchNorm
-    scale 1, bias 0, running mean 0 and variance 1.
+    blocks, lecun-normal kernels and zero biases in plain convs and linears
+    (flax ``Dense``), BatchNorm scale 1, bias 0, running mean 0 and
+    variance 1.
     """
     blocks = {id(m[0]) for m in module.modules() if isinstance(m, (ConvBlock, Conv1dBlock))}
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             w = m.weight
             receptive = math.prod(w.shape[2:])
             fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive

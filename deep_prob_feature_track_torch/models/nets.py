@@ -1,7 +1,8 @@
-"""Pose initializer, ICP scale and M-estimator of the ported presets.
+"""Pose initializer, ICP scale, M-estimator and damping regressor of the
+ported presets.
 
-Counterpart of ``SFMPoseNet``, ``ScaleNet`` and ``DeepRobustEstimator`` in
-``deep_prob_feature_track_tpu/models/nets.py``.
+Counterpart of ``SFMPoseNet``, ``ScaleNet``, ``DeepRobustEstimator`` and
+``DampingRegressor`` in ``deep_prob_feature_track_tpu/models/nets.py``.
 """
 
 from __future__ import annotations
@@ -10,7 +11,8 @@ import torch
 from torch import nn
 
 from ..geometry.lie import pose_vec_to_Rt
-from .layers import Conv1dBlock, ConvBlock
+from ..ops.image import bilinear_resize_align
+from .layers import Conv1dBlock, ConvBlock, FcRelu
 
 
 class ScaleNet(nn.Module):
@@ -28,16 +30,58 @@ class ScaleNet(nn.Module):
 
 
 class DeepRobustEstimator(nn.Module):
-    """M-estimator weights of the IC track; only ``estimator_type="None"``,
-    constant ones, is ported."""
+    """M-estimator weights of the IC track.
 
-    def __init__(self, estimator_type: str = "None"):
+    ``"None"``: constant ones.  ``"Huber"``: ``min(1, alpha/|r|)`` with
+    alpha 0.02, with the gradient stopped at the residual.
+    ``"MultiScale2w"``: ``[|r|, x0, x1, w_prior]`` (the prior weights
+    upsampled to the level by :func:`bilinear_resize_align`) -> four conv
+    blocks (16, 32, 64, 1 channels; dilations 1, 2, 4, 1) -> sigmoid; the
+    blocks are ``net.{i}`` as in the reference.
+
+    :param feature_channel: channels C of the residual and the features;
+        the learned net takes 3C + 1
+    """
+
+    huber_alpha = 0.02
+
+    def __init__(self, estimator_type: str = "None", feature_channel: int = 1):
         super().__init__()
-        if estimator_type != "None":
+        if estimator_type not in ("None", "Huber", "MultiScale2w"):
             raise NotImplementedError(f"DeepRobustEstimator({estimator_type!r}) is not ported")
+        self.estimator_type = estimator_type
+        if estimator_type == "MultiScale2w":
+            self.net = nn.Sequential(
+                ConvBlock(3 * feature_channel + 1, 16, 3),
+                ConvBlock(16, 32, 3, dilation=2),
+                ConvBlock(32, 64, 3, dilation=4),
+                ConvBlock(64, 1, 3),
+            )
 
-    def forward(self, residual, x0=None, x1=None, w_prior=None):
-        return torch.ones_like(residual)
+    def forward(self, residual, x0=None, x1=None, w_prior=None, plain: bool = False):
+        """:param plain: upsample through the kernels' plain versions"""
+        if self.estimator_type == "None":
+            return torch.ones_like(residual)
+        if self.estimator_type == "Huber":
+            a = self.huber_alpha
+            abs_r = residual.detach().abs()
+            return torch.where(abs_r > a, a / abs_r.clamp_min(a), 1.0)
+        H, W = residual.shape[-2:]
+        wl = bilinear_resize_align(w_prior, H, W, plain=plain)
+        return torch.sigmoid(self.net(torch.cat([residual.abs(), x0, x1, wl], dim=1)))
+
+
+class DampingRegressor(nn.Module):
+    """Per-axis damping of the ``Direct-ResVol`` solve: three ``FcRelu``
+    (``net.{i}``), ``in_features`` -> 128 -> 256 -> 6; the last ReLU keeps
+    the damping non-negative."""
+
+    def __init__(self, in_features: int):
+        super().__init__()
+        self.net = nn.Sequential(FcRelu(in_features, 128), FcRelu(128, 256), FcRelu(256, 6))
+
+    def forward(self, x):
+        return self.net(x)
 
 
 class SFMPoseNet(nn.Module):

@@ -1,8 +1,7 @@
 """Canonical tracker presets.
 
 Counterpart of ``deep_prob_feature_track_tpu/models/presets.py``; the
-table is the same.  The tracker runs ``feature``, ``feature_icp``, ``RGB``,
-``ICP`` and ``RGB+ICP``, and raises ``NotImplementedError`` for ``DeepIC``.
+table is the same, and the tracker runs every preset.
 """
 
 from __future__ import annotations

@@ -3,10 +3,12 @@
 Counterpart of ``deep_prob_feature_track_tpu/models/tracker.py`` for the
 eval and training forwards of the presets ``feature`` and ``feature_icp``
 (ConvRGBD2 encoder, laplacian sigma, U_IC, SFMPoseNet initial pose, with
-the fused ICP term in ``feature_icp``) and the eval forwards of the
-classical presets ``RGB`` (grayscale IC), ``ICP`` (point-to-plane ICP) and
-``RGB+ICP`` (grayscale U_IC with the fused ICP term), which start from the
-identity pose.  Every other encoder, track and head raises
+the fused ICP term in ``feature_icp``), ``DeepIC`` (ConvRGBD2 encoder with
+the ``average`` head and no sigma, IC with the learned ``MultiScale2w``
+M-estimator and the ``Direct-ResVol`` damping, from the identity pose) and
+the classical presets ``RGB`` (grayscale IC), ``ICP`` (point-to-plane ICP)
+and ``RGB+ICP`` (grayscale U_IC with the fused ICP term), which start from
+the identity pose.  Every other encoder, track and head raises
 ``NotImplementedError``.
 """
 
@@ -24,7 +26,7 @@ from ..solvers.icp import ICPSigmaModel
 from ..solvers.trust_region import DirectSolver, tr_ic_level, tr_icp_level, tr_uic_level
 from .encoder import FeaturePyramid
 from .layers import color_normalize_nchw, seeded_init_
-from .nets import DeepRobustEstimator, ScaleNet, SFMPoseNet
+from .nets import DampingRegressor, DeepRobustEstimator, ScaleNet, SFMPoseNet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +76,8 @@ class TrackerConfig:
 _PORTED = {
     "encoder_name": ("ConvRGBD2", "RGB", "ICP"),
     "track_type": ("U_IC", "IC", "ICP"),
-    "mest_type": ("None",),
-    "solver_type": ("Direct-Nodamping",),
+    "mest_type": ("None", "Huber", "MultiScale2w"),
+    "solver_type": ("Direct-Nodamping", "Direct-ResVol"),
     "init_pose_type": ("sfm_net", "identity"),
     "uncer_prop": (False,),
     "no_weight_sharing": (False,),
@@ -120,7 +122,11 @@ class LeastSquareTracking(nn.Module):
                 feature_extract=cfg.feature_extract,
                 uncertainty_type=cfg.uncertainty_type,
             )
-        self.mest_func = DeepRobustEstimator(cfg.mest_type)
+        # the reference's module names: mEst_func.net.{i}, solver_func.net.{i}.0
+        self.mEst_func = DeepRobustEstimator(cfg.mest_type, feature_channel=cfg.feature_channel)
+        self.solver_func = None
+        if cfg.solver_type == "Direct-ResVol":
+            self.solver_func = DampingRegressor(36 + 6 * cfg.tr_samples)
         self.scaler_func = ScaleNet(
             cfg.scaler, scale=cfg.scale_scaler if cfg.scale_scaler is not None else 0.01)
         self.pose_predictor = None
@@ -150,11 +156,12 @@ class LeastSquareTracking(nn.Module):
         1-channel laplacian head to every feature channel ("identity" is
         all-ones), and bilinear warping is per-channel linear, so the warp
         operand shrinks (C=17 to C=10 in ``feature``) with identical values.
-        The grayscale encoders' sigma has one channel already."""
+        The grayscale encoders' sigma has one channel already; a sigma of
+        None (``uncertainty_type="None"``) stays None."""
         cfg = self.cfg
         if cfg.uncertainty_type != "identity" and cfg.uncertainty_channel != 1:
             return sigmas
-        return [s[:, :1] for s in sigmas]
+        return [None if s is None else s[:, :1] for s in sigmas]
 
     @staticmethod
     def _encode_gray(I):
@@ -190,7 +197,8 @@ class LeastSquareTracking(nn.Module):
                 B = img0.shape[0]
                 f_all, s_all, raw_all = self.encoder(torch.cat([m0, m1], dim=0))
                 x0, x1 = [f[:B] for f in f_all], [f[B:] for f in f_all]
-                sigma0, sigma1 = [s[:B] for s in s_all], [s[B:] for s in s_all]
+                sigma0 = [None if s is None else s[:B] for s in s_all]
+                sigma1 = [None if s is None else s[B:] for s in s_all]
                 raw0, raw1 = [r[:B] for r in raw_all], [r[B:] for r in raw_all]
         inv_d0 = image_pyramid(invD0, pool="max")
         inv_d1 = image_pyramid(invD1, pool="max")
@@ -207,6 +215,17 @@ class LeastSquareTracking(nn.Module):
                     invD0.new_zeros((B, 3)))
         return (x0, x1, self._slim_sigma(sigma0), self._slim_sigma(sigma1), inv_d0, inv_d1,
                 dpt0, dpt1, pose)
+
+    def _mest(self, residual, x0, x1, w_prior):
+        """The M-estimator weights of one IC level."""
+        return self.mEst_func(residual, x0, x1, w_prior, plain=self.plain_kernels)
+
+    def _solver(self) -> DirectSolver:
+        """The IC track's solve, as the JAX ``_solver``."""
+        cfg = self.cfg
+        if self.solver_func is None:
+            return DirectSolver("nodamping", cfg.direction)
+        return DirectSolver("resvol", cfg.direction, cfg.tr_samples, self.solver_func)
 
     def _level_update(self, pose, x0, x1, sigma0, sigma1, invD0, invD1, dpt0, dpt1, K,
                       w_prior):
@@ -226,8 +245,7 @@ class LeastSquareTracking(nn.Module):
             )
         elif track == "IC":
             pose, weights, _ = tr_ic_level(
-                pose, x0, x1, invD0, invD1, K, self.mest_func,
-                DirectSolver("nodamping", cfg.direction), w_prior=w_prior,
+                pose, x0, x1, invD0, invD1, K, self._mest, self._solver(), w_prior=w_prior,
                 max_iter=cfg.max_iter_per_pyr, plain=self.plain_kernels,
             )
         else:  # ICP

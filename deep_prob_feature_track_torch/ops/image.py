@@ -1,5 +1,5 @@
-"""Image-space ops: Sobel gradients, pooling pyramids, normal maps and the
-loss's bilinear resize.
+"""Image-space ops: Sobel gradients, pooling pyramids, normal maps, the
+loss's bilinear resize and the M-estimator's align-corners upsample.
 
 Counterpart of ``deep_prob_feature_track_tpu/ops/image.py``.
 """
@@ -66,3 +66,20 @@ def bilinear_resize(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
     centres (``align_corners=False``) and, when downsampling, a triangle
     filter widened by the scale factor (``antialias=True``)."""
     return F.interpolate(x, size=(H, W), mode="bilinear", align_corners=False, antialias=True)
+
+
+def bilinear_resize_align(x: torch.Tensor, H: int, W: int, plain: bool = False) -> torch.Tensor:
+    """Align-corners bilinear resize of ``[B,C,h,w]`` to ``[B,C,H,W]``
+    through :func:`geometry.warp.warp_features`: kernel K1, or K2 and K3
+    under autograd (``plain=True``: their plain versions).  Returns ``x``
+    itself, launching nothing, when the size already matches."""
+    from ..geometry.warp import warp_features
+
+    B, _, h, w = x.shape
+    if h == H and w == W:
+        return x
+    sy = (h - 1.0) / (H - 1.0) if H > 1 else 0.0
+    sx = (w - 1.0) / (W - 1.0) if W > 1 else 0.0
+    v = (torch.arange(H, dtype=x.dtype, device=x.device) * sy)[None, None, :, None]
+    u = (torch.arange(W, dtype=x.dtype, device=x.device) * sx)[None, None, None, :]
+    return warp_features(x, u.expand(B, 1, H, W), v.expand(B, 1, H, W), plain=plain)

@@ -95,14 +95,18 @@ def _weighted_jtj_jtr(fac: FactoredJtJ, residual, weights):
 
 
 def jtr_only(fac: FactoredJtJ, residual, weights=None):
-    """``J^T (w * r)`` ``[B,6,1]`` alone, in tensor ops."""
-    alpha, beta, r = _flat(fac, residual)
+    """``J^T (w * r)`` ``[B,6,1]`` alone, in tensor ops.  A residual of
+    S*B planes, sample-major (the damping samples of ``Direct-ResVol``),
+    gives ``[S*B,6,1]``: the factors and the weights broadcast over S."""
+    alpha, beta = (t.reshape(*t.shape[:2], -1) for t in (fac.alpha, fac.beta))
+    B, C, hw = alpha.shape
+    r = residual.reshape(-1, B, C, hw)  # [S,B,C,HW]
     if weights is not None:
-        r = weights.reshape(alpha.shape[0], -1, alpha.shape[2]) * r
-    ar = torch.einsum("bcp,bcp->bp", alpha, r)
-    br = torch.einsum("bcp,bcp->bp", beta, r)
-    JtR = torch.einsum("bpi,bp->bi", fac.u, ar) + torch.einsum("bpi,bp->bi", fac.v, br)
-    return (fac.sign * JtR)[..., None]
+        r = weights.reshape(B, -1, hw) * r
+    ar = (alpha * r).sum(2)
+    br = (beta * r).sum(2)
+    JtR = torch.einsum("bpi,sbp->sbi", fac.u, ar) + torch.einsum("bpi,sbp->sbi", fac.v, br)
+    return (fac.sign * JtR).reshape(-1, 6, 1)
 
 
 class ICPrecomp(NamedTuple):

@@ -58,6 +58,27 @@ def build_inverse_warp_operand(invD1, x1, sigma1):
     return W.make_warp_operand([invD1, x1, sigma1])
 
 
+def make_ic_operands(x1, invD1, samples: int = 1):
+    """The channels-last operands of ``x1`` and ``invD1`` that the IC
+    residual warps, one gather each, as the JAX package warps them; with
+    ``samples`` > 1 each plane is repeated along the batch, sample-major
+    (index ``s * B + b``), for the poses of the damping samples.  Built
+    once per level."""
+    return [W.make_warp_operand([m.repeat(samples, 1, 1, 1) if samples > 1 else m])
+            for m in (x1, invD1)]
+
+
+def warped_residual(pose10, invD0, x0, px, py, K, operands, plain: bool = False):
+    """:func:`compute_warped_residual` on the operands of
+    :func:`make_ic_operands`; with folded operands, every argument has
+    their batch."""
+    u, v, inv_z = W.batch_warp_inverse_depth(px, py, invD0, pose10, K)
+    x1_warped = W.warp_operand(*operands[0], u, v, plain=plain)[0]
+    invD1_warped = W.warp_operand(*operands[1], u, v, plain=plain)[0]
+    occ = W.check_occ_prewarped(inv_z, invD1_warped, u, v)
+    return (x1_warped - x0).masked_fill(occ, 1e-3), occ
+
+
 def compute_warped_residual(pose10, invD0, invD1, x0, x1, px, py, K,
                             obj_mask0=None, obj_mask1=None, plain: bool = False):
     """Plain warped residual ``x1(w(x)) - x0`` of the IC track, 1e-3 where
@@ -68,7 +89,5 @@ def compute_warped_residual(pose10, invD0, invD1, x0, x1, px, py, K,
     """
     if obj_mask0 is not None or obj_mask1 is not None:
         raise NotImplementedError("object masks are not ported")
-    u, v, inv_z = W.batch_warp_inverse_depth(px, py, invD0, pose10, K)
-    x1_warped = W.warp_features(x1, u, v, plain=plain)
-    occ = W.check_occ(inv_z, invD1, u, v, plain=plain)
-    return (x1_warped - x0).masked_fill(occ, 1e-3), occ
+    return warped_residual(pose10, invD0, x0, px, py, K, make_ic_operands(x1, invD1),
+                           plain=plain)

@@ -3,18 +3,22 @@
 Counterpart of ``deep_prob_feature_track_tpu/solvers/trust_region.py``:
 ``tr_uic_level`` (with the fused ICP term), ``tr_ic_level``,
 ``tr_icp_level`` (inverse and forward), ``tr_icp_point_level``, the pose
-updates and ``direct_solve`` for ``kind="nodamping"``.  A U_IC iteration
-runs kernel K1 once for its feature warp, once more for the ICP warp with
-the fused ICP term, and K6 once; an IC iteration runs K1 twice (the feature
-and the occlusion depth, as the JAX package warps them), an ICP iteration
-once.  Where ``use_tiles`` holds, K4 takes K1's place; under autograd K2
-(K5) does.
+updates and ``direct_solve`` for ``kind="nodamping"`` and ``"resvol"`` (the
+learned damping of ``Direct-ResVol``).  A U_IC iteration runs kernel K1
+once for its feature warp, once more for the ICP warp with the fused ICP
+term, and K6 once; an IC residual runs K1 twice (the feature and the
+occlusion depth, as the JAX package warps them), and a ``resvol`` solve
+twice more for the residuals of all its damping samples at once; an ICP
+iteration runs K1 once.  Where ``use_tiles`` holds, K4 takes K1's place;
+under autograd K2 (K5) does.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from functools import lru_cache
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..geometry import warp as W
@@ -26,7 +30,8 @@ from .jacobians import jtj_jtr, jtr_only, precompute_ic, precompute_uic, uic_fac
 from .residuals import (
     build_inverse_warp_operand,
     compute_inverse_residuals,
-    compute_warped_residual,
+    make_ic_operands,
+    warped_residual,
 )
 
 
@@ -48,17 +53,72 @@ def forward_update_pose(H, rhs, pose):
 
 class DirectSolver(NamedTuple):
     """The trust-region solve: ``kind="nodamping"`` is LM-damped
-    Gauss-Newton; ``"resvol"`` (the learned damping) is not ported."""
+    Gauss-Newton; ``"resvol"`` regresses a per-axis damping with
+    ``damping_mlp`` from the residual volume of ``samples`` trial solves."""
 
-    kind: str = "nodamping"
+    kind: str = "nodamping"  # nodamping | resvol
     direction: str = "inverse"  # inverse | forward
+    samples: int = 10
+    damping_mlp: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
-def direct_solve(solver: DirectSolver, JtWJ, JtR, pose):
-    if solver.kind != "nodamping":
-        raise NotImplementedError(f"DirectSolver(kind={solver.kind!r}) is not ported")
+@lru_cache(maxsize=None)
+def _lambdas(samples: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The damping samples ``10^linspace(-5, 5, samples)`` [S] with the
+    values of the JAX package's jitted ``jnp.logspace(-5, 5, samples,
+    dtype)``: XLA computes the linspace as ``-5 (1 - i r) + i (5 r)``,
+    ``r = 1/(S-1)``, in the dtype, ending on 5, and the power rounded from
+    float64 (``torch.logspace`` differs by up to 4.4e-7 relative).  Made
+    outside inference mode, so that a training forward may read it too."""
+    ftype = np.float32 if dtype == torch.float32 else np.float64
+    lin = np.full(1, -5.0, ftype)
+    if samples > 1:
+        r = ftype(1.0) / ftype(samples - 1)
+        i = np.arange(samples - 1, dtype=ftype)
+        lin = np.append(ftype(-5.0) * (ftype(1.0) - i * r) + i * (ftype(5.0) * r), ftype(5.0))
+    with torch.inference_mode(False):
+        return torch.from_numpy((10.0 ** lin.astype(np.float64)).astype(ftype)).to(device)
+
+
+def _resvol_hessian(solver: DirectSolver, JtWJ, JtR, pose, residual_fn, jtr_fn):
+    """The ``Direct-ResVol`` Hessian ``JtWJ + diag(damp) + eps I``.
+
+    The S trial solves ``(JtWJ + lambda_s diag(JtWJ) + eps I) xi = JtR``
+    (always inverse-compositional, as in the JAX package) run folded into
+    the batch, sample-major: ``residual_fn`` takes the S*B poses in one call
+    and ``jtr_fn`` reduces the S*B residuals to ``J^T W r``.  The damping
+    MLP reads ``[JtR_vol (index i*S + s), JtWJ flattened]``.
+    """
+    B = JtWJ.shape[0]
+    S = solver.samples
+    eye = torch.eye(6, dtype=JtWJ.dtype, device=JtWJ.device)
+    diagJtJ = eye * JtWJ
+    trace = torch.diagonal(JtWJ, dim1=-2, dim2=-1).sum(-1)
+    epsilon = (trace * 1e-6)[:, None, None] * eye
+    lam = _lambdas(S, JtWJ.dtype, JtWJ.device)[:, None, None, None]
+    Hs = (JtWJ + lam * diagJtJ + epsilon).reshape(S * B, 6, 6)
+    R, t = pose
+    pose_s = inverse_update_pose(Hs, JtR.repeat(S, 1, 1), (R.repeat(S, 1, 1), t.repeat(S, 1)))
+    JtR_vol = jtr_fn(residual_fn(pose_s))  # [S*B,6,1]
+    JtR_flat = JtR_vol.reshape(S, B, 6).permute(1, 2, 0).reshape(B, 6 * S)
+    damp = solver.damping_mlp(torch.cat([JtR_flat, JtWJ.reshape(B, 36)], dim=1))  # [B,6]
+    return JtWJ + (eye * damp[:, :, None] + epsilon)
+
+
+def direct_solve(solver: DirectSolver, JtWJ, JtR, pose, residual_fn=None, jtr_fn=None):
+    """One damped update of ``pose``; ``kind="resvol"`` needs the residual
+    of S*B folded poses (``residual_fn``) and its reduction (``jtr_fn``)."""
+    if solver.kind == "resvol":
+        if residual_fn is None or jtr_fn is None or solver.damping_mlp is None:
+            raise ValueError("DirectSolver(kind='resvol') needs damping_mlp, residual_fn "
+                             "and jtr_fn")
+        H = _resvol_hessian(solver, JtWJ, JtR, pose, residual_fn, jtr_fn)
+    elif solver.kind == "nodamping":
+        H = lev_mar_damp(JtWJ)
+    else:
+        raise ValueError(f"unknown DirectSolver kind {solver.kind!r}")
     update = forward_update_pose if solver.direction == "forward" else inverse_update_pose
-    return update(lev_mar_damp(JtWJ), JtR, pose)
+    return update(H, JtR, pose)
 
 
 def tr_uic_level(
@@ -115,26 +175,40 @@ def tr_uic_level(
 
 def tr_ic_level(pose, x0, x1, invD0, invD1, K, mest_fn, solver: DirectSolver,
                 w_prior=None, max_iter: int = 3, plain: bool = False):
-    """One pyramid level of the plain IC track: the template Jacobian and
-    the M-estimator weights come from the residual at the incoming pose;
-    each iteration solves, then takes the residual at the new pose.  The
-    last iteration's new residual is dead work (the JAX loop carries it out
-    and drops it), and is not computed.
+    """One pyramid level of the IC track: the template Jacobian and the
+    M-estimator weights come from the residual at the incoming pose; each
+    iteration solves, then takes the residual at the new pose.  The last
+    iteration's new residual is dead work (the JAX loop carries it out and
+    drops it), and is not computed; its ``resvol`` damping samples are.
+    The samples' operands are folded once per level.
 
     :return: ``(pose, weights, JtWJ)``
     """
     B, _, H, W_ = x0.shape
     px, py = W.generate_xy_grid(B, H, W_, K)
     pre = precompute_ic(invD0, x0, px, py, K)
-    residuals, _ = compute_warped_residual(pose, invD0, invD1, x0, x1, px, py, K, plain=plain)
+    operands = make_ic_operands(x1, invD1)
+    residuals, _ = warped_residual(pose, invD0, x0, px, py, K, operands, plain=plain)
     weights = mest_fn(residuals, x0, x1, w_prior)
     JtWJ, _ = jtj_jtr(pre.fac, residuals, weights=weights)
+    sample_fns = ()
+    if solver.kind == "resvol":
+        S = solver.samples
+        folded = [t.repeat(S, *[1] * (t.ndim - 1)) for t in (invD0, x0, px, py, K)]
+        sample_ops = make_ic_operands(x1, invD1, S)
+
+        def residual_fn(poses):
+            return warped_residual(poses, *folded, sample_ops, plain=plain)[0]
+
+        def jtr_fn(res):
+            return jtr_only(pre.fac, res, weights=weights)
+
+        sample_fns = (residual_fn, jtr_fn)
     for i in range(max_iter):
         JtR = jtr_only(pre.fac, residuals, weights=weights)
-        pose = direct_solve(solver, JtWJ, JtR, pose)
+        pose = direct_solve(solver, JtWJ, JtR, pose, *sample_fns)
         if i + 1 < max_iter:
-            residuals, _ = compute_warped_residual(pose, invD0, invD1, x0, x1, px, py, K,
-                                                   plain=plain)
+            residuals, _ = warped_residual(pose, invD0, x0, px, py, K, operands, plain=plain)
     return pose, weights, JtWJ
 
 

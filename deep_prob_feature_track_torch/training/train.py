@@ -1,5 +1,5 @@
-"""Training step of the ``feature`` and ``feature_icp`` presets: EPE3D
-loss, clip -> L2 -> Adam.
+"""Training step of the ``feature``, ``feature_icp`` and ``DeepIC``
+presets: EPE3D loss, clip -> L2 -> Adam.
 
 Counterpart of ``TrainConfig``, ``make_lr_schedule``, ``make_optimizer``,
 ``compute_loss``, ``create_train_state`` and ``make_train_step`` in
@@ -11,6 +11,11 @@ learning rate).  A step of ``feature`` under autograd runs kernels K2 and
 K6 in the forward and K3 in the backward, 12 times each; ``feature_icp``
 runs K2 24 times, once more per iteration for the ICP warp of the input
 depth's vertices and normals, whose operand needs no cotangent (no K3).
+``DeepIC`` runs K1 once (level 3's first occlusion depth, where nothing
+needs a gradient), K2 50 times (12 a level: its first residual, the folded
+damping samples of 3 iterations and 2 new residuals each warp the features
+and the occlusion depth; and the M-estimator's 3 upsamples) and K3 27 times
+(the feature warps and the upsamples); no K6.
 
 Not ported, and raising ``NotImplementedError``: the RPE / URPE / UEPE3D
 losses, object masks, gradient accumulation (``accum_steps > 1``), the

@@ -81,8 +81,8 @@ def test_forward_matches_golden(preset):
 
 def test_from_flax_takes_the_empty_variables():
     """The classical presets have an empty variable tree and no weights;
-    ``DeepIC``, and a predicted initial pose over the grayscale encoder,
-    are not ported."""
+    ``DeepIC`` with an M-estimator and a damping net per level, and a
+    predicted initial pose over the grayscale encoder, are not ported."""
     sds = [jax.ShapeDtypeStruct(a.shape, a.dtype) for a in _golden_inputs()]
     for preset in PRESETS:
         net = JaxTracker(cfg=jp.get_preset(preset))
@@ -94,8 +94,8 @@ def test_from_flax_takes_the_empty_variables():
         port.load_state_dict(from_flax(jax.tree.map(np.asarray, dict(v))), strict=True)
         assert port.state_dict() == {}
         assert port.reset_parameters(3) is port  # nothing to seed
-    with pytest.raises(NotImplementedError):
-        LeastSquareTracking(get_preset("DeepIC"))
+    with pytest.raises(NotImplementedError, match="no_weight_sharing"):
+        LeastSquareTracking(dataclasses.replace(get_preset("DeepIC"), no_weight_sharing=True))
     with pytest.raises(NotImplementedError, match="initial pose"):
         LeastSquareTracking(dataclasses.replace(get_preset("RGB"), init_pose_type="sfm_net"))
 
