@@ -124,7 +124,37 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 21. train ``DeepIC`` as in 11: per step K1 once (level 3's first occlusion
    depth, where neither the operand nor the identity pose needs a
    gradient), K2 50 and K3 27 times (6 ``x1`` warps a level and the 3
-   upsamples), no K4-K6.
+   upsamples), no K4-K6;
+22. the U_FC track's new kernel shapes (its warp operand of the target
+   depth, features, sigma and their gradients: C=28, and C=49 with the
+   ``feature`` sigma), on its forward warp's coordinates, against the plain
+   versions: K4 at C=28 (B=8) on the 120x160, 480x640 and 240x320 planes,
+   also with teleported samples (staged and global tiles in one launch),
+   bit-exact with its plain version and K1; K1 (B=8) at C=28 and 49 at the
+   120x160 levels, bit-exact; K2 (B=64) there at C=28 and 49, ``out``
+   bit-exact, gx/gy within 1e-6, and K3 at C=28 within 1e-5 of the largest
+   entry;
+23. serve U_FC (``feature`` with ``direction=forward``) as in 8: per batch K4
+   3 times (level 0) and K1 9 times, no K6 (its systems are weighted); the
+   kernel forward agrees with the plain one within 1e-5 and with the CPU
+   one within 1e-4;
+24. the U_FC forward at 480x640 B=8 on the served requests: K4 9 times
+   (levels 0-2), K1 3 times; kernels against plain within 1e-5; and the
+   U_FC forward with the ``feature`` sigma (C=49) at 120x160: K1 12 times,
+   kernels against plain within 1e-5 (no CPU forward: that float32 forward
+   amplifies rounding at an untrained init);
+25. train U_FC as in 11: per step K2 and K3 12 times, nothing else;
+26. train U_FC with the learned ``MultiScale2w`` estimator
+   (``train_init_pose=false``) as in 11: per step K2 24 times (12 warps and
+   12 upsamples of the prior weights), K3 21 times (the zero residual's
+   weights reach no loss).
+
+Phase 16 also records K4's staged share on the U_FC forwards (480x640 and
+120x160, on the synthetic scene and on the served requests), 17 times K4
+(C=28, beside K1 and ``grid_sample``), K1 (C=28 and 49), K2 and K3 (C=28)
+at U_FC's shapes, and 18 profiles the U_FC forwards (120x160, 480x640 and
+C=49) and, with ``--time``, times its steps.  ``--time`` needs a port
+package with the U_FC track.
 
 The last lines are a JSON ``kernels`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -216,6 +246,25 @@ DEEPIC_TRAIN_LAUNCHES = counts(gather_twohot=1, gather_twohot_grads=50, splat_tw
 # iteration, RGB+ICP the U_IC operand (C=3) and the ICP operand once each
 CLASSICAL_LAUNCHES = {"RGB": counts(gather_twohot=24), "ICP": counts(gather_twohot=12),
                       "RGB+ICP": counts(gather_twohot=24, fused_jtj_jtr=12)}
+# U_FC: the paper model over the forward-compositional track, named as the
+# JAX apps name it, apply_overrides(get_preset("feature"), pairs).  Its warp
+# operand is [depth1, x1, sigma1, grad x1 (x, y), grad sigma1 (x, y)]: C=28
+# with the slimmed 1-channel sigma, 49 with the 8-channel "feature" sigma
+UFC = ("direction=forward",)
+UFC_MEST = ("direction=forward", "mest_type=MultiScale2w", "train_init_pose=false")
+UFC_WIDE = ("direction=forward", "uncertainty_type=feature")
+C_UFC, C_UFC_WIDE = 28, 49
+# per forward: at 120x160 K4 at level 0 (W*C = 4480 > 4000 refuses the full
+# plane) and K1 at 1-3; at 480x640 K4 at levels 0-2 and K1 at 3; C=49 fits
+# no tile budget: K1 at every level.  The systems are weighted: no K6
+UFC_SERVE_LAUNCHES = counts(gather_tiles=3, gather_twohot=9)
+UFC_VGA_LAUNCHES = counts(gather_tiles=9, gather_twohot=3)
+UFC_WIDE_LAUNCHES = counts(gather_twohot=12)
+# per step: K2 and K3 once an iteration (the grads tile gate refuses Cp > 16);
+# the learned estimator's 4 applications a level at levels 2-0 upsample its
+# prior weights (K2), and the 3 of the iterations reach the loss (K3)
+UFC_TRAIN_LAUNCHES = counts(gather_twohot_grads=12, splat_twohot=12)
+UFC_MEST_TRAIN_LAUNCHES = counts(gather_twohot_grads=24, splat_twohot=21)
 C_ICP = (1, 3, 6)  # the channel counts of the classical and ICP warps
 PRESET_ATOL = 1e-5  # kernel against plain forward of the presets this slice added
 
@@ -439,10 +488,43 @@ def tile_inputs(torch, dev, b, h, w, c, seed, coords="smooth"):
         u = (u - w / 2) * 4 + w / 2
         v = (v - h / 2) * 4 + h / 2
     if coords == "teleported":
-        idx = torch.randint(0, h * w, (b, 64), generator=g)
-        for m, size in ((u, w), (v, h)):
-            flat = m.view(b, -1)
-            flat.scatter_(1, idx, (flat.gather(1, idx) + size / 2) % (size - 1))
+        teleport(torch, u, v, g)
+    u, v = u.to(dev), v.to(dev)
+    maps = [t.reshape(b, h, w) for t in _corner_weights((b, h, w, c), u, v)]
+    return F.to(dev), maps, (u, v)
+
+
+def teleport(torch, u, v, g):
+    """Move 64 samples an image of the coordinates u, v [b,1,h,w] (CPU,
+    in place) half the plane away."""
+    b, _, h, w = u.shape
+    idx = torch.randint(0, h * w, (b, 64), generator=g)
+    for m, size in ((u, w), (v, h)):
+        flat = m.view(b, -1)
+        flat.scatter_(1, idx, (flat.gather(1, idx) + size / 2) % (size - 1))
+
+
+def ufc_inputs(torch, dev, b, h, w, c, seed, teleported=False):
+    """A plane F [b,h,w,c] and the corner maps [b,h,w] of U_FC's forward
+    warp (``solvers/trust_region.py::_warp_forward_depth``) of
+    ``synthetic_batch``'s depth at h x w under a small motion, with a pixel
+    of zero depth every 37 rows and 41 columns (it projects from the
+    translation alone, far from its neighbours); with ``teleported``, 64
+    samples an image moved half the plane away.  Also returns (u, v)."""
+    from deep_prob_feature_track_torch.geometry.lie import exp_so3
+    from deep_prob_feature_track_torch.geometry.warp import _corner_weights
+    from deep_prob_feature_track_torch.solvers.trust_region import _warp_forward_depth
+    from deep_prob_feature_track_torch.training.train import synthetic_batch
+
+    batch = synthetic_batch(b, h, w, seed=seed)
+    depth = batch["depth0"]
+    depth[:, :, ::37, ::41] = 0.0
+    g = torch.Generator().manual_seed(seed)
+    pose = (exp_so3(torch.randn(b, 3, generator=g) * 0.01), torch.randn(b, 3, generator=g) * 0.02)
+    u, v = _warp_forward_depth(depth, pose, batch["calib"])[:2]
+    if teleported:
+        teleport(torch, u, v, g)
+    F = torch.randn(b, h, w, c, generator=g)
     u, v = u.to(dev), v.to(dev)
     maps = [t.reshape(b, h, w) for t in _corner_weights((b, h, w, c), u, v)]
     return F.to(dev), maps, (u, v)
@@ -651,6 +733,143 @@ def phase_time_deepic(torch, dev, name):
     return r
 
 
+def check_k4(torch, F, maps, label):
+    """K4 on F and the corner maps against its plain version and K1 on the
+    flattened maps, bit for bit; returns the largest difference."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    b = F.shape[0]
+    out = K.gather_tiles_cuda(F, *maps)
+    ref = K.gather_tiles_ref(F, *maps)
+    k1 = K.gather_twohot_cuda(F, *[m.reshape(b, -1) for m in maps])
+    torch.cuda.synchronize()
+    e = max((out - ref).abs().max().item(), (out - k1).abs().max().item())
+    if e != 0.0:
+        raise AssertionError(f"gather_tiles is not bit-exact at {label}: {e}")
+    return e
+
+
+def check_k2(torch, F, args, label):
+    """K2 against its plain version: ``out`` bit-exact (and K1's), gx/gy
+    within 1e-6 of the largest entry; returns the gx/gy difference."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    got, ref = K.gather_twohot_grads_cuda(F, *args), K.gather_twohot_grads_ref(F, *args)
+    k1 = K.gather_twohot_cuda(F, *args)
+    torch.cuda.synchronize()
+    e_out = max((got[0] - ref[0]).abs().max().item(), (got[0] - k1).abs().max().item())
+    e2 = max((a - r).abs().max().item() for a, r in zip(got[1:], ref[1:]))
+    top = max(r.abs().max().item() for r in ref[1:])
+    log(f"K2 gather_twohot_grads {label}: max|out - plain, K1| = {e_out:.3e}, max|gx,gy - "
+        f"plain| = {e2:.3e} ({e2 / top:.2e} of the largest entry)")
+    if e_out != 0.0:
+        raise AssertionError(f"gather_twohot_grads out is not bit-exact at {label}")
+    if not e2 <= 1e-6 * top:
+        raise AssertionError(f"gather_twohot_grads gx/gy disagree at {label}: {e2}")
+    return e2
+
+
+def phase_ufc_kernels(torch, dev):
+    """U_FC's new kernel shapes against the plain versions, on its forward
+    warp's coordinates (``ufc_inputs``): K4 at C=28, B=8, on the 120x160
+    plane and the 480x640 and 240x320 planes of 640x480's levels 0-1 (its
+    level 2 is 120x160), also with teleported samples (staged and global
+    tiles in one launch), bit-exact with its plain version and with K1; K1
+    at C=28 and C=49 (B=8) at the four 120x160 levels, bit-exact; K2 at
+    C=28 and C=49 (B=64) there, ``out`` bit-exact, gx/gy within 1e-6 of the
+    largest entry; K3 at C=28 (B=64) there, within 1e-5 of the largest
+    entry.  Returns the largest errors and K4's staged shares."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+    from deep_prob_feature_track_torch.ops.kernels.tiles import staged_share
+
+    err = {"gather_tiles": 0.0, "gather_twohot": 0.0, "gather_twohot_grads": 0.0,
+           "splat_twohot": 0.0}
+    shares = {}
+    for h, w in ((H, W), *VGA_LEVELS[:2]):
+        for teleported in (False, True):
+            F, maps, _ = ufc_inputs(torch, dev, B, h, w, C_UFC, seed=160 + h,
+                                    teleported=teleported)
+            key = f"{h}x{w}{' teleported' if teleported else ''}"
+            shares[key] = staged_share(maps[0], maps[2], h, w, C_UFC)
+            err["gather_tiles"] = max(err["gather_tiles"], check_k4(torch, F, maps, key))
+            log(f"K4 gather_tiles U_FC [{B},{C_UFC},{h * w}] {key}: staged share "
+                f"{shares[key]:.4f}, bit-exact with its plain version and K1")
+            if teleported and not 0.0 < shares[key] < 1.0:
+                raise AssertionError(f"gather_tiles at {key}: staged share {shares[key]} does "
+                                     "not mix staged and global tiles")
+    for i, (h, w) in enumerate(LEVELS):
+        for c in (C_UFC, C_UFC_WIDE):
+            label = f"U_FC level {i} {h}x{w}, C={c}"
+            F, maps, _ = ufc_inputs(torch, dev, B, h, w, c, seed=170 + i)
+            args = [m.reshape(B, -1) for m in maps]
+            out, ref = K.gather_twohot_cuda(F, *args), K.gather_twohot_ref(F, *args)
+            torch.cuda.synchronize()
+            e = (out - ref).abs().max().item()
+            log(f"K1 gather_twohot {label}, B={B}: max|kernel - plain| = {e:.3e}")
+            if e != 0.0:
+                raise AssertionError(f"gather_twohot is not bit-exact at {label}: {e}")
+            F, maps, _ = ufc_inputs(torch, dev, B_TRAIN, h, w, c, seed=180 + i)
+            args = [m.reshape(B_TRAIN, -1) for m in maps]
+            e2 = check_k2(torch, F, args, f"{label}, B={B_TRAIN}")
+            err["gather_twohot_grads"] = max(err["gather_twohot_grads"], e2)
+            if c != C_UFC:  # the C=49 operand's cotangent is not on a path checked here
+                continue
+            g = torch.randn(B_TRAIN, c, h * w, generator=torch.Generator().manual_seed(i))
+            g = g.to(dev)
+            got, ref = K.splat_twohot_cuda(g, *args, h, w), K.splat_twohot_ref(g, *args, h, w)
+            torch.cuda.synchronize()
+            e3 = (got - ref).abs().max().item()
+            top = ref.abs().max().item()
+            log(f"K3 splat_twohot {label}, B={B_TRAIN}: max|kernel - plain| = {e3:.3e} "
+                f"({e3 / top:.2e} of the largest entry)")
+            if not e3 <= 1e-5 * top:
+                raise AssertionError(f"splat_twohot disagrees at {label}: {e3}")
+            err["splat_twohot"] = max(err["splat_twohot"], e3)
+    return err, shares
+
+
+def phase_time_ufc(torch, dev, name):
+    """U_FC's kernel shapes, on its forward warp's coordinates: K4 at C=28
+    (B=8) on the 120x160 plane and 640x480's level-0 and level-1 planes,
+    also on smooth coordinates (every tile stages, as on the synthetic
+    scenes' U_FC forwards), beside K1 on the same inputs and
+    ``grid_sample``; K1 at C=28 on the
+    60x80 level and at C=49 on the 120x160 one (B=8); K2 and K3 at C=28 on
+    the 120x160 level (B=64, K3 beside ``grid_sampler_2d_backward``); each
+    beside its plain version and bound."""
+    bw, flops = peaks(name)
+    rows = []
+    for h, w in ((H, W), *VGA_LEVELS[:2]):
+        for coords in ("ufc", "smooth"):
+            F, maps, uv = (ufc_inputs(torch, dev, B, h, w, C_UFC, seed=190 + h)
+                           if coords == "ufc" else
+                           tile_inputs(torch, dev, B, h, w, C_UFC, seed=190 + h))
+            rows.append({"kernel": "gather_tiles", "b": B, "hw": [h, w], "c": C_UFC,
+                         "coords": coords,
+                         **tile_timing(torch, "gather_tiles", F, maps, uv, bw, flops)})
+    for (h, w), c in ((LEVELS[1], C_UFC), (LEVELS[0], C_UFC_WIDE)):
+        F, maps, uv = ufc_inputs(torch, dev, B, h, w, c, seed=200 + c)
+        rows.append({"kernel": "gather_twohot", "b": B, "hw": [h, w], "c": c,
+                     **k1_timing(torch, F, [m.reshape(B, -1) for m in maps], uv, bw, flops)})
+    F, maps, uv = ufc_inputs(torch, dev, B_TRAIN, H, W, C_UFC, seed=210)
+    args = [m.reshape(B_TRAIN, -1) for m in maps]
+    rows.append({"kernel": "gather_twohot_grads", "b": B_TRAIN, "hw": [H, W], "c": C_UFC,
+                 **k2_timing(torch, F, args, bw, flops)})
+    g = torch.randn(B_TRAIN, C_UFC, H * W, generator=torch.Generator().manual_seed(211))
+    rows.append({"kernel": "splat_twohot", "b": B_TRAIN, "hw": [H, W], "c": C_UFC,
+                 **k3_timing(torch, g.to(dev), args, uv, H, W, bw, flops)})
+    for r in rows:
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        extra = (f", K1 on the same inputs {r['full_plane_ms']:.4f}, device "
+                 f"{r['full_plane_device_ms']:.4f}, staged share {r['staged_share']:.4f}"
+                 if r["kernel"] == "gather_tiles" else "")
+        log(f"U_FC {r['kernel']} C={r['c']} B={r['b']} {r['hw'][0]}x{r['hw'][1]}"
+            f"{', ' + r['coords'] + ' coordinates' if 'coords' in r else ''}: "
+            f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, "
+            f"library {lib}, bound {r['bound_ms']:.4f}{extra})")
+    return rows
+
+
 def _payload(item) -> bytes:
     buf = io.BytesIO()
     np.savez(buf, **item)
@@ -664,13 +883,18 @@ def request_items(n: int, h: int, w: int):
     return [{k: a[i] for k, a in zip(KEYS, batch)} for i in range(n)]
 
 
-def phase_serve(torch, dev, h, w, expected, preset="feature"):
+def config_name(preset, overrides=()):
+    """The name of ``preset`` with its config overrides, for the log."""
+    return " ".join((preset, *overrides))
+
+
+def phase_serve(torch, dev, h, w, expected, preset="feature", overrides=()):
     """Serve 12 requests from threads and one HTTP request at h x w; the
     launch counts must be ``expected`` per served batch."""
     from deep_prob_feature_track_torch.apps.serve import build_service, make_handler
     from deep_prob_feature_track_torch.ops import kernels as K
 
-    service = build_service(preset, "", max_batch=B, H=h, W=w, device=dev)
+    service = build_service(preset, "", max_batch=B, H=h, W=w, device=dev, overrides=overrides)
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
@@ -707,8 +931,8 @@ def phase_serve(torch, dev, h, w, expected, preset="feature"):
 
     if errors or any(th.is_alive() for th in threads):
         raise RuntimeError(f"requests failed: {errors}")
-    log(f"{preset}: served {len(results)} requests at {h}x{w} ({N_REQUESTS} from threads + "
-        f"1 HTTP) in {batches} batches; launches {launches}")
+    log(f"{config_name(preset, overrides)}: served {len(results)} requests at {h}x{w} "
+        f"({N_REQUESTS} from threads + 1 HTTP) in {batches} batches; launches {launches}")
     if batches < 2:
         raise AssertionError("expected at least two batches")
     for name, n in launches.items():
@@ -723,7 +947,8 @@ def phase_serve(torch, dev, h, w, expected, preset="feature"):
     return launches, items[:B]
 
 
-def phase_agree(torch, dev, items, n_cpu, preset="feature", plain_atol=1e-4, expected=None):
+def phase_agree(torch, dev, items, n_cpu, preset="feature", plain_atol=1e-4, expected=None,
+                overrides=()):
     """The forward of ``items`` through the kernels against their plain
     versions on the card (within ``plain_atol`` on R and t); the forward of
     the first ``n_cpu`` of them through the kernels against the CPU forward
@@ -736,61 +961,63 @@ def phase_agree(torch, dev, items, n_cpu, preset="feature", plain_atol=1e-4, exp
     def pose(batch_items, device, plain=False):
         batch = [torch.from_numpy(np.stack([it[k] for it in batch_items])).to(device)
                  for k in KEYS]
-        net = build_tracker(preset, device=device, plain_kernels=plain)
+        net = build_tracker(preset, device=device, plain_kernels=plain, overrides=overrides)
         with torch.inference_mode():
             K.reset_launches()
             R, t = net(*batch)
             launches = dict(K.LAUNCHES)
         return R.cpu().numpy(), t.cpu().numpy(), launches
 
+    name = config_name(preset, overrides)
     *kernels, launches = pose(items, dev)
     h, w = items[0]["color0"].shape[1:]
-    log(f"{preset}: B={len(items)} {h}x{w} forward through the kernels, launches {launches}")
+    log(f"{name}: B={len(items)} {h}x{w} forward through the kernels, launches {launches}")
     if expected is not None and launches != expected:
-        raise AssertionError(f"{preset} forward launched {launches}, expected {expected}")
+        raise AssertionError(f"{name} forward launched {launches}, expected {expected}")
     pairs = [("plain", kernels, pose(items, dev, plain=True)[:2], plain_atol)]
     if n_cpu:
         few = kernels if n_cpu == len(items) else pose(items[:n_cpu], dev)[:2]
         pairs.append(("cpu", few, pose(items[:n_cpu], torch.device("cpu"))[:2], 1e-4))
     out = {"launches": launches}
-    for label, (R0, t0), (R, t), atol in pairs:
+    for other, (R0, t0), (R, t), atol in pairs:
         dR, dt = np.abs(R - R0).max(), np.abs(t - t0).max()
-        log(f"{preset}: B={len(R)} {h}x{w} forward, kernels vs {label}: max|dR| = {dR:.3e}, "
+        log(f"{name}: B={len(R)} {h}x{w} forward, kernels vs {other}: max|dR| = {dR:.3e}, "
             f"max|dt| = {dt:.3e}")
         if not (dR <= atol and dt <= atol):
-            raise AssertionError(f"{preset}: kernel forward disagrees with the {label} forward")
-        out[label] = [float(dR), float(dt)]
+            raise AssertionError(f"{name}: kernel forward disagrees with the {other} forward")
+        out[other] = [float(dR), float(dt)]
     return out
 
 
-def _train_state(torch, dev, plain=False, preset="feature"):
-    from deep_prob_feature_track_torch.models.presets import get_preset
+def _train_state(torch, dev, plain=False, preset="feature", overrides=()):
+    from deep_prob_feature_track_torch.models.presets import apply_overrides, get_preset
     from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
     from deep_prob_feature_track_torch.training import train as T
 
     cfg = T.TrainConfig()
-    net = LeastSquareTracking(get_preset(preset), plain_kernels=plain)
+    net = LeastSquareTracking(apply_overrides(get_preset(preset), overrides), plain_kernels=plain)
     return cfg, T.create_train_state(net, cfg, seed=1, device=dev)
 
 
-def _loss_and_grads(torch, dev, batch, plain, preset):
+def _loss_and_grads(torch, dev, batch, plain, preset, overrides=()):
     from deep_prob_feature_track_torch.training import train as T
 
-    cfg, state = _train_state(torch, dev, plain, preset)
+    cfg, state = _train_state(torch, dev, plain, preset, overrides)
     loss = T.compute_loss(state.net, cfg, batch)
     loss.backward()
     return loss.item(), {k: p.grad for k, p in state.net.named_parameters()}
 
 
-def phase_train(torch, dev, b, h, w, seed, expected, preset="feature"):
+def phase_train(torch, dev, b, h, w, seed, expected, preset="feature", overrides=()):
     """Three steps of ``preset`` at b x h x w, with the launch counts
     ``expected`` per step; kernels against plain versions; step time,
     memory, profile."""
     from deep_prob_feature_track_torch.ops import kernels as K
     from deep_prob_feature_track_torch.training import train as T
 
+    name = config_name(preset, overrides)
     batch = T.synthetic_batch(b, h, w, seed=seed, device=dev)
-    cfg, state = _train_state(torch, dev, preset=preset)
+    cfg, state = _train_state(torch, dev, preset=preset, overrides=overrides)
     step = T.make_train_step(cfg, steps_per_epoch=100)
     launches = {k: 0 for k in K.LAUNCHES}
     losses = []
@@ -799,7 +1026,7 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature"):
         state, metrics = step(state, batch)
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
         n = dict(K.LAUNCHES)
-        log(f"{preset}: B={b} {h}x{w} train step {i}: loss {loss:.6f}, grad norm "
+        log(f"{name}: B={b} {h}x{w} train step {i}: loss {loss:.6f}, grad norm "
             f"{norm:.6f}, launches {n}")
         if not (np.isfinite(loss) and np.isfinite(norm)):
             raise AssertionError(f"train step {i}: non-finite loss {loss} or grad norm {norm}")
@@ -812,7 +1039,8 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature"):
     # kernels twice (K3's atomics and cuDNN reorder sums from run to run),
     # then the plain versions
     (loss_k, grads_k), (_, grads_k2), (loss_p, grads_p) = (
-        _loss_and_grads(torch, dev, batch, plain, preset) for plain in (False, False, True))
+        _loss_and_grads(torch, dev, batch, plain, preset, overrides)
+        for plain in (False, False, True))
 
     def worst_leaf(grads, ref):
         """max over leaves of |grads - ref| / max|ref|, and its leaf"""
@@ -825,7 +1053,7 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature"):
     spread, spread_key = worst_leaf(grads_k2, grads_k)
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     worst, worst_key = worst_leaf(grads_k, grads_p)
-    log(f"{preset}: B={b} {h}x{w} train loss, kernels vs plain: {loss_k:.6f} vs {loss_p:.6f} "
+    log(f"{name}: B={b} {h}x{w} train loss, kernels vs plain: {loss_k:.6f} vs {loss_p:.6f} "
         f"(relative {rel_loss:.2e}); worst gradient leaf {worst_key}: {worst:.2e} of its "
         f"largest entry (kernels vs kernels: {spread:.2e}, {spread_key})")
     if not rel_loss <= 1e-5:
@@ -836,9 +1064,9 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature"):
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(torch, lambda: step(state, batch), reps=5, warmup=2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _, plain_state = _train_state(torch, dev, plain=True, preset=preset)
+    _, plain_state = _train_state(torch, dev, plain=True, preset=preset, overrides=overrides)
     step_plain_ms = time_ms(torch, lambda: step(plain_state, batch), reps=5, warmup=2)
-    log(f"{preset}: B={b} {h}x{w} train step: {step_ms:.3f} ms with the kernels "
+    log(f"{name}: B={b} {h}x{w} train step: {step_ms:.3f} ms with the kernels "
         f"({b / step_ms * 1e3:.1f} samples/s, peak memory {peak_gb:.2f} GB), "
         f"{step_plain_ms:.3f} ms with their plain versions")
     return {
@@ -847,7 +1075,7 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature"):
         "step_ms": step_ms,
         "step_plain_ms": step_plain_ms, "peak_memory_gb": peak_gb,
         "profile": profile(torch, lambda: step(state, batch),
-                           f"{preset} B={b} {h}x{w} train step"),
+                           f"{name} B={b} {h}x{w} train step"),
     }
 
 
@@ -855,9 +1083,12 @@ def phase_scene_share(torch, dev):
     """The share of K4's, K5's and K3's tiles that staged on the
     synthetic scenes, recorded from the warp's kernel calls (the other
     tiles take the global path): the level-0 warps of the 480x640
-    ``feature`` and ``feature_icp`` forwards, then one loss and backward at 480x640, B=4
-    (K5 at levels 0-1, K3 at every level) and at 120x160, B=64 (K3)."""
-    from deep_prob_feature_track_torch.apps.serve import build_tracker
+    ``feature`` and ``feature_icp`` forwards and the level 0-2 warps of the
+    480x640 U_FC forward, the level-0 warps of the 120x160 U_FC forward on
+    the synthetic scene and on the served requests' random depth, then one
+    loss and backward at 480x640, B=4 (K5 at levels 0-1, K3 at every level)
+    and at 120x160, B=64 (K3)."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
     from deep_prob_feature_track_torch.geometry import warp
     from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
     from deep_prob_feature_track_torch.ops.kernels.tiles import grads_staged_share, staged_share
@@ -881,20 +1112,26 @@ def phase_scene_share(torch, dev):
     for name in kernels:
         setattr(warp, name, recorder(name))
     try:
-        batch = T.synthetic_batch(B, H_VGA, W_VGA, seed=VGA_TRAIN_SEED, device=dev)
-        for preset in ("feature", "feature_icp"):
-            scene[0] = f"B={B} {H_VGA}x{W_VGA} {preset} forward"
+        vga = T.synthetic_batch(B, H_VGA, W_VGA, seed=VGA_TRAIN_SEED, device=dev)
+        small = T.synthetic_batch(B, H, W, seed=TRAIN_SEED, device=dev)
+        served = example_batch(B, H, W, seed=1, device=dev)
+        for preset, overrides, batch, what in (
+                ("feature", (), vga, "synthetic"), ("feature_icp", (), vga, "synthetic"),
+                ("feature", UFC, vga, "synthetic"), ("feature", UFC, small, "synthetic"),
+                ("feature", UFC, dict(zip(KEYS, served)), "served")):
+            h, w = batch["color0"].shape[-2:]
+            scene[0] = f"B={B} {h}x{w} {config_name(preset, overrides)} forward ({what})"
             with torch.inference_mode():
-                build_tracker(preset, device=dev)(*[batch[k] for k in KEYS])
+                build_tracker(preset, device=dev, overrides=overrides)(*[batch[k] for k in KEYS])
         for b, h, w, seed in ((B_VGA_TRAIN, H_VGA, W_VGA, VGA_TRAIN_SEED), (B_TRAIN, H, W, TRAIN_SEED)):
-            scene[0] = f"B={b} {h}x{w} loss and backward"
+            scene[0] = f"B={b} {h}x{w} feature loss and backward (synthetic)"
             cfg, state = _train_state(torch, dev)
             T.compute_loss(state.net, cfg, T.synthetic_batch(b, h, w, seed=seed, device=dev)).backward()
     finally:
         for name, fn in kernels.items():
             setattr(warp, name, fn)
     for key, calls in shares.items():
-        log(f"{key} on the synthetic scene: staged share per call "
+        log(f"{key}: staged share per call "
             + ", ".join(f"{h}x{w} {s:.4f}" for (h, w), s in calls))
     return {k: [s for _, s in v] for k, v in shares.items()}
 
@@ -1099,6 +1336,39 @@ def phase_time_jtj(torch, dev, name):
     return rows
 
 
+def tile_timing(torch, kname, F, maps, uv, bw, flops):
+    """K4's (``kname="gather_tiles"``) or K5's events and device time on F
+    [b,h,w,C] at the corner maps [b,h,w], beside its plain version, K1 /
+    K2 on the same inputs, the byte bound and, for K4, ``grid_sample`` at
+    the coordinates ``uv`` and the share of its tiles that staged."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+    from deep_prob_feature_track_torch.ops.kernels.tiles import staged_share
+
+    b, h, w, c = F.shape
+    n = h * w
+    flat = [m.reshape(b, -1) for m in maps]
+    planes = b * n * c  # floats of the operand plane and of each output
+    if kname == "gather_tiles":
+        kern, plain, full = K.gather_tiles_cuda, K.gather_tiles_ref, K.gather_twohot_cuda
+        nbytes, nflops = 4 * (2 * planes + 4 * b * n), b * n * (2 + 11 * c)
+        library = {**grid_sample_timing(torch, F, uv),
+                   "staged_share": staged_share(maps[0], maps[2], h, w, c)}
+    else:
+        kern, plain = K.gather_tiles_grads_cuda, K.gather_tiles_grads_ref
+        full = K.gather_twohot_grads_cuda
+        nbytes, nflops = 4 * (4 * planes + 4 * b * n), b * n * (2 + 17 * c)
+        library = {"library_ms": None}  # no single call returns the value and both maps
+    return {
+        "ms": time_ms(torch, lambda: kern(F, *maps)),
+        "device_ms": device_ms(torch, lambda: kern(F, *maps)),
+        "plain_ms": time_ms(torch, lambda: plain(F, *maps)),
+        **library,
+        **bound(nbytes, nflops, bw, flops),
+        "full_plane_ms": time_ms(torch, lambda: full(F, *flat)),
+        "full_plane_device_ms": device_ms(torch, lambda: full(F, *flat)),
+    }
+
+
 def phase_time_tiles(torch, dev, name):
     """K4 at 480x640 B=8 at each channel count it is checked at, and K5 at
     the 480x640 training shapes (C=10), on smooth coordinates, beside their
@@ -1107,40 +1377,16 @@ def phase_time_tiles(torch, dev, name):
     the share of its tiles that staged; K4 at C=6 and 10 also on the
     tracking-like coordinates of ``tile_inputs``, where most tiles take the
     global path."""
-    from deep_prob_feature_track_torch.ops import kernels as K
-    from deep_prob_feature_track_torch.ops.kernels.tiles import staged_share
-
     bw, flops = peaks(name)
     levels = []
     for i, (kname, b, level) in enumerate(TILE_CASES):
         h, w = VGA_LEVELS[level]
-        n = h * w
         cases = ([(c, "smooth") for c in TILE_CHANNELS[kname]]
                  + [(c, "tracking") for c in (6, C_WARP)] if kname == "gather_tiles"
                  else [(C_WARP, "smooth")])
         for c, coords in cases:
             F, maps, uv = tile_inputs(torch, dev, b, h, w, c, seed=60 + i, coords=coords)
-            flat = [m.reshape(b, -1) for m in maps]
-            planes = b * n * c  # floats of the operand plane and of each output
-            if kname == "gather_tiles":
-                kern, plain, full = K.gather_tiles_cuda, K.gather_tiles_ref, K.gather_twohot_cuda
-                nbytes, nflops = 4 * (2 * planes + 4 * b * n), b * n * (2 + 11 * c)
-                library = {**grid_sample_timing(torch, F, uv),
-                           "staged_share": staged_share(maps[0], maps[2], h, w, c)}
-            else:
-                kern, plain = K.gather_tiles_grads_cuda, K.gather_tiles_grads_ref
-                full = K.gather_twohot_grads_cuda
-                nbytes, nflops = 4 * (4 * planes + 4 * b * n), b * n * (2 + 17 * c)
-                library = {"library_ms": None}  # no single call returns the value and both maps
-            row = {
-                "ms": time_ms(torch, lambda: kern(F, *maps)),
-                "device_ms": device_ms(torch, lambda: kern(F, *maps)),
-                "plain_ms": time_ms(torch, lambda: plain(F, *maps)),
-                **library,
-                **bound(nbytes, nflops, bw, flops),
-                "full_plane_ms": time_ms(torch, lambda: full(F, *flat)),
-                "full_plane_device_ms": device_ms(torch, lambda: full(F, *flat)),
-            }
+            row = tile_timing(torch, kname, F, maps, uv, bw, flops)
             levels.append({"kernel": kname, "level": level, "b": b, "c": c, "hw": [h, w],
                            "coords": coords, **row})
             lib = ("grid_sample -" if row["library_ms"] is None else
@@ -1155,38 +1401,40 @@ def phase_time_tiles(torch, dev, name):
     return levels
 
 
-def phase_forward(torch, dev, h, w, preset="feature"):
+def phase_forward(torch, dev, h, w, preset="feature", overrides=()):
     """The B=8 forward of ``preset`` at h x w, with the kernels and with
     their plain versions, and one profiled forward."""
     from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
 
-    net = build_tracker(preset, device=dev)
-    plain = build_tracker(preset, device=dev, plain_kernels=True)
+    name = config_name(preset, overrides)
+    net = build_tracker(preset, device=dev, overrides=overrides)
+    plain = build_tracker(preset, device=dev, plain_kernels=True, overrides=overrides)
     batch = example_batch(B, h, w, seed=2, device=dev)
     with torch.inference_mode():
         fwd_ms = time_ms(torch, lambda: net(*batch), reps=10, warmup=2)
         fwd_plain_ms = time_ms(torch, lambda: plain(*batch), reps=10, warmup=2)
-        log(f"{preset}: B={B} {h}x{w} forward: {fwd_ms:.3f} ms with the kernels "
+        log(f"{name}: B={B} {h}x{w} forward: {fwd_ms:.3f} ms with the kernels "
             f"({B / fwd_ms * 1e3:.1f} frame pairs/s), {fwd_plain_ms:.3f} ms with their "
             f"plain versions")
         return {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                 "profile": profile(torch, lambda: net(*batch),
-                                   f"{preset} B={B} {h}x{w} forward")}
+                                   f"{name} B={B} {h}x{w} forward")}
 
 
-def phase_step_time(torch, dev, preset):
+def phase_step_time(torch, dev, preset, overrides=()):
     """The 120x160 B=64 train step of ``preset``, with the kernels and with
     their plain versions (5 steps after 2 of warm-up, each)."""
     from deep_prob_feature_track_torch.training import train as T
 
     batch = T.synthetic_batch(B_TRAIN, H, W, seed=TRAIN_SEED, device=dev)
     out = {}
-    for label, plain in (("step_ms", False), ("step_plain_ms", True)):
-        cfg, state = _train_state(torch, dev, plain=plain, preset=preset)
+    for key, plain in (("step_ms", False), ("step_plain_ms", True)):
+        cfg, state = _train_state(torch, dev, plain=plain, preset=preset, overrides=overrides)
         step = T.make_train_step(cfg, steps_per_epoch=100)
-        out[label] = time_ms(torch, lambda: step(state, batch), reps=5, warmup=2)
-    log(f"{preset}: B={B_TRAIN} {H}x{W} train step: {out['step_ms']:.3f} ms with the kernels, "
-        f"{out['step_plain_ms']:.3f} ms with their plain versions")
+        out[key] = time_ms(torch, lambda: step(state, batch), reps=5, warmup=2)
+    log(f"{config_name(preset, overrides)}: B={B_TRAIN} {H}x{W} train step: "
+        f"{out['step_ms']:.3f} ms with the kernels, {out['step_plain_ms']:.3f} ms with their "
+        "plain versions")
     return out
 
 
@@ -1327,8 +1575,14 @@ def measure(torch, dev, name, train_steps=True):
                                 for p in ("feature_icp", *CLASSICAL_LAUNCHES, "DeepIC")},
             "feature_icp_vga_forward": phase_forward(torch, dev, H_VGA, W_VGA, "feature_icp"),
             "deepic_k1_folded_level0": phase_time_deepic(torch, dev, name),
-            "train_steps": {p: phase_step_time(torch, dev, p)
-                            for p in ("feature", "feature_icp", "DeepIC") if train_steps}}
+            "ufc_levels": phase_time_ufc(torch, dev, name),
+            "ufc_forwards": {config_name("feature", o) + f" {h}x{w}": phase_forward(
+                torch, dev, h, w, overrides=o)
+                for o, h, w in ((UFC, H, W), (UFC, H_VGA, W_VGA), (UFC_WIDE, H, W))},
+            "train_steps": {config_name(p, o): phase_step_time(torch, dev, p, o)
+                            for p, o in (("feature", ()), ("feature_icp", ()), ("DeepIC", ()),
+                                         ("feature", UFC), ("feature", UFC_MEST))
+                            if train_steps}}
 
 
 def run(torch, loader, dev, name, smi):
@@ -1367,10 +1621,29 @@ def run(torch, loader, dev, name, smi):
                                     DEEPIC_SERVE_LAUNCHES)
     deepic_train = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, DEEPIC_TRAIN_LAUNCHES,
                                "DeepIC")
+    ufc_errors, ufc_k4_shares = phase_ufc_kernels(torch, dev)
+    for k, e in ufc_errors.items():
+        errors[k] = max(errors[k], e)
+    ufc_launches, ufc_items = phase_serve(torch, dev, H, W, UFC_SERVE_LAUNCHES, overrides=UFC)
+    presets["U_FC"] = phase_agree(torch, dev, ufc_items, B, "feature", PRESET_ATOL,
+                                  UFC_SERVE_LAUNCHES, overrides=UFC)
+    presets["U_FC_vga"] = phase_agree(torch, dev, vga_items, 0, "feature", PRESET_ATOL,
+                                      UFC_VGA_LAUNCHES, overrides=UFC)
+    # no CPU forward: with the feature sigma (near zero in places at an
+    # untrained init) the float32 forward amplifies rounding, 2.9e-4 on t
+    # between float32 and float64 on the CPU
+    presets["U_FC_feature_sigma"] = phase_agree(torch, dev, items, 0, "feature", PRESET_ATOL,
+                                                UFC_WIDE_LAUNCHES, overrides=UFC_WIDE)
+    ufc_train = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, UFC_TRAIN_LAUNCHES,
+                            overrides=UFC)
+    ufc_mest_train = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, UFC_MEST_TRAIN_LAUNCHES,
+                                 overrides=UFC_MEST)
     m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
                       "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
                       "deepic_train": deepic_train, "deepic_serve_launches": deepic_launches,
+                      "ufc_train": ufc_train, "ufc_mest_train": ufc_mest_train,
+                      "ufc_serve_launches": ufc_launches, "ufc_k4_staged_share": ufc_k4_shares,
                       "preset_agree": presets, "scene_staged_share": scene_shares,
                       "vga_serve_launches": vga_launches, "card": smi}), flush=True)
 

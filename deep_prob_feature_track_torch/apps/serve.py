@@ -176,17 +176,21 @@ def make_handler(service: TrackingService):
 
 
 def build_tracker(preset: str = "feature", checkpoint: str = "", device="cuda",
-                  seed: int = 0, plain_kernels: bool = False):
+                  seed: int = 0, plain_kernels: bool = False, overrides=()):
     """The eval-mode tracker on ``device``, from a checkpoint or a seeded init.
 
     :param plain_kernels: run the CUDA kernels' plain PyTorch versions
+    :param overrides: ``key=value`` strings applied to the preset's
+        config (``models/presets.py::apply_overrides``), e.g.
+        ``["direction=forward"]`` for the U_FC track
     """
-    from ..models.presets import get_preset
+    from ..models.presets import apply_overrides, get_preset
     from ..models.tracker import LeastSquareTracking
 
     dev = resolve_device(device)
     set_float32_policy()
-    net = LeastSquareTracking(get_preset(preset), plain_kernels=plain_kernels)
+    net = LeastSquareTracking(apply_overrides(get_preset(preset), overrides),
+                              plain_kernels=plain_kernels)
     if checkpoint:
         state = torch.load(checkpoint, map_location="cpu", weights_only=True)
         net.load_state_dict(state, strict=True)
@@ -210,8 +214,8 @@ def example_batch(B: int, H: int, W: int, seed: int = 0, device="cpu"):
 
 
 def build_service(preset: str, checkpoint: str, max_batch: int, H=120, W=160,
-                  device="cuda", seed: int = 0, batch_timeout_ms: float = 5.0):
-    net = build_tracker(preset, checkpoint, device, seed)
+                  device="cuda", seed: int = 0, batch_timeout_ms: float = 5.0, overrides=()):
+    net = build_tracker(preset, checkpoint, device, seed, overrides=overrides)
     dev = resolve_device(device)
 
     def forward(*args):

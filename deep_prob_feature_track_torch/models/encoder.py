@@ -1,13 +1,24 @@
 """Feature/uncertainty pyramid encoder.
 
-Counterpart of ``deep_prob_feature_track_tpu/models/encoder.py`` for the
-feature heads ``conv`` (a conv block per level) and ``average`` (the channel
-mean of each level's raw features, no weights) and the sigma heads
-``laplacian`` (a conv block and a conv per level) and ``None`` (no sigma):
-4 stages of 3 conv blocks (channels 32/64/96/128) with a 2x2 average pool
-between stages.  Module names follow the reference ``state_dict``:
-``net{i}``, ``f_conv{i}`` and ``sigma_conv{i}``; the ``average`` and
-``None`` heads have no modules.
+Counterpart of ``deep_prob_feature_track_tpu/models/encoder.py``: 4 stages
+of 3 conv blocks (channels 32/64/96/128) with a 2x2 average pool between
+stages, then per level a feature head and a sigma head.
+
+Feature heads (``feature_extract``): ``conv`` (a conv block),
+``1by1`` (a plain 1x1 conv with bias, xavier-uniform init), ``average``
+(the channel mean of the level's raw features), ``skip`` (the raw features
+themselves) and ``prob_fuse`` (a 16-channel conv block split into 8
+features and 8 sigmoid gates, summed to one channel).
+
+Sigma heads (``uncertainty_type``): ``laplacian``, ``gaussian``,
+``sigmoid``, ``old_gaussian`` and ``old_laplacian`` (a conv block of 16 and
+a conv of ``uncertainty_channel`` outputs, each with its activation and
+clip; a 1-channel sigma is repeated to every feature channel),
+``identity`` (ones like the features), ``feature`` (a conv block of
+``feature_channel`` outputs, used as it is, not broadcast) and ``None`` (no
+sigma).  Module names follow the reference ``state_dict``: ``net{i}``,
+``f_conv{i}`` and ``sigma_conv{i}``; the heads without weights have no
+modules.
 """
 
 from __future__ import annotations
@@ -16,9 +27,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ConvBlock
+from .layers import ConvBlock, XavierConv2d
 
 STAGE_CHANNELS = (32, 64, 96, 128)
+FEATURE_HEADS = ("conv", "1by1", "average", "skip", "prob_fuse")
+# sigma activations of the conv-block-and-conv head, each on its clipped
+# input; a 1-channel result is repeated to every feature channel
+_SIGMA_ACTIVATIONS = {
+    "gaussian": lambda s: torch.exp(0.5 * torch.clamp(s, -6.0, 6.0)),
+    "laplacian": lambda s: torch.exp(torch.clamp(s, -3.0, 3.0)),
+    "sigmoid": torch.sigmoid,
+    "old_gaussian": lambda s: torch.exp(0.5 * torch.clamp(s, 1e-3, 1e3)),
+    "old_laplacian": lambda s: torch.exp(torch.clamp(s, 1e-3, 1e3)),
+}
+SIGMA_TYPES = (*_SIGMA_ACTIVATIONS, "identity", "feature", "None")
+PROB_FUSE_CHANNELS = 16  # 8 features + 8 gates
 
 
 def _stage(in_c: int, mid: int, out: int) -> nn.Sequential:
@@ -41,10 +64,10 @@ class FeaturePyramid(nn.Module):
                  uncertainty_channel: int = 1, feature_extract: str = "conv",
                  uncertainty_type: str = "laplacian"):
         super().__init__()
-        if feature_extract not in ("conv", "average"):
-            raise NotImplementedError(f"feature_extract={feature_extract!r} is not ported")
-        if uncertainty_type not in ("laplacian", "None"):
-            raise NotImplementedError(f"uncertainty_type={uncertainty_type!r} is not ported")
+        if feature_extract not in FEATURE_HEADS:
+            raise ValueError(f"unknown feature_extract {feature_extract!r}")
+        if uncertainty_type not in SIGMA_TYPES:
+            raise ValueError(f"unknown uncertainty_type {uncertainty_type!r}")
         if uncertainty_channel not in (1, feature_channel):
             raise ValueError("uncertainty_channel must be 1 or feature_channel")
         self.feature_extract = feature_extract
@@ -58,9 +81,15 @@ class FeaturePyramid(nn.Module):
         for i, c in enumerate(STAGE_CHANNELS):
             if feature_extract == "conv":
                 setattr(self, f"f_conv{i}", ConvBlock(c, feature_channel, 1))
-            if uncertainty_type == "laplacian":
+            elif feature_extract == "prob_fuse":
+                setattr(self, f"f_conv{i}", ConvBlock(c, PROB_FUSE_CHANNELS, 1))
+            elif feature_extract == "1by1":
+                setattr(self, f"f_conv{i}", XavierConv2d(c, feature_channel, 1))
+            if uncertainty_type in _SIGMA_ACTIVATIONS:
                 setattr(self, f"sigma_conv{i}", nn.Sequential(
                     ConvBlock(c, 16, 1), nn.Conv2d(16, uncertainty_channel, 1)))
+            elif uncertainty_type == "feature":
+                setattr(self, f"sigma_conv{i}", ConvBlock(c, feature_channel, 1))
 
     def forward(self, x: torch.Tensor):
         x0 = self.net0(x)
@@ -68,18 +97,33 @@ class FeaturePyramid(nn.Module):
         x2 = self.net2(F.avg_pool2d(x1, 2))
         x3 = self.net3(F.avg_pool2d(x2, 2))
         raw = [x0, x1, x2, x3]
-        feats, sigmas = [], []
-        for i, xi in enumerate(raw):
-            if self.feature_extract == "conv":
-                f = getattr(self, f"f_conv{i}")(xi)
-            else:
-                f = xi.mean(dim=1, keepdim=True)
-            s = None
-            if self.uncertainty_type == "laplacian":
-                s = torch.exp(torch.clamp(getattr(self, f"sigma_conv{i}")(xi), -3.0, 3.0))
-                if self.uncertainty_channel == 1 and f.shape[1] != 1:
-                    # broadcast the 1-channel sigma to every feature channel
-                    s = s.expand(-1, f.shape[1], -1, -1)
-            feats.append(f)
-            sigmas.append(s)
+        feats = [self._feature(i, xi) for i, xi in enumerate(raw)]
+        sigmas = [self._sigma(i, xi, f) for i, (xi, f) in enumerate(zip(raw, feats))]
         return feats, sigmas, raw
+
+    def _feature(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        fe = self.feature_extract
+        if fe == "skip":
+            return x
+        if fe == "average":
+            return x.mean(dim=1, keepdim=True)
+        y = getattr(self, f"f_conv{i}")(x)
+        if fe == "prob_fuse":
+            f, p = y.chunk(2, dim=1)
+            return torch.sum(f * torch.sigmoid(p), dim=1, keepdim=True)
+        return y
+
+    def _sigma(self, i: int, x: torch.Tensor, f: torch.Tensor):
+        ut = self.uncertainty_type
+        if ut == "None":
+            return None
+        if ut == "identity":
+            return torch.ones_like(f)
+        s = getattr(self, f"sigma_conv{i}")(x)
+        if ut == "feature":
+            return s
+        s = _SIGMA_ACTIVATIONS[ut](s)
+        if self.uncertainty_channel == 1 and f.shape[1] != 1:
+            # broadcast the 1-channel sigma to every feature channel
+            s = s.expand(-1, f.shape[1], -1, -1)
+        return s

@@ -14,6 +14,12 @@ Every leaf must map; the result also carries ``num_batches_tracked`` so
 variables; ``DeepIC`` has the encoder's stages, the M-estimator
 (``mests_0``) and the damping MLP (``damping_nets_0``); the empty tree of
 ``RGB``, ``ICP`` and ``RGB+ICP`` maps to an empty ``state_dict``.
+
+The encoder's heads: ``f_heads_{i}`` is ``f_conv{i}``, a conv block
+(``conv``, ``prob_fuse``) or a plain conv (``1by1``); ``s_heads_{i}_0`` is
+the conv block ``sigma_conv{i}.0`` of a two-part sigma head (a conv block
+and the conv ``s_heads_{i}_1`` -> ``sigma_conv{i}.1``), or the whole
+``sigma_conv{i}`` of a ``feature`` sigma head, which has no second part.
 """
 
 from __future__ import annotations
@@ -40,8 +46,11 @@ _BLOCK_LEAVES = {
     "BatchNorm_0/mean": "1.running_mean",
     "BatchNorm_0/var": "1.running_var",
 }
+# a ``feature`` sigma head is one conv block
+_FEATURE_SIGMA_BLOCK = (r"encoder/s_heads_(\d)_0", r"encoder.sigma_conv\1")
 # plain flax conv or dense -> torch conv or linear
 _CONVS = (
+    (r"encoder/f_heads_(\d)", r"encoder.f_conv\1"),
     (r"encoder/s_heads_(\d)_1", r"encoder.sigma_conv\1.1"),
     (r"pose_predictor/Conv_0", r"pose_predictor.final_layer.1"),
     (r"damping_nets_0/FcRelu_(\d)/Dense_0", r"solver_func.net.\1.0"),
@@ -57,9 +66,11 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), np.asarray(v)
 
 
-def _torch_key(path: Tuple[str, ...]) -> str:
+def _torch_key(path: Tuple[str, ...], feature_sigma: bool) -> str:
     name = "/".join(path)
-    for table, leaves in ((_BLOCKS, _BLOCK_LEAVES), (_CONVS, _CONV_LEAVES)):
+    # the first matching pattern wins
+    blocks = (_FEATURE_SIGMA_BLOCK, *_BLOCKS) if feature_sigma else _BLOCKS
+    for table, leaves in ((blocks, _BLOCK_LEAVES), (_CONVS, _CONV_LEAVES)):
         for pattern, repl in table:
             m = re.fullmatch(pattern + r"/(.+)", name)
             if m and m.group(m.lastindex) in leaves:
@@ -78,11 +89,18 @@ def _kernel(k: np.ndarray) -> np.ndarray:
 
 
 def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Convert flax ``{"params", "batch_stats"}`` into a port ``state_dict``."""
+    """Convert flax ``{"params", "batch_stats"}`` into a port ``state_dict``.
+
+    The sigma heads are of the ``feature`` type where ``params`` holds
+    ``s_heads_0_0`` but no ``s_heads_0_1``; a tree without ``params`` is
+    read as two-part heads.
+    """
+    enc = variables.get("params", {}).get("encoder", {})
+    feature_sigma = "s_heads_0_0" in enc and "s_heads_0_1" not in enc
     state: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(coll, {})):
-            key = _torch_key(path)
+            key = _torch_key(path, feature_sigma)
             if key in state:
                 raise KeyError(f"two flax leaves map to {key!r}")
             arr = _kernel(value) if key.endswith("weight") else value

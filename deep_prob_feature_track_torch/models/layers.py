@@ -84,6 +84,11 @@ class Conv1dBlock(nn.Sequential):
         )
 
 
+class XavierConv2d(nn.Conv2d):
+    """A plain Conv2d (with bias) whose kernel :func:`seeded_init_` draws
+    xavier-uniform, as the JAX package's ``1by1`` feature head does."""
+
+
 class FcRelu(nn.Sequential):
     """Linear + ReLU; the reference layout ``{0: linear}``."""
 
@@ -96,18 +101,19 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> None:
     ``generator``.
 
     Follows the JAX package's initializers: xavier-uniform kernels in conv
-    blocks, lecun-normal kernels and zero biases in plain convs and linears
-    (flax ``Dense``), BatchNorm scale 1, bias 0, running mean 0 and
-    variance 1.
+    blocks and :class:`XavierConv2d`, lecun-normal kernels in the other
+    plain convs and linears (flax ``Dense``), zero biases, BatchNorm scale
+    1, bias 0, running mean 0 and variance 1.
     """
-    blocks = {id(m[0]) for m in module.modules() if isinstance(m, (ConvBlock, Conv1dBlock))}
+    xavier = {id(m[0]) for m in module.modules() if isinstance(m, (ConvBlock, Conv1dBlock))}
+    xavier |= {id(m) for m in module.modules() if isinstance(m, XavierConv2d)}
     for m in module.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             w = m.weight
             receptive = math.prod(w.shape[2:])
             fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive
             with torch.no_grad():
-                if id(m) in blocks:
+                if id(m) in xavier:
                     bound = math.sqrt(6.0 / (fan_in + fan_out))
                     w.uniform_(-bound, bound, generator=generator)
                 else:

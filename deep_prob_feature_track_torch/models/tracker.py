@@ -8,8 +8,11 @@ the ``average`` head and no sigma, IC with the learned ``MultiScale2w``
 M-estimator and the ``Direct-ResVol`` damping, from the identity pose) and
 the classical presets ``RGB`` (grayscale IC), ``ICP`` (point-to-plane ICP)
 and ``RGB+ICP`` (grayscale U_IC with the fused ICP term), which start from
-the identity pose.  Every other encoder, track and head raises
-``NotImplementedError``.
+the identity pose; and of their variants over the forward-compositional
+U_FC track (``direction="forward"`` with a sigma), every feature head and
+every sigma type of the encoder.  The one-view ``ConvRGBD`` encoder, the
+``dense_net`` pose initializer, the learned ``ScaleNet`` types, weights
+per level and uncertainty propagation raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,13 @@ from torch import nn
 from ..geometry import warp as W
 from ..ops.image import image_pyramid
 from ..solvers.icp import ICPSigmaModel
-from ..solvers.trust_region import DirectSolver, tr_ic_level, tr_icp_level, tr_uic_level
+from ..solvers.trust_region import (
+    DirectSolver,
+    tr_ic_level,
+    tr_icp_level,
+    tr_ufc_level,
+    tr_uic_level,
+)
 from .encoder import FeaturePyramid
 from .layers import color_normalize_nchw, seeded_init_
 from .nets import DampingRegressor, DeepRobustEstimator, ScaleNet, SFMPoseNet
@@ -75,7 +84,7 @@ class TrackerConfig:
 
 _PORTED = {
     "encoder_name": ("ConvRGBD2", "RGB", "ICP"),
-    "track_type": ("U_IC", "IC", "ICP"),
+    "track_type": ("U_IC", "IC", "U_FC", "ICP"),
     "mest_type": ("None", "Huber", "MultiScale2w"),
     "solver_type": ("Direct-Nodamping", "Direct-ResVol"),
     "init_pose_type": ("sfm_net", "identity"),
@@ -93,6 +102,12 @@ def _check_ported(cfg: TrackerConfig) -> None:
     if cfg.encoder_name != "ConvRGBD2" and cfg.predicts_init_pose:
         raise NotImplementedError(
             f"a predicted initial pose over the {cfg.encoder_name} encoder is not ported")
+
+
+# sigma types whose channels are copies of channel 0: the encoder repeats a
+# 1-channel head to every feature channel, and "identity" is all-ones
+_BCAST_SIGMA_TYPES = ("gaussian", "laplacian", "sigmoid", "old_gaussian", "old_laplacian",
+                      "identity")
 
 
 class LeastSquareTracking(nn.Module):
@@ -153,12 +168,15 @@ class LeastSquareTracking(nn.Module):
 
     def _slim_sigma(self, sigmas):
         """Keep one channel of a broadcast sigma: the encoder repeats a
-        1-channel laplacian head to every feature channel ("identity" is
-        all-ones), and bilinear warping is per-channel linear, so the warp
-        operand shrinks (C=17 to C=10 in ``feature``) with identical values.
-        The grayscale encoders' sigma has one channel already; a sigma of
-        None (``uncertainty_type="None"``) stays None."""
+        1-channel head to every feature channel ("identity" is all-ones),
+        and bilinear warping is per-channel linear, so the warp operand
+        shrinks (C=17 to C=10 in ``feature``, 49 to 28 in its U_FC variant)
+        with identical values.  A sigma of another type (``feature``: a
+        head per channel) stays whole; the grayscale encoders' sigma has one
+        channel already; a sigma of None stays None."""
         cfg = self.cfg
+        if cfg.uncertainty_type not in _BCAST_SIGMA_TYPES:
+            return sigmas
         if cfg.uncertainty_type != "identity" and cfg.uncertainty_channel != 1:
             return sigmas
         return [None if s is None else s[:, :1] for s in sigmas]
@@ -202,7 +220,7 @@ class LeastSquareTracking(nn.Module):
                 raw0, raw1 = [r[:B] for r in raw_all], [r[B:] for r in raw_all]
         inv_d0 = image_pyramid(invD0, pool="max")
         inv_d1 = image_pyramid(invD1, pool="max")
-        if cfg.track_type == "ICP" or cfg.combine_icp:
+        if cfg.track_type in ("U_FC", "ICP") or cfg.combine_icp:
             dpt0 = image_pyramid(depth0, pool="max")
             dpt1 = image_pyramid(depth1, pool="max")
         else:
@@ -247,6 +265,15 @@ class LeastSquareTracking(nn.Module):
             pose, weights, _ = tr_ic_level(
                 pose, x0, x1, invD0, invD1, K, self._mest, self._solver(), w_prior=w_prior,
                 max_iter=cfg.max_iter_per_pyr, plain=self.plain_kernels,
+            )
+        elif track == "U_FC":
+            # in training the estimator runs once more, at the zero
+            # residual: a learned one's BatchNorm statistics then move
+            # 1 + max_iter times a level, as in the JAX package
+            pose, weights, _ = tr_ufc_level(
+                pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, self._mest, self._solver(),
+                w_prior=w_prior, max_iter=cfg.max_iter_per_pyr, train=self.training,
+                plain=self.plain_kernels,
             )
         else:  # ICP
             pose, weights, _ = tr_icp_level(

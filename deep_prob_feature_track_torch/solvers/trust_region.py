@@ -1,16 +1,20 @@
-"""Trust-region Gauss-Newton level solves of the U_IC, IC and ICP tracks.
+"""Trust-region Gauss-Newton level solves of the U_IC, IC, U_FC and ICP
+tracks.
 
 Counterpart of ``deep_prob_feature_track_tpu/solvers/trust_region.py``:
 ``tr_uic_level`` (with the fused ICP term), ``tr_ic_level``,
+``tr_ufc_level`` (forward-compositional, with uncertainty),
 ``tr_icp_level`` (inverse and forward), ``tr_icp_point_level``, the pose
 updates and ``direct_solve`` for ``kind="nodamping"`` and ``"resvol"`` (the
 learned damping of ``Direct-ResVol``).  A U_IC iteration runs kernel K1
 once for its feature warp, once more for the ICP warp with the fused ICP
 term, and K6 once; an IC residual runs K1 twice (the feature and the
 occlusion depth, as the JAX package warps them), and a ``resvol`` solve
-twice more for the residuals of all its damping samples at once; an ICP
-iteration runs K1 once.  Where ``use_tiles`` holds, K4 takes K1's place;
-under autograd K2 (K5) does.
+twice more for the residuals of all its damping samples at once; a U_FC
+iteration runs K1 once, on one operand of the target depth, features,
+sigma and their gradients (C=28 with a 1-channel sigma), and weighs its
+system in tensor ops (no K6); an ICP iteration runs K1 once.  Where
+``use_tiles`` holds, K4 takes K1's place; under autograd K2 (K5) does.
 """
 
 from __future__ import annotations
@@ -23,10 +27,17 @@ import torch
 
 from ..geometry import warp as W
 from ..geometry.lie import compose, exp_so3
-from ..ops.image import compute_normal
+from ..ops.image import compute_normal, sobel_gradients
 from ..ops.solver6 import lev_mar_damp, solve_chol
 from . import icp as icp_mod
-from .jacobians import jtj_jtr, jtr_only, precompute_ic, precompute_uic, uic_factors
+from .jacobians import (
+    FactoredJtJ,
+    jtj_jtr,
+    jtr_only,
+    precompute_ic,
+    precompute_uic,
+    uic_factors,
+)
 from .residuals import (
     build_inverse_warp_operand,
     compute_inverse_residuals,
@@ -105,6 +116,13 @@ def _resvol_hessian(solver: DirectSolver, JtWJ, JtR, pose, residual_fn, jtr_fn):
     return JtWJ + (eye * damp[:, :, None] + epsilon)
 
 
+def _update(solver: DirectSolver, H, JtR, pose):
+    """The pose update of ``solver.direction``, without its damping."""
+    if solver.direction == "forward":
+        return forward_update_pose(H, JtR, pose)
+    return inverse_update_pose(H, JtR, pose)
+
+
 def direct_solve(solver: DirectSolver, JtWJ, JtR, pose, residual_fn=None, jtr_fn=None):
     """One damped update of ``pose``; ``kind="resvol"`` needs the residual
     of S*B folded poses (``residual_fn``) and its reduction (``jtr_fn``)."""
@@ -117,8 +135,7 @@ def direct_solve(solver: DirectSolver, JtWJ, JtR, pose, residual_fn=None, jtr_fn
         H = lev_mar_damp(JtWJ)
     else:
         raise ValueError(f"unknown DirectSolver kind {solver.kind!r}")
-    update = forward_update_pose if solver.direction == "forward" else inverse_update_pose
-    return update(H, JtR, pose)
+    return _update(solver, H, JtR, pose)
 
 
 def tr_uic_level(
@@ -209,6 +226,102 @@ def tr_ic_level(pose, x0, x1, invD0, invD1, K, mest_fn, solver: DirectSolver,
         pose = direct_solve(solver, JtWJ, JtR, pose, *sample_fns)
         if i + 1 < max_iter:
             residuals, _ = warped_residual(pose, invD0, x0, px, py, K, operands, plain=plain)
+    return pose, weights, JtWJ
+
+
+def _warp_forward_depth(dpt0, pose, K, dpt_thr: float = 1e-6):
+    """Forward warp of raw depth with its analytic coordinate Jacobians:
+    back-project, rigid transform, pinhole project.  The 2x6
+    coordinate-to-[rot, trs] Jacobian is ``[J_proj @ (-skew(R p0)) |
+    J_proj]`` with ``J_proj = [[fx/z, 0, -fx x/z^2], [0, fy/z, -fy y/z^2]]``;
+    its rotation half, ``d @ -skew(a)``, is the cross product ``a x d``.
+    The op order is the JAX function's: the in-view and depth-validity
+    tests downstream compare these values exactly.
+
+    :return: ``(u, v, dpt1, depth_valid, u6, v6)``, the first four
+        ``[B,1,H,W]``, the transformed depth ``dpt1`` unclipped; ``u6/v6
+        [B,HW,6]``
+    """
+    R, t = pose
+    B, _, H, W_ = dpt0.shape
+    hw = H * W_
+    fx, fy, cx, cy = K[:, 0:1], K[:, 1:2], K[:, 2:3], K[:, 3:4]
+    u_pix = torch.arange(W_, dtype=dpt0.dtype, device=dpt0.device).expand(B, H, W_)
+    v_pix = torch.arange(H, dtype=dpt0.dtype, device=dpt0.device)[:, None].expand(B, H, W_)
+    x_n = (u_pix.reshape(B, hw) - cx) / fx
+    y_n = (v_pix.reshape(B, hw) - cy) / fy
+    pnt0 = torch.stack([x_n, y_n, torch.ones_like(x_n)], dim=1) * dpt0.reshape(B, 1, hw)
+    RP = R @ pnt0  # [B,3,HW] before the translation: the rotation Jacobian's
+    pnt1 = RP + t[:, :, None]
+
+    z = pnt1[:, 2]
+    z_clip = torch.where((z >= 0) & (z < dpt_thr), dpt_thr, z)
+    z_clip = torch.where((z_clip < 0) & (z_clip > -dpt_thr), -dpt_thr, z_clip)
+    depth_valid = (z.abs() > dpt_thr).reshape(B, 1, H, W_)
+    u = (pnt1[:, 0] / z_clip) * fx + cx
+    v = (pnt1[:, 1] / z_clip) * fy + cy
+
+    fx_z = fx / z_clip
+    fy_z = fy / z_clip
+    zero = torch.zeros_like(fx_z)
+    du = torch.stack([fx_z, zero, -fx_z / z_clip * pnt1[:, 0]], dim=-1)  # [B,HW,3]
+    dv = torch.stack([zero, fy_z, -fy_z / z_clip * pnt1[:, 1]], dim=-1)
+    a = RP.transpose(1, 2)
+    u6 = torch.cat([torch.linalg.cross(a, du, dim=-1), du], dim=-1)
+    v6 = torch.cat([torch.linalg.cross(a, dv, dim=-1), dv], dim=-1)
+    return (u.reshape(B, 1, H, W_), v.reshape(B, 1, H, W_), z.reshape(B, 1, H, W_),
+            depth_valid, u6, v6)
+
+
+def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: DirectSolver,
+                 w_prior=None, max_iter: int = 3, train: bool = False, plain: bool = False):
+    """One level of the forward-compositional uncertainty track (U_FC).
+
+    The target's depth, features, sigma and the Sobel gradients of both
+    are stacked into one operand before the loop; each iteration warps the
+    depth map forward, samples the operand once at the warped pixels
+    (interpolated target gradients), masks occluded and out-of-view pixels
+    and those of invalid depth, and solves the system of the
+    uncertainty-normalized residual, whose Jacobian coefficients are
+    ``grad_f1/sigma - res * sigma_r * grad_sigma1/sigma^3`` (sign -1),
+    weighted by ``mest_fn`` of the residual, damped by ``lev_mar_damp``,
+    for a forward (``solver.direction``) update.  ``solver`` gives only
+    the direction: a ``resvol`` solver's damping net is not applied, as in
+    the JAX package.
+
+    :param train: apply ``mest_fn`` first at the zero residual, as the JAX
+        package does for its initial weights: in training a learned
+        estimator's BatchNorm statistics then move ``1 + max_iter`` times a
+        level, once for it and once an iteration.  In eval those weights
+        are read only when ``max_iter`` is 0.
+    :param plain: use the kernels' plain versions on any device
+    :return: ``(pose, weights, JtWJ)``: the last iteration's weights and
+        system
+    """
+    B = x0.shape[0]
+    gxf1, gyf1 = sobel_gradients(x1)
+    gxs1, gys1 = sobel_gradients(sigma1)
+    op, sizes = W.make_warp_operand([dpt1, x1, sigma1, gxf1, gyf1, gxs1, gys1])
+
+    weights = None
+    if train or max_iter == 0:
+        weights = mest_fn(torch.zeros_like(x0), x0, x1, w_prior)
+    JtWJ = torch.zeros((B, 6, 6), dtype=x0.dtype, device=x0.device)
+    for _ in range(max_iter):
+        u, v, dpt_r, depth_valid, u6, v6 = _warp_forward_depth(dpt0, pose, K)
+        dpt1_w, f_r, sigma_r, a_f, b_f, a_s, b_s = W.warp_operand(op, sizes, u, v, plain=plain)
+        occ = W.check_occ_prewarped(dpt_r, dpt1_w, u, v) | ~depth_valid
+        res = f_r - x0
+        sigma = torch.sqrt(sigma_r * sigma_r + sigma0 * sigma0)
+        weighted_res = torch.where(occ, 1e-6, res / sigma)
+        scale = res * sigma_r / (sigma * (sigma * sigma))
+        alpha = torch.where(occ, 1e-6, a_f / sigma - scale * a_s)
+        beta = torch.where(occ, 1e-6, b_f / sigma - scale * b_s)
+        fac = FactoredJtJ(alpha=alpha, beta=beta, u=u6, v=v6, sign=-1.0)
+        weights = mest_fn(weighted_res, x0, x1, w_prior)
+        JtWJ, _ = jtj_jtr(fac, weighted_res, weights=weights)
+        JtR = jtr_only(fac, weighted_res, weights=weights)
+        pose = _update(solver, lev_mar_damp(JtWJ), JtR, pose)
     return pose, weights, JtWJ
 
 

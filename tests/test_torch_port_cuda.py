@@ -19,7 +19,9 @@ past that limit); the forward atol 1e-4 on R and t (1e-5 for the presets
 ``DeepIC``, ``feature_icp``, ``RGB`` and ``ICP``: ``PRESET_ATOL``); one training step through
 the kernels vs through the plain versions: the loss within 1e-5 relative,
 each gradient leaf within 5e-3 of its largest entry (the envelope of 12
-chained Gauss-Newton solves, ``tests/test_torch_port_train.py``).
+chained Gauss-Newton solves, ``tests/test_torch_port_train.py``).  The
+U_FC forwards (C=28 and, with the ``feature`` sigma, C=49): kernels
+against plain within 1e-5.
 """
 
 import numpy as np
@@ -133,7 +135,7 @@ FLAT_CASES = [(3, 30, 40, 30 * 40 - 13), (2, 120, 160, 120 * 160 - 13)]
 
 
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
-@pytest.mark.parametrize("C", [1, 3, 6, 10, 17])
+@pytest.mark.parametrize("C", [1, 3, 6, 10, 17, 28, 49])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES)
 def test_gather_kernel_bitwise_on_flat_runs(cuda, coords, C, B, H, W, N):
     F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(C)).to(cuda)
@@ -155,7 +157,7 @@ def _plane(cuda, B, H, W, C, offset):
 
 @pytest.mark.parametrize("offset", [False, True])
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
-@pytest.mark.parametrize("C", [1, 3, 6, 10, 17, 40])
+@pytest.mark.parametrize("C", [1, 3, 6, 10, 17, 28, 40, 49])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES + [(64, 15, 20, 300)])
 def test_gather_grads_kernel_on_flat_runs(cuda, offset, coords, C, B, H, W, N):
     """K2 on compact runs (smooth, off the plane, a 15x20 plane), scattered
@@ -179,7 +181,7 @@ def test_gather_grads_kernel_on_flat_runs(cuda, offset, coords, C, B, H, W, N):
 
 
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
-@pytest.mark.parametrize("C", [1, 3, 10, 17])
+@pytest.mark.parametrize("C", [1, 3, 10, 17, 28])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES + [(64, 2, 2, 300), (64, 15, 20, 300)])
 def test_splat_kernel_on_flat_tiles(cuda, coords, C, B, H, W, N):
     """Staged tiles, global tiles and launches that mix them; on a 2x2 and
@@ -434,7 +436,7 @@ def _k4_matches_plain_and_k1(F, maps):
     torch.testing.assert_close(out, k1, rtol=0, atol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("C", [1, 3, 6, 10, 17])
+@pytest.mark.parametrize("C", [1, 3, 6, 10, 17, 28])
 @pytest.mark.parametrize("coords", ["smooth", "mixed", "offplane"])
 @pytest.mark.parametrize("B,H,W,Hs,Ws,smooth", [
     (1, 480, 640, 480, 640, "all"),   # 600 tiles (1200 at C=17): more than the grid's CTAs
@@ -764,3 +766,140 @@ def test_deepic_shapes_match_plain(cuda, P, h, w, kind):
     ref = tk.splat_twohot_ref(cot, *maps, h, w)
     torch.testing.assert_close(tk.splat_twohot_cuda(cot, *maps, h, w), ref, rtol=0,
                                atol=1e-5 * ref.abs().max().item())
+
+
+# ------------------------------------------------------------------ U_FC
+#
+# The forward-compositional track warps one operand an iteration: the target
+# depth, features, sigma and the gradients of both, C=28 with the slimmed
+# 1-channel sigma and C=49 with the 8-channel "feature" sigma.
+
+C_UFC = 28
+UFC = ["direction=forward"]
+
+
+def _ufc_maps(cuda, B, H, W, seed, teleported=False):
+    """Corner maps [B,H,W] of U_FC's forward warp of a synthetic depth map
+    under a small motion, with a pixel of zero depth every 37 rows and 41
+    columns (it projects from the translation alone, far from its
+    neighbours: its tile takes K4's global path); with ``teleported`` 6
+    samples an image moved half the plane away."""
+    from deep_prob_feature_track_torch.geometry.lie import exp_so3
+    from deep_prob_feature_track_torch.solvers.trust_region import _warp_forward_depth
+    from deep_prob_feature_track_torch.training import train as tt
+
+    batch = tt.synthetic_batch(B, H, W, seed=seed, device=cuda)
+    depth = batch["depth0"]
+    depth[:, :, ::37, ::41] = 0.0
+    g = torch.Generator().manual_seed(seed)
+    pose = (exp_so3(torch.randn(B, 3, generator=g) * 0.01).to(cuda),
+            (torch.randn(B, 3, generator=g) * 0.02).to(cuda))
+    u, v = _warp_forward_depth(depth, pose, batch["calib"])[:2]
+    if teleported:
+        rng = np.random.RandomState(seed)
+        for b in range(B):
+            y, x = rng.randint(0, H, 6), rng.randint(0, W, 6)
+            u[b, 0, y, x] = (u[b, 0, y, x] + W / 2) % (W - 1)
+            v[b, 0, y, x] = (v[b, 0, y, x] + H / 2) % (H - 1)
+    return [t.reshape(B, H, W) for t in tw._corner_weights((B, H, W, 1), u, v)]
+
+
+@pytest.mark.parametrize("teleported", [False, True])
+@pytest.mark.parametrize("B,H,W", [(8, 120, 160), (8, 480, 640), (8, 240, 320)])
+def test_gather_tiles_on_ufc_coordinates(cuda, teleported, B, H, W):
+    """K4 at C=28 (8-row tiles) on the planes where U_FC takes it (120x160
+    level 0, 640x480 levels 0-2): staged and global tiles in one launch,
+    bit for bit its plain version and K1."""
+    from deep_prob_feature_track_torch.ops.kernels import tiles
+
+    assert tiles.tile_rows(C_UFC) == 8 and tiles.has_window(W, C_UFC)
+    assert tiles.use_tiles("eval", H, W, C_UFC, H, W)
+    maps = _ufc_maps(cuda, B, H, W, seed=H + teleported, teleported=teleported)
+    assert 0.0 < tiles.staged_share(maps[0], maps[2], H, W, C_UFC) < 1.0
+    F = torch.randn(B, H, W, C_UFC, generator=torch.Generator().manual_seed(W)).to(cuda)
+    _k4_matches_plain_and_k1(F, maps)
+
+
+@pytest.mark.parametrize("C", [C_UFC, 49])
+@pytest.mark.parametrize("H,W", [(120, 160), (60, 80), (30, 40), (15, 20)])
+def test_ufc_shapes_match_plain(cuda, C, H, W):
+    """K1 (B=8) bit-exact, K2 (B=64) ``out`` bit-exact and gx/gy within 1e-6
+    of the largest entry, and K3 (B=64, C=28) within 1e-5 of it, at U_FC's
+    120x160 levels on its forward-warp coordinates."""
+    maps = [m.reshape(8, -1) for m in _ufc_maps(cuda, 8, H, W, seed=C + H)]
+    F = torch.randn(8, H, W, C, generator=torch.Generator().manual_seed(C)).to(cuda)
+    assert torch.equal(tk.gather_twohot_cuda(F, *maps), tk.gather_twohot_ref(F, *maps))
+    maps = [m.reshape(64, -1) for m in _ufc_maps(cuda, 64, H, W, seed=C + W)]
+    F = torch.randn(64, H, W, C, generator=torch.Generator().manual_seed(C + 1)).to(cuda)
+    got, ref = tk.gather_twohot_grads_cuda(F, *maps), tk.gather_twohot_grads_ref(F, *maps)
+    assert torch.equal(got[0], ref[0])
+    for a, r in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-6 * r.abs().max().item())
+    if C == C_UFC:
+        cot = torch.randn(64, C, H * W, generator=torch.Generator().manual_seed(H)).to(cuda)
+        ref = tk.splat_twohot_ref(cot, *maps, H, W)
+        torch.testing.assert_close(tk.splat_twohot_cuda(cot, *maps, H, W), ref, rtol=0,
+                                   atol=1e-5 * ref.abs().max().item())
+
+
+# per forward: K4 at the levels whose C=28 operand the JAX tile gate takes
+# (120x160 level 0; 480x640 levels 0-2), K1 elsewhere; C=49 fits no tile
+# budget.  The systems are weighted: no K6
+UFC_FORWARDS = {
+    "U_FC": (UFC, 120, 160, {"gather_tiles": 3, "gather_twohot": 9}),
+    "U_FC_480x640": (UFC, 480, 640, {"gather_tiles": 9, "gather_twohot": 3}),
+    "U_FC_feature_sigma": (UFC + ["uncertainty_type=feature"], 120, 160, {"gather_twohot": 12}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UFC_FORWARDS))
+def test_ufc_forward_kernels_match_plain_on_card(cuda, name):
+    from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
+
+    overrides, H, W, launches = UFC_FORWARDS[name]
+    batch = example_batch(8 if H == 120 else 2, H, W, seed=3, device=cuda)
+    kern = build_tracker("feature", device=cuda, overrides=overrides)
+    plain = build_tracker("feature", device=cuda, plain_kernels=True, overrides=overrides)
+    tk.reset_launches()
+    with torch.inference_mode():
+        R, t = kern(*batch)
+        assert tk.LAUNCHES == _launches(**launches)
+        Rp, tp = plain(*batch)
+    assert tk.LAUNCHES == _launches(**launches)
+    torch.testing.assert_close(R, Rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(t, tp, rtol=0, atol=1e-5)
+    eye = torch.eye(3, device=cuda).expand_as(R)
+    assert (R.transpose(1, 2) @ R - eye).abs().max() < 1e-4
+    assert np.isfinite(t.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("mest", [False, True])
+def test_ufc_train_step_on_card(cuda, mest):
+    """One loss and backward of U_FC at 64x80 (B=4) through the kernels
+    and through their plain versions: K2 and K3 12 times, and with the
+    learned estimator K2 24 and K3 21 times (its upsamples of the prior
+    weights)."""
+    from deep_prob_feature_track_torch.models.presets import apply_overrides, get_preset
+    from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
+    from deep_prob_feature_track_torch.training import train as tt
+
+    overrides = UFC + (["mest_type=MultiScale2w", "train_init_pose=false"] if mest else [])
+    expected = (_launches(gather_twohot_grads=24, splat_twohot=21) if mest
+                else _launches(gather_twohot_grads=12, splat_twohot=12))
+    batch = tt.synthetic_batch(4, 64, 80, seed=5, device=cuda)
+    results = []
+    for plain in (False, True):
+        net = LeastSquareTracking(apply_overrides(get_preset("feature"), overrides),
+                                  plain_kernels=plain)
+        state = tt.create_train_state(net, tt.TrainConfig(), seed=1, device=cuda)
+        tk.reset_launches()
+        loss = tt.compute_loss(state.net, tt.TrainConfig(), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES == (_launches() if plain else expected)
+        results.append((loss.item(), {k: p.grad for k, p in net.named_parameters()}))
+    (loss, grads), (loss_p, grads_p) = results
+    assert np.isfinite(loss) and abs(loss - loss_p) <= 1e-5 * abs(loss_p)
+    for key, ref in grads_p.items():
+        torch.testing.assert_close(grads[key], ref, rtol=0,
+                                   atol=5e-3 * ref.abs().max().item(), msg=key)

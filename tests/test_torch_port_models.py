@@ -168,9 +168,9 @@ def test_seeded_init_is_deterministic():
 
 
 # a preset with one option that is still unported: DeepIC with an
-# M-estimator and a damping net per level, and feature's
-# forward-compositional U_FC track
-UNPORTED = {"DeepIC": {"no_weight_sharing": True}, "feature": {"direction": "forward"}}
+# M-estimator and a damping net per level, and feature with the dense_net
+# (PoseNet) initial pose
+UNPORTED = {"DeepIC": {"no_weight_sharing": True}, "feature": {"init_pose_type": "dense_net"}}
 
 
 @pytest.mark.parametrize("preset", sorted(UNPORTED))
@@ -180,7 +180,12 @@ def test_unported_presets_raise(preset):
 
 
 def test_unported_encoder_heads_raise():
+    """Every feature head and sigma type of the JAX encoder is ported
+    (tests/test_torch_port_heads.py) and an unknown one is refused; the
+    one-view ConvRGBD encoder is not ported."""
+    with pytest.raises(ValueError):
+        FeaturePyramid(feature_extract="prob_fuse2")
+    with pytest.raises(ValueError):
+        FeaturePyramid(uncertainty_type="ICP")
     with pytest.raises(NotImplementedError):
-        FeaturePyramid(feature_extract="prob_fuse")
-    with pytest.raises(NotImplementedError):
-        FeaturePyramid(uncertainty_type="gaussian")
+        LeastSquareTracking(dataclasses.replace(get_preset("feature"), encoder_name="ConvRGBD"))
