@@ -149,6 +149,28 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    12 upsamples of the prior weights), K3 21 times (the zero residual's
    weights reach no loss).
 
+27. write a TUM-format sequence of 24 640x480 frames (8-bit RGB, 16-bit
+   depth, ``rgb.txt``, ``depth.txt``, ``groundtruth.txt``; a textured plane
+   seen from a camera that moves 1.5 cm and 0.5 degrees a frame) with the
+   script's own PNG writer (rows filtered by Sub), and one frame filtered
+   by Paeth; time the port's decode of each (median of 5);
+28. ``apps.evaluate.main`` on it (keyframes 1 and 2, B=8) at
+   ``--image_resize`` 0.25 and 1.0: per batch K1 12 and K6 12 times at
+   120x160, K4 3, K1 9 and K6 12 times at 640x480, nothing else; the
+   per-frame poses of the CLI's dumps against ``evaluate_two_view``
+   through the plain versions on the card, and at 120x160 against the
+   first loader on the CPU, within 1e-4; finite EPE3D and RPE; the summary
+   CSV's keyframe 1 mean row; frames/s of the CLI's loop and the share of
+   it spent waiting on the loader;
+29. ``apps.train.main`` on a data root whose 36 training sequences link to
+   it (keyframes 1 and 2, ``--no_val``): 2 steps at 120x160 B=64 (K2, K3,
+   K6 12 times a step) and 1 at 640x480 B=4 (K5 6, K2 6, K3 12, K6 12),
+   finite losses, the checkpoint; a resume from it for one more step (the
+   step goes on from 2, the weights and optimizer state come back); the
+   evaluate CLI on the resumed checkpoint at 120x160; ms per step and the
+   loader's ms per batch of 64 pairs;
+30. the JSON record gets ``cli_eval``, ``cli_train`` and ``png_decode_ms``.
+
 Phase 16 also records K4's staged share on the U_FC forwards (480x640 and
 120x160, on the synthetic scene and on the served requests), 17 times K4
 (C=28, beside K1 and ``grid_sample``), K1 (C=28 and 49), K2 and K3 (C=28)
@@ -165,11 +187,15 @@ from __future__ import annotations
 
 import io
 import json
+import os
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+import zlib
 from http.server import ThreadingHTTPServer
 
 import numpy as np
@@ -267,6 +293,98 @@ UFC_TRAIN_LAUNCHES = counts(gather_twohot_grads=12, splat_twohot=12)
 UFC_MEST_TRAIN_LAUNCHES = counts(gather_twohot_grads=24, splat_twohot=21)
 C_ICP = (1, 3, 6)  # the channel counts of the classical and ICP warps
 PRESET_ATOL = 1e-5  # kernel against plain forward of the presets this slice added
+
+
+# TUM-format sequences written by phase 27 (the card's machine has no PIL)
+TUM_FRAMES = 24
+TUM_K = (525.0, 525.0, 319.5, 239.5)  # TUM_CALIB: fx, fy, cx, cy at 640x480
+CLI_KEYFRAMES = (1, 2)
+CLI_SMALL, CLI_VGA = 0.25, 1.0  # --image_resize of the 120x160 and 640x480 CLI runs
+
+
+def write_png(path: str, img: np.ndarray, filter_type=1) -> None:
+    """Write ``img`` ([H,W] or [H,W,C], C = 1-4, uint8 or uint16) as a PNG
+    whose rows use ``filter_type`` (one PNG filter 0-4, or one a row)."""
+    img = np.asarray(img)
+    img = img[..., None] if img.ndim == 2 else img
+    h, w, c = img.shape
+    depth = 16 if img.dtype == np.uint16 else 8
+    x = img.astype(">u2" if depth == 16 else np.uint8).view(np.uint8).reshape(h, -1)
+    x = x.astype(np.int16)
+    bpp = c * depth // 8
+    a, b, ul = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, bpp:], b[1:], ul[1:, bpp:] = x[:, :-bpp], x[:-1], x[:-1, :-bpp]
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+    f = np.broadcast_to(np.asarray(filter_type, np.uint8), (h,))
+    pred = np.choose(f[:, None], (np.zeros_like(x), a, b, (a + b) >> 1, paeth))
+    rows = np.concatenate([f[:, None], ((x - pred) & 255).astype(np.uint8)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def _rotation(axis, angle):
+    k = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+
+
+def _quaternion(R):
+    """[qx, qy, qz, qw] of a rotation by less than 180 degrees."""
+    w = np.sqrt(1.0 + np.trace(R)) / 2
+    return np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]]) / (4 * w), w
+
+
+def write_tum_sequence(seq_dir: str, n: int = TUM_FRAMES, save=write_png) -> list:
+    """Render a TUM-format RGB-D sequence of ``n`` 640x480 frames into ``seq_dir``:
+    ``rgb/``, ``depth/`` (16-bit, metres x 5000), ``rgb.txt``, ``depth.txt``
+    and ``groundtruth.txt``.  The scene is a textured plane tilted 30 degrees
+    about the x axis, 2 m ahead of the first camera; the camera moves 1.5 cm
+    and turns 0.5 degrees a frame, so the true poses are exact.  ``save(path,
+    array)`` writes one image (8-bit RGB [480,640,3] or 16-bit depth [480,640]).
+    Returns the camera-to-world poses (4x4)."""
+    os.makedirs(os.path.join(seq_dir, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(seq_dir, "depth"), exist_ok=True)
+    fx, fy, cx, cy = TUM_K
+    tilt = np.radians(30.0)
+    normal, offset = np.array([0.0, -np.sin(tilt), np.cos(tilt)]), 2.0 * np.cos(tilt)
+    e1, e2 = np.array([1.0, 0.0, 0.0]), np.array([0.0, np.cos(tilt), np.sin(tilt)])
+    u, v = np.meshgrid(np.arange(640, dtype=np.float64), np.arange(480, dtype=np.float64))
+    rays = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1)
+    poses, lines = [], {"rgb": [], "depth": [], "groundtruth": []}
+    for i in range(n):
+        T = np.eye(4)
+        T[:3, :3] = _rotation((0.3, 1.0, 0.2), np.radians(0.5) * i)
+        T[:3, 3] = np.array([0.012, 0.006, 0.006]) * i  # 1.47 cm a frame
+        d = rays @ T[:3, :3].T
+        s = (offset - normal @ T[:3, 3]) / (d @ normal)  # the camera-frame depth
+        X = T[:3, 3] + s[..., None] * d
+        a, b = X @ e1, X @ e2
+        color = np.stack([0.5 + 0.22 * np.sin(a / 0.021 + ph) * np.cos(b / 0.033 - ph)
+                          + 0.2 * np.sin((a + 2 * b) / 0.011 + 2 * ph) for ph in (0, 1, 2)], -1)
+        stamp = f"{1.0 + 0.1 * i:.6f}"
+        save(os.path.join(seq_dir, "rgb", f"{stamp}.png"),
+             np.clip(np.rint(color * 255), 0, 255).astype(np.uint8))
+        save(os.path.join(seq_dir, "depth", f"{stamp}.png"),
+             np.rint(s * 5000).astype(np.uint16))
+        q, qw = _quaternion(T[:3, :3])
+        lines["rgb"].append(f"{stamp} rgb/{stamp}.png")
+        lines["depth"].append(f"{stamp} depth/{stamp}.png")
+        lines["groundtruth"].append(" ".join([stamp, *(f"{x:.9f}" for x in (*T[:3, 3], *q, qw))]))
+        poses.append(T)
+    for name, rows in lines.items():
+        with open(os.path.join(seq_dir, f"{name}.txt"), "w") as fh:
+            fh.write("# timestamp data\n" + "\n".join(rows) + "\n")
+    return poses
 
 
 def log(msg: str) -> None:
@@ -1401,6 +1519,297 @@ def phase_time_tiles(torch, dev, name):
     return levels
 
 
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``reps`` calls of ``fn`` (host-only work)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def phase_tum_sequence(workdir):
+    """Phase 27: the TUM-format sequence the CLI phases read, and the port's
+    decode time of a Sub-filtered and a Paeth-filtered 640x480 frame."""
+    from deep_prob_feature_track_torch.data import io as dio
+    from deep_prob_feature_track_torch.data.png import read_png
+
+    seq = os.path.join(workdir, "seq")
+    t0 = time.monotonic()
+    write_tum_sequence(seq)
+    log(f"wrote a {TUM_FRAMES}-frame 640x480 TUM-format sequence in "
+        f"{time.monotonic() - t0:.1f} s")
+    rgb = os.path.join(seq, "rgb", sorted(os.listdir(os.path.join(seq, "rgb")))[0])
+    depth = rgb.replace(os.sep + "rgb" + os.sep, os.sep + "depth" + os.sep)
+    paeth = os.path.join(workdir, "paeth.png")
+    write_png(paeth, read_png(rgb), filter_type=4)
+    if not (read_png(paeth) == read_png(rgb)).all():
+        raise AssertionError("the Paeth frame does not decode to the Sub frame's pixels")
+    decode = {
+        "sub_rgb8": host_ms(lambda: read_png(rgb)),
+        "paeth_rgb8": host_ms(lambda: read_png(paeth)),
+        "sub_depth16": host_ms(lambda: read_png(depth)),
+        "read_rgb_sub_0.25": host_ms(lambda: dio.read_rgb(rgb, 0.25)),
+        "read_rgb_sub_1.0": host_ms(lambda: dio.read_rgb(rgb, 1.0)),
+        "read_depth_png_sub_0.25": host_ms(lambda: dio.read_depth_png(depth, 5000.0, 0.25)),
+    }
+    log("PNG decode of one 640x480 frame, ms (median of 5): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in decode.items()))
+    return seq, decode
+
+
+class _CliProbe:
+    """Wraps, for one CLI run, the port's loader iteration (time spent
+    waiting for each batch), ``evaluate_two_view`` (its loop time, batches
+    and frames) and ``make_train_step`` (each step's device-synchronised
+    time, loss and launch counts)."""
+
+    def __init__(self, torch):
+        from deep_prob_feature_track_torch import evaluation
+        from deep_prob_feature_track_torch.data import pipeline
+        from deep_prob_feature_track_torch.ops import kernels as K
+        from deep_prob_feature_track_torch.training import train
+
+        self.torch, self.K = torch, K
+        self.wait_s = self.loop_s = 0.0
+        self.batches = self.frames = 0
+        self.steps = []
+        targets = ((pipeline.BatchLoader, "__iter__"), (evaluation, "evaluate_two_view"),
+                   (train, "make_train_step"))
+        self._saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
+        batches_iter, evaluate, make_step = (fn for _, _, fn in self._saved)
+        probe = self
+
+        def timed_iter(loader):
+            it = batches_iter(loader)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    probe.wait_s += time.perf_counter() - t0
+                yield batch
+
+        def timed_evaluate(loader, *a, **kw):
+            t0 = time.perf_counter()
+            info = evaluate(loader, *a, **kw)
+            probe.loop_s += time.perf_counter() - t0
+            probe.batches += len(loader)
+            probe.frames += len(info["names"])
+            return info
+
+        def counted_make_step(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def counted_step(state, batch):
+                torch.cuda.synchronize()
+                K.reset_launches()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                loss = metrics["loss"].item()
+                torch.cuda.synchronize()
+                probe.steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                                    "launches": dict(K.LAUNCHES)})
+                return state, metrics
+
+            return counted_step
+
+        for (obj, name, _), fn in zip(self._saved, (timed_iter, timed_evaluate,
+                                                    counted_make_step)):
+            setattr(obj, name, fn)
+
+    def restore(self):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+def _cli_poses(seq, size):
+    """The per-frame poses of the evaluate CLI's dumps, by loader."""
+    import pickle
+
+    out = {}
+    for kf in CLI_KEYFRAMES:
+        with open(f"{seq}_keyframe_{kf}.pkl", "rb") as fh:
+            info = pickle.load(fh)
+        for key in ("epes", "angular_error", "translation_error"):
+            if not np.isfinite(info[key]).all():
+                raise AssertionError(f"{size}: non-finite {key} in the CLI's dump")
+        out[kf] = info
+    return out
+
+
+def phase_cli_eval(torch, dev, seq, workdir, scale, expected, checkpoint=""):
+    """Phase 28: ``apps.evaluate.main`` on the sequence at ``scale``, B=8,
+    keyframes 1 and 2: launches ``expected`` per batch; the CLI's poses
+    against ``evaluate_two_view`` through the plain kernels on the card
+    (and, at 120x160 without a checkpoint, the first loader on the CPU);
+    frames/s of the CLI's loop and its share spent waiting on the loader."""
+    from deep_prob_feature_track_torch import evaluation
+    from deep_prob_feature_track_torch.apps import evaluate
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+
+    out_dir = os.path.join(workdir, f"eval_{scale}")
+    args = ["--data_root", "", "--trajectory", seq, "--keyframes",
+            ",".join(map(str, CLI_KEYFRAMES)), "--batch_size", str(B), "--image_resize",
+            str(scale), "--output_dir", out_dir, "--device", str(dev)]
+    if checkpoint:
+        args += ["--checkpoint", checkpoint]
+    probe = _CliProbe(torch)
+    try:
+        probe.K.reset_launches()
+        t0 = time.monotonic()
+        if evaluate.main(args) != 0:
+            raise AssertionError("the evaluate CLI failed")
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = dict(probe.K.LAUNCHES)
+    finally:
+        probe.restore()
+    size = f"evaluate CLI {scale}"
+    want = {k: n * probe.batches for k, n in expected.items()}
+    log(f"{size}: {probe.frames} frames in {probe.batches} batches, launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{size} launched {launches}, expected {want}")
+    name = os.path.splitext(os.path.basename(checkpoint))[0] if checkpoint else \
+        "nolearning_feature"
+    with open(os.path.join(out_dir, name, "summary.csv")) as fh:
+        if "mean values of trajectories keyframe 1," not in fh.read():
+            raise AssertionError(f"{size}: summary.csv lacks the keyframe 1 mean row")
+    poses = _cli_poses(seq, size)
+    result = {"frames": probe.frames, "batches": probe.batches, "launches": launches,
+              "wall_s": wall, "loop_s": probe.loop_s, "fps": probe.frames / probe.loop_s,
+              "loader_wait_share": probe.wait_s / probe.loop_s,
+              "epe3d_cm": {kf: float(p["epes"].mean() * 100) for kf, p in poses.items()}}
+    loaders = evaluation.create_eval_loaders("TUM_RGBD", "test", CLI_KEYFRAMES, B,
+                                             trajectory=seq, image_resize=scale, root="")
+    plain = build_tracker("feature", checkpoint, dev, plain_kernels=True)
+    checks = [("plain", plain, dev, list(loaders.items()))]
+    if scale == CLI_SMALL and not checkpoint:
+        checks.append(("cpu", build_tracker("feature", checkpoint, "cpu"), torch.device("cpu"),
+                       list(loaders.items())[:1]))
+    for other, net, device, items in checks:
+        for key, loader in items:
+            ref = evaluation.evaluate_two_view(loader, net, device)
+            got = poses[int(key.rsplit("_", 1)[1])]
+            dR = float(np.abs(got["R_est"] - ref["R_est"]).max())
+            dt = float(np.abs(got["t_est"] - ref["t_est"]).max())
+            log(f"{size} {key.rsplit('/', 1)[1]}: CLI against {other}: max|dR| {dR:.3e}, "
+                f"max|dt| {dt:.3e}")
+            if not (dR <= 1e-4 and dt <= 1e-4):
+                raise AssertionError(f"{size}: the CLI's poses disagree with the {other} ones")
+            result[f"vs_{other}"] = max(result.get(f"vs_{other}", 0.0), dR, dt)
+    log(f"{size}: {result['fps']:.1f} frames/s over the CLI's loop ({probe.loop_s:.2f} s), "
+        f"{result['loader_wait_share']:.3f} of it waiting on the loader; {wall:.2f} s in all")
+    return result
+
+
+def phase_cli_train(torch, dev, seq, workdir):
+    """Phase 29: ``apps.train.main`` on a data root whose 36 training
+    sequences are links to the sequence: 2 steps at 120x160 B=64 and 1 at
+    640x480 B=4, launches per step pinned; a resume for one more step from
+    the checkpoint (the step goes on, the optimizer state comes back); the
+    evaluate CLI on the resumed checkpoint; ms per step and the loader's ms
+    per batch of 64 pairs."""
+    from deep_prob_feature_track_torch.apps import train
+    from deep_prob_feature_track_torch.data.loader import load_data
+    from deep_prob_feature_track_torch.data.pipeline import BatchLoader
+    from deep_prob_feature_track_torch.data.tum_dicts import TUM_TRAINVAL
+    from deep_prob_feature_track_torch.training import checkpoints
+
+    root = os.path.join(workdir, "trainval")
+    os.makedirs(root)
+    for name in (n for names in TUM_TRAINVAL.values() for n in names):
+        os.symlink(seq, os.path.join(root, name))
+    logs = os.path.join(workdir, "logs")
+    kf = ",".join(map(str, CLI_KEYFRAMES))
+
+    def run(size, batch, steps, expected, *extra):
+        args = ["--data_root", root, "--keyframes", kf, "--batch_size", str(batch),
+                "--image_resize", str(size), "--max_steps_per_epoch", str(steps), "--no_val",
+                "--checkpoint_folder", logs, "--device", str(dev), *extra]
+        probe = _CliProbe(torch)
+        try:
+            t0 = time.monotonic()
+            if train.main(args) != 0:
+                raise AssertionError("the train CLI failed")
+            wall = time.monotonic() - t0
+        finally:
+            probe.restore()
+        label = f"train CLI {size} B={batch}"
+        for i, st in enumerate(probe.steps):
+            log(f"{label} step {i}: loss {st['loss']:.6f}, {st['ms']:.1f} ms, "
+                f"launches {st['launches']}")
+            if not np.isfinite(st["loss"]):
+                raise AssertionError(f"{label}: non-finite loss")
+            if st["launches"] != expected:
+                raise AssertionError(f"{label} step {i} launched {st['launches']}, "
+                                     f"expected {expected}")
+        (logdir,) = [os.path.join(logs, d) for d in os.listdir(logs)
+                     if d.endswith(f"_batch_{batch}")]
+        return {"steps": probe.steps, "wall_s": wall, "loader_wait_s": probe.wait_s,
+                "step_ms": [st["ms"] for st in probe.steps]}, logdir
+
+    out = {}
+    out["small"], logdir = run(CLI_SMALL, B_TRAIN, 2, TRAIN_LAUNCHES, "--epochs", "1")
+    first = os.path.join(logdir, "checkpoint_epoch1.pt")
+    saved = checkpoints.restore_variables(first)
+    if saved["step"] != 2:
+        raise AssertionError(f"the final checkpoint holds step {saved['step']}, expected 2")
+    # one-step epochs put step 2 at epoch 2: one more step, to step 3
+    out["resume"], _ = run(CLI_SMALL, B_TRAIN, 1, TRAIN_LAUNCHES, "--epochs", "3",
+                           "--checkpoint", first)
+    loaded = checkpoints.restore_variables(os.path.join(logdir, "checkpoint_epoch2.pt"))
+    resumed = checkpoints.restore_variables(os.path.join(logdir, "checkpoint_epoch3.pt"))
+    same = loaded["step"] == 2 and all(
+        torch.equal(a, b) for a, b in zip(saved["net"].values(), loaded["net"].values()))
+    for i, st in saved["optimizer"]["state"].items():
+        same = same and all(torch.equal(v, loaded["optimizer"]["state"][i][k])
+                            for k, v in st.items())
+    if not same or resumed["step"] != 3:
+        raise AssertionError("the resumed run did not restore the training state")
+    if resumed["optimizer"]["state"][0]["step"].item() != \
+            saved["optimizer"]["state"][0]["step"].item() + 1:
+        raise AssertionError("the resumed optimizer did not go on from its saved state")
+    log("train CLI: resumed from step 2 with the saved weights and optimizer state, "
+        "saved step 3")
+    out["vga"], _ = run(CLI_VGA, B_VGA_TRAIN, 1, VGA_TRAIN_LAUNCHES, "--epochs", "1")
+    out["eval_resumed"] = phase_cli_eval(torch, dev, seq, workdir, CLI_SMALL, SERVE_LAUNCHES,
+                                         os.path.join(logdir, "checkpoint_epoch3.pt"))
+    # the loader alone, on this thread: 2 batches of 64 pairs at 120x160
+    data = load_data("TUM_RGBD", CLI_KEYFRAMES, "train", image_resize=CLI_SMALL, root=root,
+                     augment_seed=1)
+    it = iter(BatchLoader(data, B_TRAIN, shuffle=True, seed=1, drop_last=True, prefetch=0))
+    per_batch = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        next(it)
+        per_batch.append((time.perf_counter() - t0) * 1e3)
+    out["loader_ms_per_batch_64"] = per_batch
+    log(f"train CLI: steps {out['small']['step_ms']} ms at --image_resize {CLI_SMALL} "
+        f"B={B_TRAIN}, {out['vga']['step_ms']} ms at {CLI_VGA} B={B_VGA_TRAIN}; the loader "
+        f"alone {', '.join(f'{x:.0f}' for x in per_batch)} ms a batch of {B_TRAIN} pairs")
+    return out
+
+
+def phase_cli(torch, dev):
+    """Phases 27-29 in a temporary directory, removed after."""
+    import shutil
+
+    workdir = tempfile.mkdtemp(prefix="dpft_cli_")
+    try:
+        seq, decode = phase_tum_sequence(workdir)
+        cli_eval = {str(s): phase_cli_eval(torch, dev, seq, workdir, s, expected)
+                    for s, expected in ((CLI_SMALL, SERVE_LAUNCHES),
+                                        (CLI_VGA, VGA_SERVE_LAUNCHES))}
+        cli_train = phase_cli_train(torch, dev, seq, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"cli_eval": cli_eval, "cli_train": cli_train, "png_decode_ms": decode}
+
+
 def phase_forward(torch, dev, h, w, preset="feature", overrides=()):
     """The B=8 forward of ``preset`` at h x w, with the kernels and with
     their plain versions, and one profiled forward."""
@@ -1638,6 +2047,7 @@ def run(torch, loader, dev, name, smi):
                             overrides=UFC)
     ufc_mest_train = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, UFC_MEST_TRAIN_LAUNCHES,
                                  overrides=UFC_MEST)
+    cli = phase_cli(torch, dev)
     m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
                       "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
@@ -1645,7 +2055,7 @@ def run(torch, loader, dev, name, smi):
                       "ufc_train": ufc_train, "ufc_mest_train": ufc_mest_train,
                       "ufc_serve_launches": ufc_launches, "ufc_k4_staged_share": ufc_k4_shares,
                       "preset_agree": presets, "scene_staged_share": scene_shares,
-                      "vga_serve_launches": vga_launches, "card": smi}), flush=True)
+                      "vga_serve_launches": vga_launches, **cli, "card": smi}), flush=True)
 
     # K1 and K6 as the 120x160 serve path launched them, K2 and K3 as the
     # 120x160 train path did; K4 as the 480x640 serve path, K5 as the 480x640

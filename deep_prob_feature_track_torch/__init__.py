@@ -6,8 +6,10 @@ counterpart is easy to find.  The bilinear gather, its training variant, its
 adjoint splat and the factored JtJ reduction run as hand-written CUDA
 kernels for Hopper (``ops/kernels``), with a plain PyTorch version of each
 that CPU tensors take.  The presets ``feature``, ``feature_icp``, ``RGB``,
-``ICP`` and ``RGB+ICP`` serve (``apps/serve.py``); ``feature`` and
-``feature_icp`` train (``training/train.py``).
+``ICP``, ``RGB+ICP`` and ``DeepIC`` serve (``apps/serve.py``); the learned
+ones train (``training/train.py``).  ``apps/evaluate.py`` and
+``apps/train.py`` evaluate and train them from TUM-format RGB-D sequences
+on disk (``data/``, on numpy and the standard library alone).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -17,7 +17,8 @@ Run: python -m deep_prob_feature_track_torch.apps.serve --preset feature \
 
 ``--preset`` takes ``feature``, ``feature_icp``, ``DeepIC``, ``RGB``, ``ICP``
 or ``'RGB+ICP'`` (quoted in a shell).  A checkpoint is a ``torch.save`` of the
-tracker's ``state_dict``; without one the weights come from a seeded init
+tracker's ``state_dict`` or a training state (``training/checkpoints.py``);
+without one the weights come from a seeded init
 (the classical presets ``RGB``, ``ICP`` and ``RGB+ICP`` have no weights).  Float32 convolutions and matmuls
 run without TF32, so the encoder matches its float32 reference.
 """
@@ -186,14 +187,14 @@ def build_tracker(preset: str = "feature", checkpoint: str = "", device="cuda",
     """
     from ..models.presets import apply_overrides, get_preset
     from ..models.tracker import LeastSquareTracking
+    from ..training.checkpoints import restore_variables, tracker_weights
 
     dev = resolve_device(device)
     set_float32_policy()
     net = LeastSquareTracking(apply_overrides(get_preset(preset), overrides),
                               plain_kernels=plain_kernels)
     if checkpoint:
-        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        net.load_state_dict(state, strict=True)
+        net.load_state_dict(tracker_weights(restore_variables(checkpoint)), strict=True)
     else:
         net.reset_parameters(seed)
     return net.to(dev)

@@ -1,7 +1,8 @@
 """Batched SO(3)/SE(3) helpers of the tracker's eval path.
 
 Counterpart of ``deep_prob_feature_track_tpu/geometry/lie.py`` (``skew``,
-``exp_so3``, ``compose``, ``euler_to_matrix`` and ``pose_vec_to_Rt``).
+``exp_so3``, ``rotation_angle``, ``inverse``, ``compose``, ``between``,
+``euler_to_matrix`` and ``pose_vec_to_Rt``).
 A pose is ``(R [B,3,3], t [B,3])``; twists are ordered ``[rot, trs]``.
 """
 
@@ -40,11 +41,31 @@ def exp_so3(twist: torch.Tensor) -> torch.Tensor:
     return eye + a[..., None, None] * w + b[..., None, None] * (w @ w)
 
 
+def rotation_angle(R: torch.Tensor) -> torch.Tensor:
+    """Axis-angle magnitude of a batch of rotations; the cosine is clipped
+    to ``[-1 + 1e-7, 1 - 1e-7]``, so the identity gives ``arccos(1 - 1e-7)``."""
+    tr = torch.diagonal(R, dim1=-2, dim2=-1).sum(-1)
+    eps = 1e-7
+    return torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0 + eps, 1.0 - eps))
+
+
+def inverse(R, t):
+    """Pose inverse ``[R^T | -R^T t]``."""
+    Rt = R.transpose(-1, -2)
+    return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
+
+
 def compose(d_R, d_t, R0, t0):
     """Left-compose ``[dR@R0 | dR@t0 + dt]``."""
     R1 = d_R @ R0
     t1 = torch.einsum("...ij,...j->...i", d_R, t0) + d_t
     return R1, t1
+
+
+def between(R0, t0, R1, t1):
+    """Relative pose ``T1 o T0^{-1}``."""
+    dR = R1 @ R0.transpose(-1, -2)
+    return dR, t1 - torch.einsum("...ij,...j->...i", dR, t0)
 
 
 def euler_to_matrix(ai, aj, ak, axes: str = "sxyz") -> torch.Tensor:

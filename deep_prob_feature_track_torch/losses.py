@@ -1,10 +1,11 @@
-"""Training and evaluation criterion: the 3D end-point error of the scene
-flow a pose induces.
+"""Training and evaluation criteria: the 3D end-point error of the scene
+flow a pose induces, and the relative pose error.
 
-Counterpart of ``epe3d``, ``_downsampled_geometry`` and
-``compute_rt_epe_loss`` in ``deep_prob_feature_track_tpu/losses.py``.  The
-relative-pose and uncertainty-propagating losses (RPE, URPE, UEPE3D) are not
-ported: ``training/train.py::compute_loss`` raises for them.
+Counterpart of ``epe3d``, ``rpe``, ``compute_rpe_error``,
+``compute_rpe_loss``, ``_downsampled_geometry`` and ``compute_rt_epe_loss``
+in ``deep_prob_feature_track_tpu/losses.py``.  The uncertainty-propagating
+losses (URPE, UEPE3D) are not ported (ROADMAP item 4):
+``training/train.py::compute_loss`` raises for them.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 
 from .geometry import warp as W
+from .geometry.lie import between, rotation_angle
 from .ops.image import bilinear_resize
 
 
@@ -33,6 +35,26 @@ def epe3d(flow_est: torch.Tensor, flow_gt: torch.Tensor,
     num = torch.where(valid, epe_map, 0.0).sum(dim=(1, 2))
     den = valid.sum(dim=(1, 2))
     return torch.where(den > 0, num / den.clamp(min=1), 0.0)
+
+
+def rpe(R: torch.Tensor, t: torch.Tensor):
+    """Relative pose error: (angle [rad], translation norm)."""
+    return rotation_angle(R), torch.linalg.vector_norm(t, dim=-1)
+
+
+def compute_rpe_error(R_est, t_est, R_gt, t_gt):
+    """RPE of the estimated against the true pose, per sample."""
+    return rpe(*between(R_est, t_est, R_gt, t_gt))
+
+
+def compute_rpe_loss(R_est_pyr, t_est_pyr, R_gt, t_gt):
+    """Training RPE loss of a pose pyramid ``[B,L,...]``: over the L poses,
+    the sum of the norms (over the batch) of the angle and translation
+    errors."""
+    angs, trss = zip(*(compute_rpe_error(R_est_pyr[:, i], t_est_pyr[:, i], R_gt, t_gt)
+                       for i in range(R_est_pyr.shape[1])))
+    return (sum(torch.linalg.vector_norm(a) for a in angs),
+            sum(torch.linalg.vector_norm(t) for t in trss))
 
 
 def _downsampled_geometry(depth0, K, invalid, rH: int = 60, rW: int = 80):

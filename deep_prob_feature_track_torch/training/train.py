@@ -1,49 +1,55 @@
-"""Training step of the ``feature``, ``feature_icp`` and ``DeepIC``
-presets: EPE3D loss, clip -> L2 -> Adam.
+"""Training of the ``feature``, ``feature_icp`` and ``DeepIC`` presets: the
+EPE3D or RPE loss, clip -> L2 -> Adam (or SGD with momentum), the epoch loop.
 
 Counterpart of ``TrainConfig``, ``make_lr_schedule``, ``make_optimizer``,
-``compute_loss``, ``create_train_state`` and ``make_train_step`` in
-``deep_prob_feature_track_tpu/training/train.py``.  The optimizer chain is
-the JAX package's optax chain: the gradients are clipped to a global norm
-of 5.0, then ``torch.optim.Adam`` folds the L2 weight decay into them
-(``clip_by_global_norm`` -> ``add_decayed_weights`` -> ``scale_by_adam`` ->
-learning rate).  A step of ``feature`` under autograd runs kernels K2 and
-K6 in the forward and K3 in the backward, 12 times each; ``feature_icp``
-runs K2 24 times, once more per iteration for the ICP warp of the input
-depth's vertices and normals, whose operand needs no cotangent (no K3).
-``DeepIC`` runs K1 once (level 3's first occlusion depth, where nothing
+``compute_loss``, ``create_train_state``, ``make_train_step`` and
+``train_epoch`` in ``deep_prob_feature_track_tpu/training/train.py``.  The
+optimizer chain is the JAX package's optax chain: the gradients are clipped
+to a global norm of 5.0, then ``torch.optim.Adam`` (or ``SGD`` with momentum
+0.9, optax's ``trace(0.9)``) folds the L2 weight decay into them
+(``clip_by_global_norm`` -> ``add_decayed_weights`` -> ``scale_by_adam`` or
+``trace`` -> learning rate).  A step of ``feature`` under autograd runs
+kernels K2 and K6 in the forward and K3 in the backward, 12 times each;
+``feature_icp`` runs K2 24 times, once more per iteration for the ICP warp of
+the input depth's vertices and normals, whose operand needs no cotangent (no
+K3).  ``DeepIC`` runs K1 once (level 3's first occlusion depth, where nothing
 needs a gradient), K2 50 times (12 a level: its first residual, the folded
 damping samples of 3 iterations and 2 new residuals each warp the features
 and the occlusion depth; and the M-estimator's 3 upsamples) and K3 27 times
 (the feature warps and the upsamples); no K6.
 
-Not ported, and raising ``NotImplementedError``: the RPE / URPE / UEPE3D
-losses, object masks, gradient accumulation (``accum_steps > 1``), the
-non-finite guard and the device mesh.  Checkpoints and the epoch loop are
-not ported either.
+Not ported, and raising ``NotImplementedError``: the URPE / UEPE3D losses
+(ROADMAP item 4), object masks (item 3), gradient accumulation
+(``accum_steps > 1``) and the non-finite guard (item 5), and the device mesh
+(item 8).  Checkpoints are in ``training/checkpoints.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 from .. import losses
+from ..data.pipeline import to_device
 from ..device import resolve_device, set_float32_policy
 from ..models.tracker import LeastSquareTracking
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    loss: str = "EPE3D"  # only EPE3D is ported
+    loss: str = "EPE3D"  # EPE3D | RPE (URPE and UEPE3D are not ported)
     lr: float = 5e-4
     lr_decay_ratio: float = 0.5
     lr_decay_epochs: Tuple[int, ...] = (5, 10, 20)
     weight_decay: float = 4e-4
     grad_clip: float = 5.0
+    epochs: int = 30
+    batch_size: int = 64
+    opt: str = "adam"  # adam | sgd
     accum_steps: int = 1  # only 1 is ported
 
 
@@ -72,9 +78,14 @@ def make_lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], 
 
 
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
-    """Adam with the L2 weight decay folded into the gradient; the step
-    clips the gradients before it (``apply_gradients``)."""
-    return torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.weight_decay)
+    """Adam, or SGD with momentum 0.9, with the L2 weight decay folded into
+    the gradient; the step clips the gradients before it
+    (``apply_gradients``)."""
+    if cfg.opt == "adam":
+        return torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.weight_decay)
+    if cfg.opt == "sgd":
+        return torch.optim.SGD(params, lr=cfg.lr, momentum=0.9, weight_decay=cfg.weight_decay)
+    raise ValueError(f"unknown optimizer {cfg.opt!r}: use 'adam' or 'sgd'")
 
 
 def compute_loss(net: LeastSquareTracking, train_cfg: TrainConfig,
@@ -83,24 +94,30 @@ def compute_loss(net: LeastSquareTracking, train_cfg: TrainConfig,
     statistics.
 
     Batch keys: color0/1 [B,3,H,W], depth0/1 [B,1,H,W], calib [B,4],
-    transform [B,4,4] and optionally pad_mask [B].  Pixels at the
+    transform [B,4,4] and optionally pad_mask [B].  EPE3D: pixels at the
     batch-global depth min or max are left out of the loss, and the loss is
     ``1e2`` times the EPE3D summed over the pose pyramid, averaged over the
-    samples that ``pad_mask`` keeps.
+    samples that ``pad_mask`` keeps.  RPE: over the pose pyramid, the sum of
+    the batch norms of the angle and translation errors.
     """
-    if train_cfg.loss != "EPE3D":
-        raise NotImplementedError(f"loss {train_cfg.loss!r} is not ported (only EPE3D)")
+    if train_cfg.loss not in ("EPE3D", "RPE"):
+        raise NotImplementedError(
+            f"loss {train_cfg.loss!r} is not ported (EPE3D and RPE are; ROADMAP item 4)")
     if "obj_mask0" in batch:
-        raise NotImplementedError("object masks are not ported")
+        raise NotImplementedError("object masks are not ported (ROADMAP item 3)")
     if not net.training:
         raise ValueError("compute_loss needs the tracker in training mode (net.train())")
     pyr_R, pyr_t = net(batch["color0"], batch["color1"], batch["depth0"], batch["depth1"],
                        batch["calib"])
     T = batch["transform"]
-    depth0 = batch["depth0"]
-    invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
-    per_sample = 1e2 * losses.compute_rt_epe_loss(
-        pyr_R, pyr_t, T[:, :3, :3], T[:, :3, 3], depth0, batch["calib"], invalid=invalid)
+    if train_cfg.loss == "RPE":
+        ang, trs = losses.compute_rpe_loss(pyr_R, pyr_t, T[:, :3, :3], T[:, :3, 3])
+        per_sample = (ang + trs).expand(pyr_R.shape[0])
+    else:
+        depth0 = batch["depth0"]
+        invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
+        per_sample = 1e2 * losses.compute_rt_epe_loss(
+            pyr_R, pyr_t, T[:, :3, :3], T[:, :3, 3], depth0, batch["calib"], invalid=invalid)
     mask = batch.get("pad_mask")
     if mask is None:
         return per_sample.mean()
@@ -125,11 +142,13 @@ def make_train_step(train_cfg: TrainConfig, steps_per_epoch: int, mesh=None,
     forward and backward, clip, optimizer update.  ``state`` is updated in
     place; ``grad_norm`` is the global norm before clipping."""
     if train_cfg.accum_steps != 1:
-        raise NotImplementedError("gradient accumulation (accum_steps > 1) is not ported")
+        raise NotImplementedError(
+            "gradient accumulation (accum_steps > 1) is not ported (ROADMAP item 5)")
     if mesh is not None:
-        raise NotImplementedError("data-parallel training over a mesh is not ported")
+        raise NotImplementedError(
+            "data-parallel training over a mesh is not ported (ROADMAP item 8)")
     if guard_nonfinite:
-        raise NotImplementedError("the non-finite step guard is not ported")
+        raise NotImplementedError("the non-finite step guard is not ported (ROADMAP item 5)")
     schedule = make_lr_schedule(train_cfg, steps_per_epoch)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -155,6 +174,33 @@ def apply_gradients(optimizer: torch.optim.Optimizer, grad_clip: float, lr: floa
         group["lr"] = lr
     optimizer.step()
     return grad_norm
+
+
+def train_epoch(train_step, state: TrainState, loader, device, log_every: int = 10,
+                logger=None, max_steps: int = 0) -> Tuple[TrainState, float]:
+    """One epoch over ``loader`` (a ``data.pipeline.BatchLoader``): each
+    batch goes to ``device`` and through ``train_step``.  Returns the state
+    and the mean loss.
+
+    The losses stay on the device and are reduced once at the end; the host
+    waits for the device only at ``log_every`` steps, where one loss is
+    read for ``logger``.
+    """
+    step_losses = []
+    t0 = time.time()
+    for i, batch in enumerate(loader):
+        if max_steps and i >= max_steps:
+            break
+        batch = to_device({k: v for k, v in batch.items() if not isinstance(v, list)}, device)
+        batch["pad_mask"] = torch.as_tensor(batch["pad_mask"], device=device)
+        state, metrics = train_step(state, batch)
+        step_losses.append(metrics["loss"])
+        if logger is not None and i % log_every == 0:
+            logger.scalar("train/loss", metrics["loss"].item(), state.step)
+            logger.scalar("train/steps_per_sec", (i + 1) / (time.time() - t0), state.step)
+    if not step_losses:
+        return state, 0.0
+    return state, torch.stack(step_losses).mean().item()
 
 
 def synthetic_batch(B: int, H: int, W: int, seed: int = 0, device="cpu"):

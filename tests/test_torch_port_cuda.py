@@ -903,3 +903,30 @@ def test_ufc_train_step_on_card(cuda, mest):
     for key, ref in grads_p.items():
         torch.testing.assert_close(grads[key], ref, rtol=0,
                                    atol=5e-3 * ref.abs().max().item(), msg=key)
+
+
+def test_evaluate_cli_on_card(cuda, tmp_path):
+    """``apps.evaluate.main`` on a written 640x480 TUM-format sequence of 5
+    frames at ``--image_resize 0.25`` (120x160), B=2, keyframes 1 and 2:
+    K1 and K6 12 times a batch (3 batches), nothing else; finite metrics."""
+    import os
+    import pickle
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import write_tum_sequence
+    from deep_prob_feature_track_torch.apps import evaluate
+
+    seq = str(tmp_path / "seq")
+    write_tum_sequence(seq, n=5)
+    tk.reset_launches()
+    assert evaluate.main(["--data_root", "", "--trajectory", seq, "--keyframes", "1,2",
+                          "--batch_size", "2", "--output_dir", str(tmp_path / "out")]) == 0
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == _launches(gather_twohot=36, fused_jtj_jtr=36)
+    assert (tmp_path / "out" / "nolearning_feature" / "summary.csv").is_file()
+    for kf, n in ((1, 4), (2, 2)):
+        with open(f"{seq}_keyframe_{kf}.pkl", "rb") as f:
+            info = pickle.load(f)
+        assert info["R_est"].shape == (n, 3, 3)
+        assert np.isfinite(info["epes"]).all() and np.isfinite(info["angular_error"]).all()

@@ -139,24 +139,39 @@ def test_cuda_entries_refuse_cpu_tensors(entry, args):
     assert tk.LAUNCHES == before
 
 
+# what the card's machine lacks: the JAX package and its host libraries
+BLOCKED = ("jax", "flax", "deep_prob_feature_track_tpu", "cv2", "PIL", "pandas", "yaml",
+           "tensorboard", "torch.utils.tensorboard")
+NEW_MODULES = ("data.association", "data.io", "data.loader", "data.pipeline", "data.png",
+               "data.transforms", "data.tum", "data.tum_dicts", "evaluation",
+               "training.checkpoints", "utils.logger", "utils.timers", "apps.evaluate",
+               "apps.train")
+
+
+def _blocked_python(code):
+    prelude = (f"import sys\nfor m in {BLOCKED!r}:\n    sys.modules[m] = None\n")
+    return subprocess.run([sys.executable, "-c", prelude + code], cwd=REPO,
+                          capture_output=True, text=True, timeout=240)
+
+
 def test_port_imports_without_jax():
-    """Every port module imports with jax, flax and the JAX package blocked,
-    and no port file names them."""
+    """Every port module imports with jax, flax, the JAX package and the
+    host libraries the card's machine lacks (OpenCV, PIL, pandas, PyYAML,
+    TensorBoard) blocked, and no port file names the JAX package."""
     code = (
-        "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'flax', 'deep_prob_feature_track_tpu'):\n"
-        "    sys.modules[m] = None\n"
+        "import pkgutil, importlib\n"
         "import deep_prob_feature_track_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "print(' '.join(names))\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=120)
+    out = _blocked_python(code)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 21 and "deep_prob_feature_track_torch.solvers.icp" in names
+    assert len(names) >= 35 and "deep_prob_feature_track_torch.solvers.icp" in names
+    for name in NEW_MODULES:
+        assert f"deep_prob_feature_track_torch.{name}" in names, name
     pkg = os.path.join(REPO, "deep_prob_feature_track_torch")
     for root, _, files in os.walk(pkg):
         for name in files:
@@ -166,3 +181,31 @@ def test_port_imports_without_jax():
                              "deep_prob_feature_track_tpu import",
                              "from deep_prob_feature_track_tpu"):
                     assert word not in text, (name, word)
+
+
+def test_clis_run_on_numpy_alone(tmp_path):
+    """The evaluate and train CLIs read a TUM-format sequence (written by
+    ``chip_smoke.write_png``, no PIL) and run on the CPU with the same
+    modules blocked."""
+    code = f"""
+import os
+sys.path.insert(0, {REPO!r})
+import chip_smoke
+from deep_prob_feature_track_torch.apps import evaluate, train
+from deep_prob_feature_track_torch.data import tum
+root = {str(tmp_path)!r}
+chip_smoke.write_tum_sequence(os.path.join(root, "seq"), n=5)
+assert evaluate.main(["--data_root", "", "--trajectory", os.path.join(root, "seq"),
+                      "--keyframes", "1", "--batch_size", "2", "--image_resize", "0.1",
+                      "--output_dir", os.path.join(root, "out"), "--device", "cpu"]) == 0
+tum.TUM_TRAINVAL.clear()
+tum.TUM_TRAINVAL["fx"] = ["seq"]
+assert train.main(["--data_root", root, "--keyframes", "1", "--batch_size", "2",
+                   "--image_resize", "0.1", "--epochs", "1", "--max_steps_per_epoch", "1",
+                   "--no_val", "--checkpoint_folder", os.path.join(root, "logs"),
+                   "--device", "cpu"]) == 0
+"""
+    out = _blocked_python(code)
+    assert out.returncode == 0, out.stderr
+    assert os.path.isfile(tmp_path / "out" / "nolearning_feature" / "summary.csv")
+    assert len(list((tmp_path / "logs").rglob("checkpoint_epoch1.pt"))) == 1

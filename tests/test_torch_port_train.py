@@ -422,6 +422,6 @@ def test_train_step_runs_and_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         tt.make_train_step(cfg, 10, guard_nonfinite=True)
     with pytest.raises(NotImplementedError):
-        tt.compute_loss(state.net, tt.TrainConfig(loss="RPE"), batch)
+        tt.compute_loss(state.net, tt.TrainConfig(loss="URPE"), batch)
     with pytest.raises(ValueError, match="training mode"):
         tt.compute_loss(copy.deepcopy(state.net).eval(), cfg, batch)
