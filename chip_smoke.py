@@ -169,7 +169,32 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    step goes on from 2, the weights and optimizer state come back); the
    evaluate CLI on the resumed checkpoint at 120x160; ms per step and the
    loader's ms per batch of 64 pairs;
-30. the JSON record gets ``cli_eval``, ``cli_train`` and ``png_decode_ms``.
+30. the JSON record gets ``cli_eval``, ``cli_train`` and ``png_decode_ms``;
+31. ``apps.evaluate.main --tracker`` on the sequence of 27 for the six
+   non-learned baselines at ``--image_resize`` 0.25 and for ``ICP`` and
+   ``RGBD`` at 1.0 (B=8, keyframes 1 and 2): per batch K1 40 (``ICP``,
+   ``Point2Point``), 94 (``Iter_Point2Plane``), 80 and K6 40 (``RGBD``), K1
+   and K6 40 (``ColorICP``) and 94 (``Iter_ColorICP``) at 120x160; at
+   640x480 the ICP operand takes K4 at level 0 (``ICP`` K4 10, K1 30;
+   ``RGBD`` K4 10, K1 70, K6 40); the per-frame poses against the same
+   baseline through the plain kernels on the card within 1e-4, NaN in the
+   same frames, the NaN frames counted; the first 640x480 ``ICP`` batch in
+   float64 on the card against the CPU within 1e-8; frames/s;
+32. ``apps.kf_vo.main`` with ``feature`` in keyframe mode at 120x160: K1 and
+   K6 12 times a frame; the trajectory against ``run_vo`` through the plain
+   kernels within 1e-4; ``--gt_tracker`` against ``groundtruth.txt`` within
+   1e-5; ``apps.traj_eval`` of the trajectory against ``groundtruth.txt``;
+   frames/s of the VO loop (decode included) and one B=1 forward timed and
+   profiled;
+33. ``apps.convergence_basin.main`` 2D 31x31 for ``feature`` at 120x160:
+   one K1 a chunk of 64 poses and level (64); the costs against the plain
+   kernels' within 1e-5 of the largest; the wall time; whether matplotlib
+   imports, and the plots (``--save_img``) only where it does;
+34. ``apps.import_checkpoint.main`` on a checkpoint in the original
+   implementation's format written from a seeded ``feature`` tracker, then
+   served through ``apps/serve.py``: the served pose equals the source
+   tracker's bit for bit; the JSON record gets ``cli_baselines``,
+   ``kf_vo``, ``convergence_basin`` and ``import_checkpoint``.
 
 Phase 16 also records K4's staged share on the U_FC forwards (480x640 and
 120x160, on the synthetic scene and on the served requests), 17 times K4
@@ -185,6 +210,7 @@ result, without a CUDA device or without the port package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -300,6 +326,28 @@ TUM_FRAMES = 24
 TUM_K = (525.0, 525.0, 319.5, 239.5)  # TUM_CALIB: fx, fy, cx, cy at 640x480
 CLI_KEYFRAMES = (1, 2)
 CLI_SMALL, CLI_VGA = 0.25, 1.0  # --image_resize of the 120x160 and 640x480 CLI runs
+# the evaluate CLI's --tracker baselines, launches per batch: an ICP or
+# photometric iteration warps once (K1, or K4 where use_tiles holds), a
+# hybrid one twice; a photometric iteration reduces with K6.  10 iterations
+# on each of 4 levels, or 50/30/14 on levels 2-0; Point2Point 10 at level 2
+# and 30 at level 0
+BASELINE_LAUNCHES = {
+    "ICP": counts(gather_twohot=40),
+    "Point2Point": counts(gather_twohot=40),
+    "Iter_Point2Plane": counts(gather_twohot=94),
+    "RGBD": counts(gather_twohot=80, fused_jtj_jtr=40),
+    "ColorICP": counts(gather_twohot=40, fused_jtj_jtr=40),
+    "Iter_ColorICP": counts(gather_twohot=94, fused_jtj_jtr=94),
+}
+# at 640x480 the ICP operand (C=6) takes K4 at level 0
+BASELINE_VGA_LAUNCHES = {
+    "ICP": counts(gather_tiles=10, gather_twohot=30),
+    "RGBD": counts(gather_tiles=10, gather_twohot=70, fused_jtj_jtr=40),
+}
+# the first 640x480 ICP batch in float64 through the plain kernels: card
+# against CPU (float64 rounding through 40 chained solves)
+ICP_F64_ATOL = 1e-8
+BASIN_SAMPLES, BASIN_CHUNK = 31, 64  # the 2D study's 31x31 grid, 64 poses a call
 
 
 def write_png(path: str, img: np.ndarray, filter_type=1) -> None:
@@ -1626,8 +1674,9 @@ class _CliProbe:
             setattr(obj, name, fn)
 
 
-def _cli_poses(seq, size):
-    """The per-frame poses of the evaluate CLI's dumps, by loader."""
+def _cli_poses(seq, size, finite=True):
+    """The per-frame poses of the evaluate CLI's dumps, by loader; with
+    ``finite`` every metric must be finite."""
     import pickle
 
     out = {}
@@ -1635,7 +1684,7 @@ def _cli_poses(seq, size):
         with open(f"{seq}_keyframe_{kf}.pkl", "rb") as fh:
             info = pickle.load(fh)
         for key in ("epes", "angular_error", "translation_error"):
-            if not np.isfinite(info[key]).all():
+            if finite and not np.isfinite(info[key]).all():
                 raise AssertionError(f"{size}: non-finite {key} in the CLI's dump")
         out[kf] = info
     return out
@@ -1794,8 +1843,283 @@ def phase_cli_train(torch, dev, seq, workdir):
     return out
 
 
+def _finite_gap(got, ref, what):
+    """``max |got - ref|`` over the finite entries; raises unless the two
+    are non-finite in the same places."""
+    bad = ~np.isfinite(got)
+    if not np.array_equal(bad, ~np.isfinite(ref)):
+        raise AssertionError(f"{what}: non-finite in other places than the plain ones")
+    return float(np.abs(got[~bad] - ref[~bad]).max(initial=0.0))
+
+
+def baseline_float64_check(torch, dev, seq, name):
+    """The first 640x480 batch of ``name`` through the plain kernels: in
+    float32 on the card, and in float64 on the card and on the CPU.  The
+    float64 poses must be finite on both devices and within
+    ``ICP_F64_ATOL`` of each other; a float32 sample that is NaN on the
+    card (the guard lets a failed Cholesky solve through) is then one whose
+    damped float32 system rounds to indefinite, not a fault of the path."""
+    from deep_prob_feature_track_torch import evaluation
+    from deep_prob_feature_track_torch.apps.baselines import make_baseline
+
+    loader, = evaluation.create_eval_loaders("TUM_RGBD", "test", CLI_KEYFRAMES[:1], B,
+                                             trajectory=seq, image_resize=CLI_VGA,
+                                             root="").values()
+    batch = next(iter(loader))
+    tracker = make_baseline(name, plain=True)
+
+    def run(device, dtype):
+        args = [torch.from_numpy(np.asarray(batch[k])).to(device, dtype)
+                for k in ("color0", "depth0", "color1", "depth1", "calib")]
+        with torch.inference_mode():
+            R, t = tracker.batch_track(*args)
+        return np.concatenate([R.reshape(-1, 9).double().cpu().numpy(),
+                               t.double().cpu().numpy()], axis=1)
+
+    card32 = run(dev, torch.float32)
+    card64, cpu64 = run(dev, torch.float64), run(torch.device("cpu"), torch.float64)
+    if not (np.isfinite(card64).all() and np.isfinite(cpu64).all()):
+        raise AssertionError(f"{name} {CLI_VGA}: a float64 pose is not finite")
+    gap64 = float(np.abs(card64 - cpu64).max())
+    nan32 = ~np.isfinite(card32).all(axis=1)
+    gap32 = float(np.abs(card32[~nan32] - card64[~nan32]).max(initial=0.0))
+    log(f"{name} {CLI_VGA} first batch: float64 card against CPU {gap64:.3e} (limit "
+        f"{ICP_F64_ATOL:g}); float32 on the card NaN for samples "
+        f"{np.flatnonzero(nan32).tolist()} of {len(nan32)}, the others {gap32:.3e} from "
+        "float64")
+    if not gap64 <= ICP_F64_ATOL:
+        raise AssertionError(f"{name} {CLI_VGA}: float64 card and CPU poses {gap64:.3e} apart")
+    return {"f64_card_vs_cpu": gap64, "f32_nan_samples": int(nan32.sum()),
+            "f32_vs_f64_finite": gap32}
+
+
+def phase_cli_baselines(torch, dev, seq, workdir):
+    """Phase 31: ``apps.evaluate.main --tracker`` for the six baselines at
+    120x160 and ``ICP`` and ``RGBD`` at 640x480, B=8, keyframes 1 and 2:
+    launches per batch pinned; the CLI's per-frame poses against the same
+    baseline through the plain kernels on the card, within 1e-4 and NaN in
+    the same frames (the guard lets a failed solve through, as the JAX
+    package's does), with the NaN frames counted; at 640x480 ``ICP`` the
+    first batch in float64 on the card against the CPU
+    (:func:`baseline_float64_check`); frames/s of the CLI's loop and its
+    share spent waiting on the loader."""
+    from deep_prob_feature_track_torch import evaluation
+    from deep_prob_feature_track_torch.apps import evaluate
+    from deep_prob_feature_track_torch.apps.baselines import make_baseline
+
+    out = {}
+    for scale, table in ((CLI_SMALL, BASELINE_LAUNCHES), (CLI_VGA, BASELINE_VGA_LAUNCHES)):
+        for name, expected in table.items():
+            size = f"evaluate CLI --tracker {name} {scale}"
+            args = ["--data_root", "", "--trajectory", seq, "--keyframes",
+                    ",".join(map(str, CLI_KEYFRAMES)), "--batch_size", str(B), "--image_resize",
+                    str(scale), "--tracker", name, "--output_dir",
+                    os.path.join(workdir, f"eval_{name}_{scale}"), "--device", str(dev)]
+            probe = _CliProbe(torch)
+            try:
+                probe.K.reset_launches()
+                if evaluate.main(args) != 0:
+                    raise AssertionError(f"{size} failed")
+                torch.cuda.synchronize()
+                launches = dict(probe.K.LAUNCHES)
+            finally:
+                probe.restore()
+            want = {k: n * probe.batches for k, n in expected.items()}
+            if launches != want:
+                raise AssertionError(f"{size} launched {launches}, expected {want}")
+            poses = _cli_poses(seq, size, finite=False)
+            plain = make_baseline(name, plain=True)
+            gap = 0.0
+            for key, loader in evaluation.create_eval_loaders(
+                    "TUM_RGBD", "test", CLI_KEYFRAMES, B, trajectory=seq, image_resize=scale,
+                    root="").items():
+                ref = evaluation.evaluate_two_view(
+                    loader, lambda c0, c1, d0, d1, K: plain.batch_track(c0, d0, c1, d1, K), dev)
+                got = poses[int(key.rsplit("_", 1)[1])]
+                gap = max(gap, _finite_gap(got["R_est"], ref["R_est"], size),
+                          _finite_gap(got["t_est"], ref["t_est"], size))
+            if not gap <= 1e-4:
+                raise AssertionError(f"{size}: the CLI's poses are {gap:.3e} from the plain ones")
+            nonfinite = sum(int((~np.isfinite(p["t_est"]).all(axis=1)).sum())
+                            for p in poses.values())
+            row = {"frames": probe.frames, "batches": probe.batches, "launches": launches,
+                   "launches_per_batch": expected, "fps": probe.frames / probe.loop_s,
+                   "loader_wait_share": probe.wait_s / probe.loop_s, "vs_plain": gap,
+                   "nonfinite_frames": nonfinite,
+                   "epe3d_cm_finite": {kf: float(np.nanmean(p["epes"]) * 100)
+                                       for kf, p in poses.items()}}
+            log(f"{size}: {row['fps']:.1f} frames/s over the CLI's loop, "
+                f"{row['loader_wait_share']:.3f} of it waiting on the loader; launches "
+                f"{launches} in {probe.batches} batches; CLI against plain {gap:.3e}; "
+                f"non-finite poses in {nonfinite} of {probe.frames} frames; EPE3D of the "
+                "finite ones " + ", ".join(f"kf {kf} {v:.3f} cm"
+                                           for kf, v in row["epe3d_cm_finite"].items()))
+            if scale == CLI_VGA and name == "ICP":
+                row.update(baseline_float64_check(torch, dev, seq, name))
+            out[f"{name} {scale}"] = row
+    return out
+
+
+def phase_kf_vo(torch, dev, seq, workdir):
+    """Phase 32: ``apps.kf_vo.main`` with ``feature`` in keyframe mode at
+    120x160 (K1 and K6 12 times a frame); its trajectory against
+    ``run_vo`` through the plain kernels (within 1e-4); ``--gt_tracker``
+    against the written ground truth (1e-5); ``apps.traj_eval`` of the
+    written trajectory against ``groundtruth.txt``; frames/s of the VO
+    loop at B=1 and the synchronised time of one B=1 forward."""
+    from deep_prob_feature_track_torch.apps import kf_vo, traj_eval
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+    from deep_prob_feature_track_torch.data.loader import load_data
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    frames = TUM_FRAMES - 1
+    base = ["--data_root", "", "--trajectory", seq, "--image_resize", str(CLI_SMALL),
+            "--vo_type", "keyframe", "--device", str(dev)]
+    est = os.path.join(workdir, "vo.txt")
+    kf_vo.main(base + ["--output", os.path.join(workdir, "warm.txt")])  # build, cuDNN choice
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    if kf_vo.main(base + ["--output", est]) != 0:
+        raise AssertionError("the kf_vo CLI failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    want = {k: n * frames for k, n in SERVE_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"kf_vo launched {launches}, expected {want}")
+    _, T_est = traj_eval.load_tum_trajectory(est)
+    dataset = load_data("TUM_RGBD", [1], "test", select_traj=seq, image_resize=CLI_SMALL,
+                        root="")
+    plain, _ = kf_vo.run_vo(dataset, build_tracker("feature", "", dev, plain_kernels=True),
+                            vo_type="keyframe", device=dev)
+    gap = float(np.abs(T_est - plain).max())
+    gt_file = os.path.join(workdir, "vo_gt.txt")
+    if kf_vo.main(base + ["--gt_tracker", "--output", gt_file]) != 0:
+        raise AssertionError("kf_vo --gt_tracker failed")
+    _, T_vo_gt = traj_eval.load_tum_trajectory(gt_file)
+    # the sequence's first camera is the world frame
+    stamps, T_gt = traj_eval.load_tum_trajectory(os.path.join(seq, "groundtruth.txt"))
+    gt_gap = float(np.abs(T_vo_gt - T_gt).max())
+    # the written trajectory's stamps are frame indices: give it the frames'
+    timed = os.path.join(workdir, "vo_timed.txt")
+    kf_vo.write_tum_trajectory(timed, T_est, timestamps=stamps)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        traj_eval.main(["--est", timed, "--gt", os.path.join(seq, "groundtruth.txt")])
+    te = json.loads(buf.getvalue().strip().splitlines()[-1])
+    net = build_tracker("feature", "", dev)
+    item = dataset.pair_frames(0, 1)
+    one = [torch.from_numpy(np.asarray(item[k])[None]).to(dev) for k in KEYS]
+    with torch.inference_mode():
+        forward_ms = time_ms(torch, lambda: net(*one), reps=20, warmup=3, windows=3)
+        prof = profile(torch, lambda: net(*one), "B=1 120x160 kf_vo forward")
+    out = {"frames": frames, "wall_s": wall, "fps": frames / wall, "launches": launches,
+           "launches_per_frame": {k: v // frames for k, v in launches.items() if v},
+           "vs_plain": gap, "gt_tracker_vs_groundtruth": gt_gap, "traj_eval": te,
+           "forward_ms_b1": forward_ms, "profile_b1": prof}
+    log(f"kf_vo feature keyframe 120x160: {frames} frames in {wall:.2f} s ({out['fps']:.1f} "
+        f"frames/s, decode included), launches {out['launches_per_frame']} a frame; one B=1 "
+        f"forward {forward_ms:.3f} ms; trajectory against plain {gap:.3e}; --gt_tracker "
+        f"against the ground truth {gt_gap:.3e}; traj_eval {te}")
+    if not (gap <= 1e-4 and gt_gap <= 1e-5):
+        raise AssertionError("kf_vo: the trajectory disagrees with the plain or the GT one")
+    if te["pairs"] != TUM_FRAMES or not np.isfinite(te["ate_rmse_m"]):
+        raise AssertionError(f"traj_eval associated {te['pairs']} poses")
+    return out
+
+
+def phase_basin(torch, dev, seq, workdir):
+    """Phase 33: ``apps.convergence_basin.main`` 2D 31x31 for ``feature`` at
+    120x160: one K1 a chunk of 64 poses and level; its costs against
+    ``evaluate_basin`` through the plain kernels; the wall time; whether
+    matplotlib imports here, and the plots if it does."""
+    import importlib.util
+    import pickle
+
+    from deep_prob_feature_track_torch.apps import convergence_basin as cb
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+    from deep_prob_feature_track_torch.data.loader import load_data
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"matplotlib {'is' if has_mpl else 'is not'} importable on this machine")
+    out_pkl = os.path.join(workdir, "cb.pkl")
+    args = ["--data_root", "", "--trajectory", seq, "--image_resize", str(CLI_SMALL),
+            "--pert_samples", str(BASIN_SAMPLES), "--output", out_pkl, "--device", str(dev)]
+    cb.main(args)  # build, cuDNN choice
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    if cb.main(args + (["--save_img"] if has_mpl else [])) != 0:
+        raise AssertionError("the convergence_basin CLI failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    chunks = -(-BASIN_SAMPLES ** 2 // BASIN_CHUNK)
+    want = counts(gather_twohot=chunks * 4)
+    if launches != want:
+        raise AssertionError(f"convergence_basin launched {launches}, expected {want}")
+    with open(out_pkl, "rb") as fh:
+        costs = pickle.load(fh)["costs"]
+    item = load_data("TUM_RGBD", [1], "test", select_traj=seq, image_resize=CLI_SMALL,
+                     root="")[0]
+    T = item["transform"]
+    poses, _ = cb.perturbation_poses_2d(T[:3, :3], T[:3, 3], cb.PERT_RANGE_BY_KF[1],
+                                        BASIN_SAMPLES)
+    ref = cb.evaluate_basin(build_tracker("feature", "", dev, plain_kernels=True), item, poses,
+                            device=dev)
+    gap = float(np.abs(costs - ref).max() / np.abs(ref).max())
+    plots = os.path.isfile(out_pkl.replace(".pkl", "_2d.png"))
+    out = {"shape": list(costs.shape), "wall_s": wall, "launches": launches,
+           "vs_plain_rel": gap, "matplotlib": has_mpl, "plots_written": plots,
+           "min_cost_per_level": costs.reshape(4, -1).min(axis=1).tolist()}
+    log(f"convergence_basin 2D {BASIN_SAMPLES}x{BASIN_SAMPLES} feature 120x160: costs "
+        f"{costs.shape} in {wall:.2f} s (plots {'written' if plots else 'not asked'}), "
+        f"launches {launches}; against plain {gap:.3e} of the largest cost")
+    if not (gap <= 1e-5 and np.isfinite(costs).all() and plots == has_mpl):
+        raise AssertionError("convergence_basin: costs disagree with the plain ones")
+    return out
+
+
+def phase_import(torch, dev, workdir):
+    """Phase 34: a checkpoint in the original implementation's format
+    (``module.`` prefixes, ``num_batches_tracked``), written from a seeded
+    ``feature`` tracker, imported by ``apps.import_checkpoint`` and served
+    through ``apps/serve.py``: the served pose equals the source
+    tracker's forward bit for bit."""
+    from deep_prob_feature_track_torch.apps import import_checkpoint
+    from deep_prob_feature_track_torch.apps.serve import build_service, build_tracker
+
+    source = build_tracker("feature", "", dev, seed=11)
+    src = os.path.join(workdir, "ref.pth.tar")
+    torch.save({"epoch": 29, "state_dict": {f"module.{k}": v.cpu()
+                                            for k, v in source.state_dict().items()}}, src)
+    imported = os.path.join(workdir, "imported.pt")
+    if import_checkpoint.main(["--torch_checkpoint", src, "--output", imported,
+                               "--strict"]) != 0:
+        raise AssertionError("import_checkpoint failed")
+    service = build_service("feature", imported, max_batch=B, device=dev)
+    try:
+        item = request_items(1, H, W)[0]
+        served = service.submit(item)
+    finally:
+        service.stop()
+    # the service pads the batch with copies of its last request
+    batch = [torch.from_numpy(np.stack([item[k]] * B)).to(dev) for k in KEYS]
+    with torch.inference_mode():
+        R, t = source(*batch)
+    same = np.array_equal(served["R"], R[0].cpu().numpy()) and np.array_equal(
+        served["t"], t[0].cpu().numpy())
+    log(f"import_checkpoint: served pose of the imported weights "
+        f"{'equals' if same else 'differs from'} the source tracker's bit for bit")
+    if not same:
+        raise AssertionError("the imported tracker's pose differs from the source's")
+    return {"bit_exact": same}
+
+
 def phase_cli(torch, dev):
-    """Phases 27-29 in a temporary directory, removed after."""
+    """Phases 27-29 and 31-34 in a temporary directory, removed after."""
     import shutil
 
     workdir = tempfile.mkdtemp(prefix="dpft_cli_")
@@ -1805,9 +2129,13 @@ def phase_cli(torch, dev):
                     for s, expected in ((CLI_SMALL, SERVE_LAUNCHES),
                                         (CLI_VGA, VGA_SERVE_LAUNCHES))}
         cli_train = phase_cli_train(torch, dev, seq, workdir)
+        apps = {"cli_baselines": phase_cli_baselines(torch, dev, seq, workdir),
+                "kf_vo": phase_kf_vo(torch, dev, seq, workdir),
+                "convergence_basin": phase_basin(torch, dev, seq, workdir),
+                "import_checkpoint": phase_import(torch, dev, workdir)}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    return {"cli_eval": cli_eval, "cli_train": cli_train, "png_decode_ms": decode}
+    return {"cli_eval": cli_eval, "cli_train": cli_train, "png_decode_ms": decode, **apps}
 
 
 def phase_forward(torch, dev, h, w, preset="feature", overrides=()):

@@ -9,7 +9,9 @@ that CPU tensors take.  The presets ``feature``, ``feature_icp``, ``RGB``,
 ``ICP``, ``RGB+ICP`` and ``DeepIC`` serve (``apps/serve.py``); the learned
 ones train (``training/train.py``).  ``apps/evaluate.py`` and
 ``apps/train.py`` evaluate and train them from TUM-format RGB-D sequences
-on disk (``data/``, on numpy and the standard library alone).
+on disk (``data/``, on numpy and the standard library alone); the other
+apps (the non-learned baselines, keyframe VO, trajectory evaluation,
+checkpoint import, the convergence basin) run on the same code.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,7 +1,6 @@
 """Evaluation CLI: two-view tracking over TUM-format RGB-D sequences.
 
-Counterpart of ``deep_prob_feature_track_tpu/apps/evaluate.py`` for the
-learned trackers::
+Counterpart of ``deep_prob_feature_track_tpu/apps/evaluate.py``::
 
     python -m deep_prob_feature_track_torch.apps.evaluate \
         --dataset TUM_RGBD --data_root /path/to/tum \
@@ -11,17 +10,21 @@ learned trackers::
     python -m deep_prob_feature_track_torch.apps.evaluate --data_root "" \
         --trajectory /path/to/sequence --keyframes 1,2
 
+    # a non-learned baseline (apps/baselines.py): ICP, Point2Point,
+    # Iter_Point2Plane, RGBD, ColorICP or Iter_ColorICP
+    python -m deep_prob_feature_track_torch.apps.evaluate --tracker RGBD ...
+
 Evaluates per (trajectory x keyframe) on the card (``--device cpu`` for
 the CPU), dumps per-frame pickles, prints and saves the cm/deg summary CSV
 under ``--output_dir/<checkpoint name>``.  The checkpoint is a tracker
 ``state_dict`` or a training state written by ``apps/train.py``; without
-one the weights are a seeded init.  ``--time`` prints the stage timers (it
+one the weights are a seeded init.  A ``--tracker`` baseline's results go
+under ``nolearning_<tracker>``.  ``--time`` prints the stage timers (it
 synchronises the card at every stage).
 
-Not ported, and raising ``NotImplementedError``: the non-learned
-``--tracker`` baselines (ROADMAP item 7), ``--save_img`` and ``--obj_only``
-(item 3), the MovingObjects3D, ScanNet and VaryLighting datasets (items 3
-and 6) and ``--mesh`` (item 8).
+Not ported, and raising ``NotImplementedError``: ``--save_img`` and
+``--obj_only`` (ROADMAP item 3), the MovingObjects3D, ScanNet and
+VaryLighting datasets (items 3 and 6) and ``--mesh`` (item 8).
 """
 
 from __future__ import annotations
@@ -61,7 +64,6 @@ def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for an option the port lacks, naming
     the ROADMAP item that ports it."""
     missing = [
-        (args.tracker != "learning_based", f"--tracker {args.tracker}", "7"),
         (args.save_img > 0, "--save_img", "3"),
         (args.obj_only, "--obj_only", "3"),
         (args.dataset != "TUM_RGBD", f"--dataset {args.dataset}", "3 and 6"),
@@ -77,7 +79,7 @@ def main(argv=None):
     refuse_unported(args)
     import numpy as np
 
-    from ..device import resolve_device
+    from ..device import resolve_device, set_float32_policy
     from ..evaluation import create_eval_loaders, evaluate_two_view, summarize_results
     from ..utils.timers import Timers
     from .serve import build_tracker
@@ -90,12 +92,22 @@ def main(argv=None):
         trajectory=args.trajectory, image_resize=args.image_resize,
         root=args.data_root,
     )
-    net = build_tracker(args.preset, args.checkpoint, device, overrides=args.set)
-    if args.checkpoint:
-        ckpt_name = os.path.splitext(os.path.basename(args.checkpoint))[0]
+    if args.tracker != "learning_based":
+        from .baselines import make_baseline
+
+        set_float32_policy()
+        baseline = make_baseline(args.tracker)
+        ckpt_name = f"nolearning_{args.tracker}"
+
+        def net(c0, c1, d0, d1, K):
+            return baseline.batch_track(c0, d0, c1, d1, K)
     else:
-        print("[evaluate] no checkpoint: random init (non-learned presets unaffected)")
-        ckpt_name = f"nolearning_{args.preset}"
+        net = build_tracker(args.preset, args.checkpoint, device, overrides=args.set)
+        if args.checkpoint:
+            ckpt_name = os.path.splitext(os.path.basename(args.checkpoint))[0]
+        else:
+            print("[evaluate] no checkpoint: random init (non-learned presets unaffected)")
+            ckpt_name = f"nolearning_{args.preset}"
 
     results = {}
     for key, loader in loaders.items():

@@ -2,7 +2,7 @@
 
 Counterpart of ``deep_prob_feature_track_tpu/geometry/lie.py`` (``skew``,
 ``exp_so3``, ``rotation_angle``, ``inverse``, ``compose``, ``between``,
-``euler_to_matrix`` and ``pose_vec_to_Rt``).
+``euler_to_matrix``, ``pose_vec_to_Rt`` and ``matrix_to_quat``).
 A pose is ``(R [B,3,3], t [B,3])``; twists are ordered ``[rot, trs]``.
 """
 
@@ -99,3 +99,38 @@ def pose_vec_to_Rt(vec: torch.Tensor, rotation_mode: str = "euler"):
     trs = vec[..., 3:]
     rot = vec[..., 3:]
     return euler_to_matrix(rot[..., 0], rot[..., 1], rot[..., 2]), trs
+
+
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [...,3,3] -> unit quaternion [...,4] ``[qx, qy, qz,
+    qw]`` (the TUM trajectory order).
+
+    Shepperd's four candidate solutions, each from the square root of a
+    different diagonal combination, chosen branch-free: the ``qw`` one
+    where the trace is positive, else the one of the largest diagonal
+    entry, in the JAX function's order (so the signs agree with it).
+    """
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12))
+
+    qw0 = 0.5 * safe_sqrt(1.0 + tr)
+    c0 = torch.stack([(m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0), qw0], dim=-1)
+    qx1 = 0.5 * safe_sqrt(1.0 + m00 - m11 - m22)
+    c1 = torch.stack([qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1),
+                      (m21 - m12) / (4 * qx1)], dim=-1)
+    qy2 = 0.5 * safe_sqrt(1.0 - m00 + m11 - m22)
+    c2 = torch.stack([(m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2),
+                      (m02 - m20) / (4 * qy2)], dim=-1)
+    qz3 = 0.5 * safe_sqrt(1.0 - m00 - m11 + m22)
+    c3 = torch.stack([(m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3,
+                      (m10 - m01) / (4 * qz3)], dim=-1)
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where((tr > 0)[..., None], c0, torch.where(cond1, c1, torch.where(cond2, c2, c3)))
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

@@ -10,9 +10,11 @@ the classical presets ``RGB`` (grayscale IC), ``ICP`` (point-to-plane ICP)
 and ``RGB+ICP`` (grayscale U_IC with the fused ICP term), which start from
 the identity pose; and of their variants over the forward-compositional
 U_FC track (``direction="forward"`` with a sigma), every feature head and
-every sigma type of the encoder.  The one-view ``ConvRGBD`` encoder, the
-``dense_net`` pose initializer, the learned ``ScaleNet`` types, weights
-per level and uncertainty propagation raise ``NotImplementedError``.
+every sigma type of the encoder; ``compute_residual`` gives each track's
+average residual at a given pose and level.  The one-view ``ConvRGBD``
+encoder, the ``dense_net`` pose initializer, the learned ``ScaleNet``
+types, weights per level, uncertainty propagation and object masks raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,9 +31,13 @@ from ..solvers.icp import ICPSigmaModel
 from ..solvers.trust_region import (
     DirectSolver,
     tr_ic_level,
+    tr_ic_residual,
     tr_icp_level,
+    tr_icp_residual,
     tr_ufc_level,
+    tr_ufc_residual,
     tr_uic_level,
+    tr_uic_residual,
 )
 from .encoder import FeaturePyramid
 from .layers import color_normalize_nchw, seeded_init_
@@ -188,7 +194,7 @@ class LeastSquareTracking(nn.Module):
         x = image_pyramid((I[:, 0] * 0.299 + I[:, 1] * 0.587 + I[:, 2] * 0.114)[:, None])
         return x, [torch.ones_like(a) for a in x]
 
-    def _preprocess(self, img0, img1, depth0, depth1):
+    def _preprocess(self, img0, img1, depth0, depth1, pose_init=None):
         cfg = self.cfg
         invD0 = torch.clamp(1.0 / depth0, 0.0, 10.0)
         invD1 = torch.clamp(1.0 / depth1, 0.0, 10.0)
@@ -225,7 +231,9 @@ class LeastSquareTracking(nn.Module):
             dpt1 = image_pyramid(depth1, pool="max")
         else:
             dpt0 = dpt1 = [None] * 4
-        if self.pose_predictor is not None:
+        if pose_init is not None:
+            pose = pose_init
+        elif self.pose_predictor is not None:
             pose = self.pose_predictor(raw0[3], raw1[3])
         else:
             B = img0.shape[0]
@@ -283,14 +291,16 @@ class LeastSquareTracking(nn.Module):
             )
         return pose, weights
 
-    def forward(self, img0, img1, depth0, depth1, K):
+    def forward(self, img0, img1, depth0, depth1, K, pose_init=None):
         """:param img0/img1: [B,3,H,W] RGB in [0,1]
         :param depth0/depth1: [B,1,H,W] metric depth
         :param K: [B,4] intrinsics [fx,fy,cx,cy]
+        :param pose_init: ``(R [B,3,3], t [B,3])`` to start from instead of
+            the predicted initial pose or the identity
         :return: eval: final pose (R, t); training: (pyr_R, pyr_t)
         """
         x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, pose = self._preprocess(
-            img0, img1, depth0, depth1)
+            img0, img1, depth0, depth1, pose_init)
         poses = [pose] if self.cfg.predicts_init_pose and self.cfg.train_init_pose else []
         w_prior = torch.ones_like(inv_d0[3]) * 0.001
         for level in (3, 2, 1, 0):
@@ -301,3 +311,38 @@ class LeastSquareTracking(nn.Module):
         if self.training:
             return torch.stack([R for R, _ in poses], 1), torch.stack([t for _, t in poses], 1)
         return pose
+
+    def compute_residual(self, img0, img1, depth0, depth1, K, pose_init=None, level: int = 0,
+                         obj_mask0=None, obj_mask1=None):
+        """The configured track's average residual at one pose and level
+        (the convergence-basin study), from the encoded pair.
+
+        :param pose_init: ``(R, t)``; without it the predicted initial pose
+            or the identity
+        :return: ``(pose, avg_residual [B])``
+        """
+        if obj_mask0 is not None or obj_mask1 is not None:
+            raise NotImplementedError("object masks are not ported (ROADMAP item 3)")
+        cfg = self.cfg
+        x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, pose = self._preprocess(
+            img0, img1, depth0, depth1, pose_init)
+        i = level
+        K_i = W.scale_K(K, i)
+        track = cfg.track_type
+        if track == "U_IC":
+            w_prior = torch.ones_like(inv_d0[i]) * 0.01
+            # ScaleNet("None") reads only the ICP residual's shape
+            w_icp = self.scaler_func(inv_d0[i], None, w_prior) if cfg.combine_icp else None
+            loss = tr_uic_residual(
+                pose, x0[i], x1[i], inv_d0[i], inv_d1[i], K_i, sigma0[i], sigma1[i],
+                depth0=dpt0[i], depth1=dpt1[i], w_icp=w_icp,
+                remove_tru_sigma=cfg.remove_tru_sigma, plain=self.plain_kernels)
+        elif track == "IC":
+            loss = tr_ic_residual(pose, x0[i], x1[i], inv_d0[i], inv_d1[i], K_i, self._mest,
+                                  w_prior=torch.ones_like(inv_d0[i]), plain=self.plain_kernels)
+        elif track == "U_FC":
+            loss = tr_ufc_residual(pose, x0[i], x1[i], dpt0[i], dpt1[i], K_i, sigma0[i],
+                                   sigma1[i], plain=self.plain_kernels)
+        else:  # ICP
+            loss = tr_icp_residual(pose, dpt0[i], dpt1[i], K_i, plain=self.plain_kernels)
+        return pose, loss

@@ -22,9 +22,12 @@ def lev_mar_damp(
 
 def solve_chol(H: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Solve ``H x = rhs`` for SPD ``H [B,6,6]``; ``rhs`` is [B,6] or [B,6,1]
-    and the result has the same shape."""
+    and the result has the same shape.  Where ``H`` is not positive
+    definite in its dtype the solve is NaN on every device, as the JAX
+    package's (``jnp.linalg.cholesky`` gives NaN there; the CPU's
+    ``cholesky_ex`` would leave a partial factor and a finite answer)."""
     squeeze = rhs.ndim == H.ndim - 1
     b = rhs[..., None] if squeeze else rhs
-    L, _ = torch.linalg.cholesky_ex(H)
-    x = torch.cholesky_solve(b, L)
+    L, info = torch.linalg.cholesky_ex(H)
+    x = torch.cholesky_solve(b, L).masked_fill((info != 0)[..., None, None], float("nan"))
     return x[..., 0] if squeeze else x

@@ -1,5 +1,5 @@
 """Warped feature-metric residuals: uncertainty-normalized (U_IC) and
-plain (IC).
+plain (IC), and their average at a fixed pose.
 
 Counterpart of ``deep_prob_feature_track_tpu/solvers/residuals.py``.
 """
@@ -91,3 +91,28 @@ def compute_warped_residual(pose10, invD0, invD1, x0, x1, px, py, K,
         raise NotImplementedError("object masks are not ported")
     return warped_residual(pose10, invD0, x0, px, py, K, make_ic_operands(x1, invD1),
                            plain=plain)
+
+
+def compute_avg_loss(x_list, invalid) -> torch.Tensor:
+    """Per-sample average squared residual over the valid pixels: the sum
+    of ``x * x`` over every map of ``x_list`` (``[B,C,H,W]`` each, zero
+    where ``invalid [B,1,H,W]``) over the valid pixel count, which counts
+    at least 1, so an all-invalid sample reports 0.
+
+    :return: [B]
+    """
+    B, _, H, W_ = invalid.shape
+    valid_num = H * W_ - invalid.reshape(B, -1).sum(dim=1)
+    total = torch.zeros((B,), dtype=x_list[0].dtype, device=invalid.device)
+    for x in x_list:
+        masked = x.masked_fill(invalid, 0.0)
+        total = total + (masked * masked).sum(dim=(1, 2, 3))
+    return total / torch.clamp(valid_num, min=1)
+
+
+def compute_avg_res(x, invalid) -> torch.Tensor:
+    """Whole-batch residual norm over the valid pixel count (at least 1)."""
+    B, _, H, W_ = invalid.shape
+    valid_num = B * H * W_ - invalid.sum()
+    return torch.linalg.vector_norm(x.masked_fill(invalid, 0.0).reshape(-1)) / torch.clamp(
+        valid_num, min=1)

@@ -15,6 +15,11 @@ iteration runs K1 once, on one operand of the target depth, features,
 sigma and their gradients (C=28 with a 1-channel sigma), and weighs its
 system in tensor ops (no K6); an ICP iteration runs K1 once.  Where
 ``use_tiles`` holds, K4 takes K1's place; under autograd K2 (K5) does.
+
+The ``tr_*_residual`` functions give each track's average residual at a
+fixed pose (``residuals.compute_avg_loss``), for the convergence-basin
+study: one K1 for U_IC, U_FC and ICP, two for U_IC with the ICP term and
+for IC (whose learned M-estimator may warp more).
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ from .jacobians import (
 )
 from .residuals import (
     build_inverse_warp_operand,
+    compute_avg_loss,
     compute_inverse_residuals,
+    compute_warped_residual,
     make_ic_operands,
     warped_residual,
 )
@@ -190,6 +197,37 @@ def tr_uic_level(
     return pose, (w_icp if combine_icp else torch.ones_like(x0)), JtWJ
 
 
+def tr_uic_residual(pose, x0, x1, invD0, invD1, K, sigma0, sigma1, depth0=None, depth1=None,
+                    w_icp=None, remove_tru_sigma: bool = False, plain: bool = False):
+    """The U_IC track's average residual at ``pose`` [B]; with ICP
+    weights ``w_icp`` the weighted inverse point-to-plane residual of
+    ``depth0/1`` (default ICP sigma model) joins it, over the pixels valid
+    in both."""
+    B, _, H, W_ = x0.shape
+    px, py = W.generate_xy_grid(B, H, W_, K)
+    out, _, _ = compute_inverse_residuals(
+        pose, invD0, x0, sigma0, px, py, K, build_inverse_warp_operand(invD1, x1, sigma1),
+        remove_tru_sigma=remove_tru_sigma, plain=plain)
+    if w_icp is None:
+        return compute_avg_loss([out.weighted_res], out.invalid)
+    vertex0 = W.compute_vertex(depth0, px, py)
+    vertex1 = W.compute_vertex(depth1, px, py)
+    icp_res, _, icp_occ = icp_mod.icp_residuals_inverse(
+        vertex0, vertex1, compute_normal(vertex1), pose, K, sigma_model=icp_mod.ICPSigmaModel(),
+        plain=plain)
+    return compute_avg_loss([out.weighted_res, w_icp * icp_res], out.invalid | icp_occ)
+
+
+def tr_ic_residual(pose, x0, x1, invD0, invD1, K, mest_fn, w_prior=None, plain: bool = False):
+    """The IC track's average M-estimator-weighted residual at ``pose`` [B]."""
+    B, _, H, W_ = x0.shape
+    px, py = W.generate_xy_grid(B, H, W_, K)
+    residuals, occ = compute_warped_residual(pose, invD0, invD1, x0, x1, px, py, K,
+                                             plain=plain)
+    weights = mest_fn(residuals, x0, x1, w_prior)
+    return compute_avg_loss([weights * residuals], occ)
+
+
 def tr_ic_level(pose, x0, x1, invD0, invD1, K, mest_fn, solver: DirectSolver,
                 w_prior=None, max_iter: int = 3, plain: bool = False):
     """One pyramid level of the IC track: the template Jacobian and the
@@ -325,6 +363,19 @@ def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: D
     return pose, weights, JtWJ
 
 
+def tr_ufc_residual(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, plain: bool = False):
+    """The U_FC track's average uncertainty-normalized residual at
+    ``pose`` [B]: the target depth, features and sigma warp in one gather
+    of their stacked operand (the JAX package warps them one by one, to
+    the same values)."""
+    u, v, dpt_r, depth_valid, _, _ = _warp_forward_depth(dpt0, pose, K)
+    dpt1_w, f_r, sigma_r = W.warp_multi([dpt1, x1, sigma1], u, v, plain=plain)
+    occ = W.check_occ_prewarped(dpt_r, dpt1_w, u, v) | ~depth_valid
+    sigma = torch.sqrt(sigma_r * sigma_r + sigma0 * sigma0)
+    weighted = ((f_r - x0) / sigma).masked_fill(occ, 1e-6)
+    return compute_avg_loss([weighted], occ)
+
+
 def tr_icp_level(pose, depth0, depth1, K, w_prior=None, max_iter: int = 3,
                  direction: str = "inverse",
                  sigma_model: icp_mod.ICPSigmaModel = icp_mod.ICPSigmaModel(baseline=1.0),
@@ -371,3 +422,16 @@ def tr_icp_point_level(pose, depth0, depth1, K, max_iter: int = 10, dist_thr: fl
         JtJ, JtR = icp_mod.icp_p2p_jtj_jtr(J, res)
         pose = forward_update_pose(lev_mar_damp(JtJ), JtR, pose)
     return pose, JtJ
+
+
+def tr_icp_residual(pose, depth0, depth1, K, plain: bool = False):
+    """The ICP track's average inverse point-to-plane residual at ``pose``
+    [B], with the ICP preset's sigma model (baseline 1.0)."""
+    B, _, H, W_ = depth0.shape
+    px, py = W.generate_xy_grid(B, H, W_, K)
+    vertex0 = W.compute_vertex(depth0, px, py)
+    vertex1 = W.compute_vertex(depth1, px, py)
+    res, _, occ = icp_mod.icp_residuals_inverse(vertex0, vertex1, compute_normal(vertex1), pose,
+                                                K, sigma_model=icp_mod.ICPSigmaModel(baseline=1.0),
+                                                plain=plain)
+    return compute_avg_loss([res], occ)

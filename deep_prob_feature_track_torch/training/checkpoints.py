@@ -6,9 +6,9 @@ Counterpart of ``save_variables``, ``restore_variables``,
 the tracker's ``state_dict`` (parameters and BatchNorm statistics); a
 training state is ``{"net": state_dict, "optimizer": the optimizer's
 state_dict, "step": int}``.  Both are written with ``torch.save`` and read
-with ``weights_only=True``.  The JAX package's msgpack and orbax files are
-not read here: importing a flax checkpoint belongs to
-``apps/import_checkpoint`` (ROADMAP item 7).
+with ``weights_only=True``.  The port reads no flax msgpack or orbax file
+of the JAX package; ``apps/import_checkpoint`` imports the original
+PyTorch implementation's checkpoint (``.pth.tar``) into a weights file.
 """
 
 from __future__ import annotations
@@ -52,9 +52,19 @@ def save_train_state(path: str, state) -> str:
 
 def restore_train_state(path: str, state):
     """Load a file written by :func:`save_train_state` into ``state`` (its
-    tracker, optimizer and step), in place; returns ``state``."""
+    tracker, optimizer and step), in place; returns ``state``.
+
+    The optimizer keeps the hyperparameters it was built with (weight
+    decay, Adam's betas and eps, SGD's momentum) and takes only the saved
+    per-parameter state (moments, step counts), as the JAX package's
+    resume rebuilds its optax chain from the current ``TrainConfig``:
+    ``Optimizer.load_state_dict`` alone would put back the saved run's."""
     raw = restore_variables(path)
     state.net.load_state_dict(raw["net"], strict=True)
+    current = [{k: v for k, v in group.items() if k != "params"}
+               for group in state.optimizer.param_groups]
     state.optimizer.load_state_dict(raw["optimizer"])
+    for group, hyper in zip(state.optimizer.param_groups, current):
+        group.update(hyper)
     state.step = int(raw["step"])
     return state

@@ -13,7 +13,9 @@ weights for the loss; tolerances:
 - three SGD steps against optax's ``trace(0.9)`` chain on fixed gradients:
   atol 1e-6;
 - two steps, a checkpoint, a restore and two more steps against four
-  uninterrupted steps: bit for bit on the CPU.
+  uninterrupted steps: bit for bit on the CPU;
+- a step resumed under another weight decay against optax's chain built
+  with it from the saved moments: atol 1e-6.
 """
 
 import copy
@@ -39,6 +41,7 @@ from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
 from deep_prob_feature_track_torch.ops.kernels import FusedJtJ, jtj_jtr_ref
 from deep_prob_feature_track_torch.training import checkpoints
 from deep_prob_feature_track_torch.training import train as tt
+from deep_prob_feature_track_torch.training.train import TrainState
 from deep_prob_feature_track_torch.utils import logger as plogger
 from deep_prob_feature_track_tpu import evaluation as je
 from deep_prob_feature_track_tpu.models import presets as jp
@@ -225,6 +228,57 @@ def test_checkpoint_round_trip_is_bit_exact(tmp_path):
     bare = checkpoints.save_variables(str(tmp_path / "w.pt"), half.net.state_dict())
     assert checkpoints.tracker_weights(checkpoints.restore_variables(bare)).keys() == \
         half.net.state_dict().keys()
+
+
+@pytest.mark.parametrize("opt", ["adam", "sgd"])
+def test_resume_takes_the_current_optimizer_hyperparameters(tmp_path, rng, opt):
+    """A training state saved with one weight decay and resumed under
+    another takes its next step with the new one and the saved moments,
+    as the JAX optax chain built with the new value does from the same
+    moments (atol 1e-6)."""
+    first = tt.TrainConfig(opt=opt, lr=1e-2, weight_decay=4e-4)
+    second = tt.TrainConfig(opt=opt, lr=1e-2, weight_decay=5e-2)
+    grads = [[rng.randn(*shape).astype(np.float32) * 0.1 for shape in ((4, 3), (4,))]
+             for _ in range(2)]
+
+    def step(state, cfg, g):
+        for p, x in zip(state.net.parameters(), g):
+            p.grad = torch.from_numpy(x)
+        tt.apply_gradients(state.optimizer, cfg.grad_clip,
+                           tt.make_lr_schedule(cfg, 1)(state.step))
+        state.step += 1
+
+    torch.manual_seed(0)
+    net = torch.nn.Linear(3, 4)
+    state = TrainState(net=net, optimizer=tt.make_optimizer(first, net.parameters()))
+    step(state, first, grads[0])
+    path = checkpoints.save_train_state(str(tmp_path / "s.pt"), state)
+    net = torch.nn.Linear(3, 4)
+    resumed = checkpoints.restore_train_state(
+        path, TrainState(net=net, optimizer=tt.make_optimizer(second, net.parameters())))
+    assert resumed.step == 1
+    assert resumed.optimizer.param_groups[0]["weight_decay"] == second.weight_decay
+    moments = [{k: v.clone() for k, v in resumed.optimizer.state[p].items()}
+               for p in net.parameters()]
+    for p, saved in zip(net.parameters(), state.optimizer.state.values()):
+        for k, v in saved.items():
+            torch.testing.assert_close(resumed.optimizer.state[p][k], v, rtol=0, atol=0)
+    p_j = [jnp.asarray(p.detach().numpy().copy()) for p in net.parameters()]
+    step(resumed, second, grads[1])
+
+    tx = jt.make_optimizer(jt.TrainConfig(opt=opt, lr=second.lr,
+                                          weight_decay=second.weight_decay), steps_per_epoch=1)
+    js = list(tx.init(p_j))
+    if opt == "adam":
+        js[2] = js[2]._replace(count=jnp.asarray(1, jnp.int32),
+                               mu=[jnp.asarray(m["exp_avg"].numpy()) for m in moments],
+                               nu=[jnp.asarray(m["exp_avg_sq"].numpy()) for m in moments])
+    else:
+        js[2] = js[2]._replace(trace=[jnp.asarray(m["momentum_buffer"].numpy())
+                                      for m in moments])
+    updates, _ = tx.update([jnp.asarray(x) for x in grads[1]], tuple(js), p_j)
+    for got, want in zip(net.parameters(), optax.apply_updates(p_j, updates)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-6, rtol=0)
 
 
 # ---------------------------------------------------------------- the CLI

@@ -21,7 +21,9 @@ the kernels vs through the plain versions: the loss within 1e-5 relative,
 each gradient leaf within 5e-3 of its largest entry (the envelope of 12
 chained Gauss-Newton solves, ``tests/test_torch_port_train.py``).  The
 U_FC forwards (C=28 and, with the ``feature`` sigma, C=49): kernels
-against plain within 1e-5.
+against plain within 1e-5.  The non-learned baselines: the ICP ones bit
+for bit, the photometric ones (K6) within 1e-4, as the evaluate CLI's
+poses in ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -930,3 +932,86 @@ def test_evaluate_cli_on_card(cuda, tmp_path):
             info = pickle.load(f)
         assert info["R_est"].shape == (n, 3, 3)
         assert np.isfinite(info["epes"]).all() and np.isfinite(info["angular_error"]).all()
+
+
+BASELINE_LAUNCHES = {  # per batch: 40 iterations (94 for the Iter_ plans)
+    "ICP": {"gather_twohot": 40}, "Point2Point": {"gather_twohot": 40},
+    "Iter_Point2Plane": {"gather_twohot": 94},
+    "RGBD": {"gather_twohot": 80, "fused_jtj_jtr": 40},
+    "ColorICP": {"gather_twohot": 40, "fused_jtj_jtr": 40},
+    "Iter_ColorICP": {"gather_twohot": 94, "fused_jtj_jtr": 94},
+}
+
+
+@pytest.mark.parametrize("name", sorted(BASELINE_LAUNCHES))
+def test_baseline_kernels_match_plain_on_card(cuda, name):
+    """A non-learned baseline at 120x160 B=8 on smooth scenes through the
+    kernels and through their plain versions: the ICP ones (K1 alone)
+    bit for bit, the photometric ones within 1e-4 (K6's sum order moves
+    their 40-94 solves); the launches per batch pinned."""
+    from deep_prob_feature_track_torch.apps.baselines import make_baseline
+    from deep_prob_feature_track_torch.training.train import synthetic_batch
+
+    batch = synthetic_batch(8, 120, 160, seed=2, device=cuda)
+    args = [batch[k] for k in ("color0", "depth0", "color1", "depth1", "calib")]
+    tk.reset_launches()
+    R, t = make_baseline(name).batch_track(*args)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == _launches(**BASELINE_LAUNCHES[name])
+    R_p, t_p = make_baseline(name, plain=True).batch_track(*args)
+    atol = 1e-4 if "fused_jtj_jtr" in BASELINE_LAUNCHES[name] else 0.0
+    torch.testing.assert_close(R, R_p, rtol=0, atol=atol)
+    torch.testing.assert_close(t, t_p, rtol=0, atol=atol)
+    assert torch.isfinite(t).all()
+
+
+def test_failed_solve_stays_nan_through_the_guard_on_card(cuda, monkeypatch):
+    """On the card a damped system that is not positive definite solves to
+    NaN, a positive definite one as on the CPU (within 1e-5 relative), and
+    the baselines' guard lets the NaN through while it resets a sample
+    with ``||t|| > 1`` to the identity."""
+    from deep_prob_feature_track_torch.apps.baselines import ICPOdometry
+    from deep_prob_feature_track_torch.ops import solver6
+
+    g = torch.Generator().manual_seed(4)
+    J = torch.randn(3, 50, 6, generator=g)
+    H = torch.einsum("bpi,bpj->bij", J, J)
+    H[1, 0, 1] = H[1, 1, 0] = 2.0 * torch.sqrt(H[1, 0, 0] * H[1, 1, 1])  # indefinite
+    rhs = torch.randn(3, 6, generator=g)
+    x = solver6.solve_chol(H.to(cuda), rhs.to(cuda)).cpu()
+    x_cpu = solver6.solve_chol(H, rhs)
+    assert torch.isnan(x[1]).all() and torch.isnan(x_cpu[1]).all()
+    torch.testing.assert_close(x[[0, 2]], x_cpu[[0, 2]], rtol=1e-5, atol=1e-6)
+
+    tracker = ICPOdometry()
+    R = torch.eye(3, device=cuda).repeat(3, 1, 1) * 2
+    t = torch.tensor([[0.0, 5.0, 0.0], [float("nan")] * 3, [0.3, 0.2, 0.1]], device=cuda)
+    monkeypatch.setattr(tracker, "track", lambda *a: (R, t))
+    depth = torch.ones(3, 1, 8, 8, device=cuda)
+    R_out, t_out = tracker.batch_track(None, depth, None, depth, None)
+    assert R_out.device.type == "cuda"
+    torch.testing.assert_close(R_out[0], torch.eye(3, device=cuda), rtol=0, atol=0)
+    assert torch.all(t_out[0] == 0) and torch.isnan(t_out[1]).all()
+    torch.testing.assert_close(R_out[1:], R[1:], rtol=0, atol=0)
+    torch.testing.assert_close(t_out[2], t[2], rtol=0, atol=0)
+
+
+def test_compute_residual_on_card(cuda):
+    """``compute_residual`` of ``feature`` at each level, B=8 120x160: one K1
+    a call, within 1e-6 relative of the plain versions (K1 is bit-exact;
+    no K6 runs)."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
+
+    batch = example_batch(8, 120, 160, seed=3, device=cuda)
+    net = build_tracker("feature", device=cuda)
+    plain = build_tracker("feature", device=cuda, plain_kernels=True)
+    with torch.inference_mode():
+        pose = net(*batch)
+        for level in range(4):
+            tk.reset_launches()
+            _, cost = net.compute_residual(*batch, pose_init=pose, level=level)
+            torch.cuda.synchronize()
+            assert tk.LAUNCHES == _launches(gather_twohot=1)
+            _, cost_p = plain.compute_residual(*batch, pose_init=pose, level=level)
+            torch.testing.assert_close(cost, cost_p, rtol=1e-6, atol=0)
+            assert torch.isfinite(cost).all() and (cost > 0).all()

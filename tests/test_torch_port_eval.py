@@ -227,7 +227,7 @@ def test_evaluate_cli_on_cpu(evaluated, sequence, tmp_path, monkeypatch, capsys)
             np.testing.assert_array_equal(dumped[name], info[name], err_msg=name)
 
 
-EVAL_FLAGS = [["--tracker", "ICP"], ["--save_img", "1"], ["--obj_only"], ["--mesh"],
+EVAL_FLAGS = [["--save_img", "1"], ["--obj_only"], ["--mesh"],
               ["--dataset", "MovingObjects3D"], ["--dataset", "ScanNet"],
               ["--dataset", "VaryLighting"]]
 TRAIN_FLAGS = [["--loss", "UEPE3D"], ["--loss", "URPE"], ["--accum_steps", "2"], ["--mesh"],

@@ -106,6 +106,19 @@ def test_lev_mar_damp_and_solve_chol(rng):
     torch.testing.assert_close(x3[..., 0], x, rtol=0, atol=0)
 
 
+def test_solve_chol_is_nan_where_not_positive_definite(rng):
+    """A system that is not positive definite solves to NaN, as the JAX
+    package's (and the card's) Cholesky gives; the others are unchanged."""
+    J = f32(rng, 2, 50, 6)
+    H = np.einsum("bpi,bpj->bij", J, J).astype(np.float32)
+    H[1, 0, 1] = H[1, 1, 0] = 2.0 * np.sqrt(H[1, 0, 0] * H[1, 1, 1])  # indefinite
+    rhs = f32(rng, 2, 6)
+    x = ts.solve_chol(*(torch.from_numpy(a) for a in (H, rhs))).numpy()
+    xj = np.asarray(js.solve_chol(jnp.asarray(H), jnp.asarray(rhs)))
+    assert np.isnan(x[1]).all() and np.isnan(xj[1]).all()
+    np.testing.assert_allclose(x[0], xj[0], rtol=1e-4, atol=ATOL)
+
+
 def test_resolve_device(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -141,11 +154,12 @@ def test_cuda_entries_refuse_cpu_tensors(entry, args):
 
 # what the card's machine lacks: the JAX package and its host libraries
 BLOCKED = ("jax", "flax", "deep_prob_feature_track_tpu", "cv2", "PIL", "pandas", "yaml",
-           "tensorboard", "torch.utils.tensorboard")
+           "tensorboard", "torch.utils.tensorboard", "matplotlib")
 NEW_MODULES = ("data.association", "data.io", "data.loader", "data.pipeline", "data.png",
                "data.transforms", "data.tum", "data.tum_dicts", "evaluation",
                "training.checkpoints", "utils.logger", "utils.timers", "apps.evaluate",
-               "apps.train")
+               "apps.train", "apps.baselines", "apps.kf_vo", "apps.traj_eval",
+               "apps.import_checkpoint", "apps.convergence_basin")
 
 
 def _blocked_python(code):
@@ -157,7 +171,9 @@ def _blocked_python(code):
 def test_port_imports_without_jax():
     """Every port module imports with jax, flax, the JAX package and the
     host libraries the card's machine lacks (OpenCV, PIL, pandas, PyYAML,
-    TensorBoard) blocked, and no port file names the JAX package."""
+    TensorBoard) or may lack (matplotlib, which only the convergence
+    basin's plots import) blocked, and no port file names the JAX
+    package."""
     code = (
         "import pkgutil, importlib\n"
         "import deep_prob_feature_track_torch as p\n"
@@ -184,7 +200,9 @@ def test_port_imports_without_jax():
 
 
 def test_clis_run_on_numpy_alone(tmp_path):
-    """The evaluate and train CLIs read a TUM-format sequence (written by
+    """The evaluate (with a learned tracker and a baseline), train,
+    keyframe VO, trajectory evaluation, checkpoint import and
+    convergence-basin CLIs read a TUM-format sequence (written by
     ``chip_smoke.write_png``, no PIL) and run on the CPU with the same
     modules blocked."""
     code = f"""
@@ -204,8 +222,35 @@ assert train.main(["--data_root", root, "--keyframes", "1", "--batch_size", "2",
                    "--image_resize", "0.1", "--epochs", "1", "--max_steps_per_epoch", "1",
                    "--no_val", "--checkpoint_folder", os.path.join(root, "logs"),
                    "--device", "cpu"]) == 0
+import torch
+from deep_prob_feature_track_torch.apps import (convergence_basin, import_checkpoint, kf_vo,
+                                                traj_eval)
+from deep_prob_feature_track_torch.models.presets import get_preset
+from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
+seq = os.path.join(root, "seq")
+assert evaluate.main(["--data_root", "", "--trajectory", seq, "--keyframes", "1",
+                      "--batch_size", "2", "--image_resize", "0.1", "--tracker", "RGBD",
+                      "--output_dir", os.path.join(root, "out"), "--device", "cpu"]) == 0
+vo = os.path.join(root, "vo.txt")
+assert kf_vo.main(["--data_root", "", "--trajectory", seq, "--image_resize", "0.1",
+                   "--vo_type", "keyframe", "--output", vo, "--device", "cpu"]) == 0
+assert traj_eval.main(["--est", vo, "--gt", os.path.join(seq, "groundtruth.txt"),
+                       "--max_dt", "100"]) == 0
+net = LeastSquareTracking(get_preset("feature")).reset_parameters(1)
+torch.save({{"state_dict": {{"module." + k: v for k, v in net.state_dict().items()}}}},
+           os.path.join(root, "ref.pth.tar"))
+assert import_checkpoint.main(["--torch_checkpoint", os.path.join(root, "ref.pth.tar"),
+                               "--output", os.path.join(root, "imported.pt"), "--strict"]) == 0
+assert convergence_basin.main(["--data_root", "", "--trajectory", seq, "--image_resize", "0.1",
+                               "--cb_dimension", "1D", "--pert_samples", "3",
+                               "--checkpoint", os.path.join(root, "imported.pt"),
+                               "--output", os.path.join(root, "cb.pkl"), "--device", "cpu"]) == 0
 """
     out = _blocked_python(code)
     assert out.returncode == 0, out.stderr
     assert os.path.isfile(tmp_path / "out" / "nolearning_feature" / "summary.csv")
+    assert os.path.isfile(tmp_path / "out" / "nolearning_RGBD" / "summary.csv")
+    assert len((tmp_path / "vo.txt").read_text().splitlines()) == 5
+    assert '"ate_rmse_m"' in out.stdout
+    assert os.path.isfile(tmp_path / "imported.pt") and os.path.isfile(tmp_path / "cb.pkl")
     assert len(list((tmp_path / "logs").rglob("checkpoint_epoch1.pt"))) == 1
