@@ -196,6 +196,35 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    tracker's bit for bit; the JSON record gets ``cli_baselines``,
    ``kf_vo``, ``convergence_basin`` and ``import_checkpoint``.
 
+35. the kernels at the masked operands' odd channel counts (the frame-1
+   object mask rides in the operand as its last channel, 0 or 1): K1 at
+   C=11 (U_IC) and 7 (ICP) at the 120x160 B=8 levels, K2 and K3 at C=11 at
+   the B=64 levels, K4 at C=11, 7 and 29 (U_FC) at 480x640 B=8 (C=29 also
+   on 240x320 and 120x160), K5 at C=11 at 480x640 and 240x320 B=4, on
+   smooth and teleported coordinates, against their plain versions (K1, K2,
+   K4, K5 ``out`` bit-exact, gx/gy within 1e-6, K3 within 1e-5), then each
+   timed at level 0 beside the unmasked operand's even count (10, 6, 28)
+   and, K1-K4, at C=12 (the C=11 operand padded);
+36. on a MovingObjects3D-format dataset (``write_mo3d_dataset``: a textured
+   square turning and moving in front of a textured wall, seen from a moving
+   camera, 640x480, every sequence of the dataset's ranges): every preset's
+   masked forward at 120x160 B=8 (the first boat pairs) and ``feature``'s at
+   640x480 B=8, launches pinned (as unmasked; ``RGB`` K1 36, ``DeepIC`` K1
+   75, since the IC residual warps the frame-1 mask in a gather of its
+   own), against the plain kernels within 1e-4, timed;
+37. ``apps.evaluate.main --dataset MovingObjects3D --obj_only --save_img
+   1`` with ``feature`` at 120x160 B=8 (400 pairs): launches per batch as
+   served, the boat's poses against the plain kernels, frames/s, the
+   loader-wait share, the 13 diagnostic PNG files; ``--tracker ICP
+   --obj_only`` on the boat (K1 40 a batch);
+38. ``apps.train.main --dataset MovingObjects3D --no_val`` with
+   ``feature``, B=64, keyframes 1, 2 and 4, two steps at 120x160: K2, K3
+   and K6 12 times a step, ms a step, the loader wait;
+39. ``apps.warping_objects.main`` on the boat's first 4 pairs with
+   ``--gt_pose`` (K1 once a pair, C=3) and tracked by ``feature`` with the
+   masks (K1 13, K6 12 a pair): the masked residuals, the mosaics decode;
+   the JSON record gets ``objects``.
+
 Phase 16 also records K4's staged share on the U_FC forwards (480x640 and
 120x160, on the synthetic scene and on the served requests), 17 times K4
 (C=28, beside K1 and ``grid_sample``), K1 (C=28 and 49), K2 and K3 (C=28)
@@ -433,6 +462,79 @@ def write_tum_sequence(seq_dir: str, n: int = TUM_FRAMES, save=write_png) -> lis
         with open(os.path.join(seq_dir, f"{name}.txt"), "w") as fh:
             fh.write("# timestamp data\n" + "\n".join(rows) + "\n")
     return poses
+
+
+# the MovingObjects3D categories (``data/moving_objects.py::CATEGORIES``):
+# every sequence a range names gets an info.pkl
+MO3D_CATEGORIES = {"aeroplane": 200, "bicycle": 200, "bus": 200, "car": 200,
+                   "boat": 200, "motorbike": 200}
+MO3D_FRAMES = 6  # the frames of the one rendered clip the sequences share
+
+
+def write_mo3d_dataset(root: str, h: int = 480, w: int = 640, n: int = MO3D_FRAMES,
+                       categories=None, test_visible: int = 2, save=write_png) -> dict:
+    """Render a MovingObjects3D-format dataset into ``root``: one clip of
+    ``n`` h x w frames (``clip/color_i.png`` 8-bit RGB, ``clip/depth_i.png``
+    16-bit depth in mm, ``clip/mask_i.png`` 8-bit with index 1 on the
+    object) and an ``info.pkl`` for every sequence of ``categories`` (name
+    -> sequence count; the dataset's full ranges by default), all pointing
+    at the clip, the test objects (boat, motorbike) with their first
+    ``test_visible`` frames visible.  The scene: a textured square of 0.8 m
+    turning and moving at ~2 m in front of a textured wall at 4 m, seen from
+    a camera that moves too; the exact camera and object poses (to world)
+    go in ``info.pkl``.  ``save(path, array)`` writes one image.  Returns
+    the intrinsics and the poses."""
+    import pickle
+
+    clip = os.path.join(root, "clip")
+    os.makedirs(clip, exist_ok=True)
+    fx = fy = 525.0 * w / 640
+    cx, cy = (w - 1) / 2, (h - 1) / 2
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    rays = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1)
+    cams, objs, paths = [], [], {"color": [], "depth": [], "object_mask": []}
+    for i in range(n):
+        cam, obj = np.eye(4), np.eye(4)
+        cam[:3, :3] = _rotation((0.3, 1.0, 0.2), np.radians(0.4) * i)
+        cam[:3, 3] = np.array([0.01, 0.005, 0.004]) * i
+        obj[:3, :3] = _rotation((0.2, 1.0, 0.1), np.radians(3.0) * i + 0.3)
+        obj[:3, 3] = np.array([-0.15 + 0.03 * i, -0.05 + 0.015 * i, 2.0 + 0.02 * i])
+        d = rays @ cam[:3, :3].T  # world directions with camera depth 1
+        o = cam[:3, 3]
+        s_bg = (4.0 - o[2]) / d[..., 2]
+        normal = obj[:3, 2]
+        s_obj = (normal @ (obj[:3, 3] - o)) / (d @ normal)
+        local = (o + s_obj[..., None] * d - obj[:3, 3]) @ obj[:3, :3]
+        hit = (np.abs(local[..., 0]) < 0.4) & (np.abs(local[..., 1]) < 0.4) & (s_obj > 0) \
+            & (s_obj < s_bg)
+        wall = o + s_bg[..., None] * d
+        a = np.where(hit, local[..., 0], wall[..., 0])
+        b = np.where(hit, local[..., 1], wall[..., 1])
+        f = np.where(hit, 0.035, 0.07)[..., None]
+        ph = np.array([0.0, 1.0, 2.0])
+        color = (0.5 + 0.25 * np.sin(a[..., None] / f + ph) * np.cos(b[..., None] / (1.6 * f) - ph)
+                 + 0.1 * np.sin((a + 2 * b)[..., None] / (0.7 * f) + 2 * ph))
+        depth = np.where(hit, s_obj, s_bg)
+        for key, name, img in (
+                ("color", "color", np.clip(np.rint(color * 255), 0, 255).astype(np.uint8)),
+                ("depth", "depth", np.rint(depth * 1000).astype(np.uint16)),
+                ("object_mask", "mask", hit.astype(np.uint8))):
+            save(os.path.join(clip, f"{name}_{i:04d}.png"), img)
+            paths[key].append(f"/data/final/clip/{name}_{i:04d}.png")
+        cams.append(cam)
+        objs.append(obj)
+    calib = [fx, fy, cx, cy]
+    for name, count in (categories or MO3D_CATEGORIES).items():
+        visible = list(range(test_visible if name in ("boat", "motorbike") else n))
+        info = {**paths, "pose": cams, "object_poses": {"Model_1": objs},
+                "object_visible_frames": {"Model_1": visible}, "calib": calib}
+        blob = pickle.dumps(info)
+        for seq in range(count):
+            seq_dir = os.path.join(root, name, f"{seq:06d}")
+            os.makedirs(seq_dir, exist_ok=True)
+            with open(os.path.join(seq_dir, "info.pkl"), "wb") as fh:
+                fh.write(blob)
+    return {"calib": calib, "cam": cams, "obj": objs}
 
 
 def log(msg: str) -> None:
@@ -2138,6 +2240,377 @@ def phase_cli(torch, dev):
     return {"cli_eval": cli_eval, "cli_train": cli_train, "png_decode_ms": decode, **apps}
 
 
+# object masks (MovingObjects3D): the frame-1 mask rides in the U_IC, fused
+# ICP and U_FC operands as one more channel
+C_OBJ_UIC, C_OBJ_ICP, C_OBJ_UFC = C_WARP + 1, 7, C_UFC + 1
+# per masked forward at 120x160 B=8: as unmasked where the mask rides in the
+# operand (U_IC, U_FC) or is ignored (the ICP track); an IC residual warps
+# the frame-1 mask in a gather of its own: RGB 3 a residual, DeepIC 3 a
+# residual of its first, damping-sample and new residuals (18 a level) and
+# its 3 upsamples
+OBJ_LAUNCHES = {
+    ("feature", ()): SERVE_LAUNCHES,
+    ("feature_icp", ()): ICP_SERVE_LAUNCHES,
+    ("DeepIC", ()): counts(gather_twohot=75),
+    ("feature", UFC): UFC_SERVE_LAUNCHES,
+    ("RGB", ()): counts(gather_twohot=36),
+    ("ICP", ()): CLASSICAL_LAUNCHES["ICP"],
+    ("RGB+ICP", ()): CLASSICAL_LAUNCHES["RGB+ICP"],
+}
+OBJ_VGA_LAUNCHES = VGA_SERVE_LAUNCHES  # feature at 640x480: K4 at level 0 (C=11)
+# --save_img's diagnostics forward of one batch: the forward's launches and
+# one more U_IC residual a level
+OBJ_DIAG_LAUNCHES = counts(gather_twohot=16, fused_jtj_jtr=12)
+OBJ_KEYFRAMES_TRAIN = "1,2,4"  # scripts/train_object_3d.sh
+OBJ_PAIRS = 4  # warping_objects' pairs
+
+
+def mask_last_channel(torch, F):
+    """``F`` [b,h,w,C] with its last channel a 0/1 object mask (an ellipse
+    over the middle of the plane), as the masked operands carry it."""
+    _, h, w, _ = F.shape
+    yy = torch.arange(h, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, dtype=torch.float32)[None, :]
+    F = F.clone()
+    F[..., -1] = ((((yy - h / 2) / (0.35 * h)) ** 2 + ((xx - w / 2) / (0.3 * w)) ** 2) < 1
+                  ).float().to(F.device)
+    return F
+
+
+def phase_objmask_kernels(torch, dev, name):
+    """Phase 35: the kernels at the masked operands' channel counts, odd,
+    so K1-K5 take their scalar paths: K1 at C=11 (U_IC) and 7 (ICP) at the
+    120x160 B=8 levels, K2 and K3 at C=11 at the B=64 levels, K4 at C=11, 7
+    and 29 (U_FC) at 480x640 B=8 (and C=29 on its 240x320 and 120x160
+    planes), K5 at C=11 at 480x640 and 240x320 B=4; smooth and teleported
+    coordinates, the last channel a 0/1 mask (K3's cotangent zero there);
+    against the plain versions: K1, K2's and K4's ``out`` and K5's bit-exact
+    (K2, K4 and K5 also with K1 / K2), gx/gy within 1e-6, K3 within 1e-5 of
+    the largest entry.  Then each timed at level 0 beside the even channel
+    count of the unmasked operand (C=10, 6, 28), in this call, and K1-K4 at
+    C=12 (the masked U_IC operand padded to an even count)."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    err = {k: 0.0 for k in TPU_SOURCES if k != "fused_jtj_jtr"}
+    for i, (h, w) in enumerate(LEVELS):
+        for coords in ("smooth", "teleported"):
+            for c in (C_OBJ_UIC, C_OBJ_ICP):
+                F, args, _ = flat_inputs(torch, dev, B, h, w, c, 220 + i, coords)
+                F = mask_last_channel(torch, F)
+                out, ref = K.gather_twohot_cuda(F, *args), K.gather_twohot_ref(F, *args)
+                torch.cuda.synchronize()
+                e = (out - ref).abs().max().item()
+                if e != 0.0:
+                    raise AssertionError(f"gather_twohot is not bit-exact at C={c}, level {i}, "
+                                         f"{coords}: {e}")
+            label = f"level {i} {h}x{w}, C={C_OBJ_UIC}, {coords} coordinates, B={B_TRAIN}"
+            F, args, _ = flat_inputs(torch, dev, B_TRAIN, h, w, C_OBJ_UIC, 230 + i, coords)
+            F = mask_last_channel(torch, F)
+            err["gather_twohot_grads"] = max(err["gather_twohot_grads"],
+                                             check_k2(torch, F, args, label))
+            g = torch.randn(B_TRAIN, C_OBJ_UIC, h * w, generator=torch.Generator().manual_seed(i))
+            g[:, -1] = 0.0  # the mask channel's cotangent
+            g = g.to(dev)
+            got, ref = K.splat_twohot_cuda(g, *args, h, w), K.splat_twohot_ref(g, *args, h, w)
+            torch.cuda.synchronize()
+            e3 = (got - ref).abs().max().item()
+            top = ref.abs().max().item()
+            if not e3 <= 1e-5 * top:
+                raise AssertionError(f"splat_twohot disagrees at {label}: {e3}")
+            err["splat_twohot"] = max(err["splat_twohot"], e3)
+        log(f"K1 at C={C_OBJ_UIC} and {C_OBJ_ICP}, K2 and K3 at C={C_OBJ_UIC}, level {i} "
+            f"{h}x{w}: bit-exact (K3 within 1e-5)")
+    cases = [(c, VGA_LEVELS[0]) for c in (C_OBJ_UIC, C_OBJ_ICP, C_OBJ_UFC)]
+    cases += [(C_OBJ_UFC, hw) for hw in (VGA_LEVELS[1], (H, W))]
+    for c, (h, w) in cases:
+        for coords in ("smooth", "teleported"):
+            F, maps, _ = tile_inputs(torch, dev, B, h, w, c, 240 + c, coords)
+            err["gather_tiles"] = max(err["gather_tiles"], check_k4(
+                torch, mask_last_channel(torch, F), maps, f"C={c} {h}x{w} {coords}"))
+        log(f"K4 gather_tiles C={c} B={B} {h}x{w}: bit-exact with its plain version and K1")
+    for h, w in VGA_LEVELS[:2]:
+        for coords in ("smooth", "teleported"):
+            F, maps, _ = tile_inputs(torch, dev, B_VGA_TRAIN, h, w, C_OBJ_UIC, 250, coords)
+            F = mask_last_channel(torch, F)
+            got = K.gather_tiles_grads_cuda(F, *maps)
+            ref = K.gather_tiles_grads_ref(F, *maps)
+            full = K.gather_twohot_grads_cuda(F, *[m.reshape(B_VGA_TRAIN, -1) for m in maps])
+            torch.cuda.synchronize()
+            e_out = max((got[0] - ref[0]).abs().max().item(), (got[0] - full[0]).abs().max().item())
+            e2 = max((a - r).abs().max().item() for a, r in zip(got[1:], ref[1:]))
+            top = max(r.abs().max().item() for r in ref[1:])
+            if e_out != 0.0 or not e2 <= 1e-6 * top:
+                raise AssertionError(f"gather_tiles_grads at C={C_OBJ_UIC} {h}x{w} {coords}: "
+                                     f"out {e_out}, gx/gy {e2}")
+            err["gather_tiles_grads"] = max(err["gather_tiles_grads"], e2)
+        log(f"K5 gather_tiles_grads C={C_OBJ_UIC} B={B_VGA_TRAIN} {h}x{w}: out bit-exact with "
+            "its plain version and K2, gx/gy within 1e-6")
+
+    bw, flops = peaks(name)
+    rows = []
+    # each masked count beside the unmasked one, and C=11 beside C=12 too:
+    # the masked U_IC operand padded to an even count
+    for c in (C_OBJ_UIC, C_WARP, C_WARP + 2, C_OBJ_ICP, 6):
+        F, args, uv = flat_inputs(torch, dev, B, H, W, c, 260, "smooth")
+        rows.append({"kernel": "gather_twohot", "b": B, "hw": [H, W], "c": c,
+                     **k1_timing(torch, F, args, uv, bw, flops)})
+    for c in (C_OBJ_UIC, C_WARP, C_WARP + 2):
+        F, args, uv = flat_inputs(torch, dev, B_TRAIN, H, W, c, 261, "smooth")
+        rows.append({"kernel": "gather_twohot_grads", "b": B_TRAIN, "hw": [H, W], "c": c,
+                     **k2_timing(torch, F, args, bw, flops)})
+        g = torch.randn(B_TRAIN, c, H * W, generator=torch.Generator().manual_seed(262)).to(dev)
+        rows.append({"kernel": "splat_twohot", "b": B_TRAIN, "hw": [H, W], "c": c,
+                     **k3_timing(torch, g, args, uv, H, W, bw, flops)})
+    k4_sets = ((C_OBJ_UIC, C_WARP, C_WARP + 2), (C_OBJ_ICP, 6), (C_OBJ_UFC, C_UFC))
+    for kname, b, pairs in (("gather_tiles", B, k4_sets),
+                            ("gather_tiles_grads", B_VGA_TRAIN, ((C_OBJ_UIC, C_WARP),))):
+        for pair in pairs:
+            for c in pair:
+                F, maps, uv = tile_inputs(torch, dev, b, H_VGA, W_VGA, c, 263, "smooth")
+                rows.append({"kernel": kname, "b": b, "hw": [H_VGA, W_VGA], "c": c,
+                             **tile_timing(torch, kname, F, maps, uv, bw, flops)})
+    for r in rows:
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"objects: {r['kernel']} C={r['c']} B={r['b']} {r['hw'][0]}x{r['hw'][1]}, smooth "
+            f"coordinates: {r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain "
+            f"{r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.4f})")
+    return err, rows
+
+
+def _mo3d_batch(torch, dev, root, scale, b=B):
+    """The first ``b`` test pairs of the boat sequences at ``scale``, with
+    their object masks, as tensors on ``dev``."""
+    from deep_prob_feature_track_torch.data.moving_objects import MovingObjects3D
+    from deep_prob_feature_track_torch.data.pipeline import collate, to_device
+
+    data = MovingObjects3D(root, "test", [1], select_traj="boat", image_resize=scale)
+    return to_device(collate([data[i] for i in range(b)]), dev)
+
+
+def phase_obj_forwards(torch, dev, root):
+    """Phase 36: every preset's masked forward at 120x160 B=8 (the first 8
+    boat pairs) and ``feature``'s at 640x480 B=8, with the launch counts of
+    ``OBJ_LAUNCHES`` (reset just before, read just after), against the
+    plain kernels within 1e-4 on R and t; the masks must move each pose
+    (by more than 1e-6) but the ICP track's; events ms of the masked
+    forwards, one profiled."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    out = {}
+    cases = [(p, o, CLI_SMALL, n) for (p, o), n in OBJ_LAUNCHES.items()]
+    cases.append(("feature", (), CLI_VGA, OBJ_VGA_LAUNCHES))
+    batches = {}
+    for preset, overrides, scale, expected in cases:
+        if scale not in batches:
+            batches[scale] = _mo3d_batch(torch, dev, root, scale)
+        batch = batches[scale]
+        args = [batch[k] for k in KEYS]
+        masks = {k: batch[k] for k in ("obj_mask0", "obj_mask1")}
+        label = f"{config_name(preset, overrides)} B={B} at {scale}, object masks"
+        net = build_tracker(preset, device=dev, overrides=overrides)
+        plain = build_tracker(preset, device=dev, plain_kernels=True, overrides=overrides)
+        with torch.inference_mode():
+            K.reset_launches()
+            R, t = net(*args, **masks)
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            R_p, t_p = plain(*args, **masks)
+            _, t_u = net(*args)
+            gap = max((R - R_p).abs().max().item(), (t - t_p).abs().max().item())
+            moved = (t - t_u).abs().max().item()
+            ms = time_ms(torch, lambda: net(*args, **masks), reps=10, warmup=2)
+            plain_ms = time_ms(torch, lambda: plain(*args, **masks), reps=10, warmup=2)
+            row = {"launches": launches, "vs_plain": gap, "moved_by_masks": moved,
+                   "forward_ms": ms, "forward_plain_ms": plain_ms}
+            if (preset, overrides, scale) == ("feature", (), CLI_SMALL):
+                row["profile"] = profile(torch, lambda: net(*args, **masks), label + " forward")
+        log(f"{label}: launches {launches}, kernels against plain {gap:.3e}, the masks moved "
+            f"t by {moved:.3e}; {ms:.3f} ms a forward ({plain_ms:.3f} plain)")
+        if launches != expected:
+            raise AssertionError(f"{label} launched {launches}, expected {expected}")
+        if not (gap <= 1e-4 and torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: the kernel forward is {gap} from the plain one")
+        if (moved <= 1e-6) != (preset == "ICP"):  # the ICP track ignores the masks
+            raise AssertionError(f"{label}: the masks moved t by {moved}")
+        out[f"{label}"] = row
+    return out
+
+
+def phase_obj_cli_eval(torch, dev, root, workdir):
+    """Phase 37: ``apps.evaluate.main --dataset MovingObjects3D --obj_only
+    --save_img 1`` with ``feature`` at 120x160 B=8, keyframe 1 (boat and
+    motorbike, 200 sequences each): launches per batch as served, and the
+    diagnostics' batch; the boat's poses against ``evaluate_two_view``
+    through the plain kernels within 1e-4; frames/s and the loader-wait
+    share; the 13 diagnostic PNG files decode; then ``--tracker ICP
+    --obj_only`` on the boat: K1 40 a batch, poses against the plain
+    baseline within 1e-4 (NaN in the same frames)."""
+    from deep_prob_feature_track_torch import evaluation
+    from deep_prob_feature_track_torch.apps import evaluate
+    from deep_prob_feature_track_torch.apps.baselines import make_baseline
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+    from deep_prob_feature_track_torch.data.png import read_png
+
+    import pickle
+
+    out = {}
+    for tracker, expected in (("learning_based", SERVE_LAUNCHES),
+                              ("ICP", BASELINE_LAUNCHES["ICP"])):
+        out_dir = os.path.join(workdir, f"mo3d_eval_{tracker}")
+        args = ["--dataset", "MovingObjects3D", "--data_root", root, "--keyframes", "1",
+                "--batch_size", str(B), "--image_resize", str(CLI_SMALL), "--obj_only",
+                "--tracker", tracker, "--output_dir", out_dir, "--device", str(dev)]
+        args += ["--save_img", "1"] if tracker == "learning_based" else ["--trajectory", "boat"]
+        size = f"evaluate CLI MovingObjects3D --obj_only --tracker {tracker} {CLI_SMALL}"
+        probe = _CliProbe(torch)
+        try:
+            probe.K.reset_launches()
+            t0 = time.monotonic()
+            if evaluate.main(args) != 0:
+                raise AssertionError(f"{size} failed")
+            wall = time.monotonic() - t0
+            torch.cuda.synchronize()
+            launches = dict(probe.K.LAUNCHES)
+        finally:
+            probe.restore()
+        want = {k: n * probe.batches for k, n in expected.items()}
+        if tracker == "learning_based":
+            want = {k: n + OBJ_DIAG_LAUNCHES[k] for k, n in want.items()}
+        if launches != want:
+            raise AssertionError(f"{size} launched {launches}, expected {want}")
+        name = "nolearning_feature" if tracker == "learning_based" else "nolearning_ICP"
+        with open(os.path.join(out_dir, name, "boat_keyframe_1.pkl"), "rb") as fh:
+            got = pickle.load(fh)
+        (loader,) = evaluation.create_eval_loaders("MovingObjects3D", "test", [1], B,
+                                                   trajectory="boat", image_resize=CLI_SMALL,
+                                                   root=root).values()
+        if tracker == "learning_based":
+            net = build_tracker("feature", device=dev, plain_kernels=True)
+        else:
+            baseline = make_baseline("ICP", plain=True)
+
+            def net(c0, c1, d0, d1, K, obj_mask0=None, obj_mask1=None):
+                return baseline.batch_track(c0, d0, c1, d1, K)
+        ref = evaluation.evaluate_two_view(loader, net, dev, has_mask=True, obj_only=True)
+        gap = max(_finite_gap(got["R_est"], ref["R_est"], size),
+                  _finite_gap(got["t_est"], ref["t_est"], size))
+        if not gap <= 1e-4:
+            raise AssertionError(f"{size}: the CLI's poses are {gap:.3e} from the plain ones")
+        row = {"frames": probe.frames, "batches": probe.batches, "launches": launches,
+               "wall_s": wall, "fps": probe.frames / probe.loop_s,
+               "loader_wait_share": probe.wait_s / probe.loop_s, "vs_plain": gap,
+               "epe3d_cm_boat": float(np.nanmean(got["epes"]) * 100)}
+        if tracker == "learning_based":
+            vis = os.path.join(out_dir, name, "vis", "batch000")
+            files = sorted(os.listdir(vis))
+            shapes = {f: read_png(os.path.join(vis, f)).shape for f in files}
+            if len(files) != 13 or any(s[2] != 3 for s in shapes.values()):
+                raise AssertionError(f"{size}: --save_img wrote {shapes}")
+            row["save_img_files"] = len(files)
+        log(f"{size}: {probe.frames} frames in {probe.batches} batches, launches {launches}; "
+            f"{row['fps']:.1f} frames/s over the loop, {row['loader_wait_share']:.3f} of it "
+            f"waiting on the loader; CLI against plain {gap:.3e}; boat EPE3D "
+            f"{row['epe3d_cm_boat']:.3f} cm")
+        out[tracker] = row
+    return out
+
+
+def phase_obj_cli_train(torch, dev, root, workdir):
+    """Phase 38: ``apps.train.main --dataset MovingObjects3D --no_val`` with
+    ``feature``, B=64, keyframes 1, 2 and 4 at 120x160, two steps: K2, K3
+    and K6 12 times a step, finite losses; ms a step and the time spent
+    waiting on the loader."""
+    from deep_prob_feature_track_torch.apps import train
+
+    args = ["--dataset", "MovingObjects3D", "--data_root", root, "--keyframes",
+            OBJ_KEYFRAMES_TRAIN, "--batch_size", str(B_TRAIN), "--image_resize", str(CLI_SMALL),
+            "--epochs", "1", "--max_steps_per_epoch", "2", "--no_val", "--checkpoint_folder",
+            os.path.join(workdir, "mo3d_logs"), "--device", str(dev)]
+    probe = _CliProbe(torch)
+    try:
+        t0 = time.monotonic()
+        if train.main(args) != 0:
+            raise AssertionError("the MovingObjects3D train CLI failed")
+        wall = time.monotonic() - t0
+    finally:
+        probe.restore()
+    for i, st in enumerate(probe.steps):
+        log(f"train CLI MovingObjects3D B={B_TRAIN} step {i}: loss {st['loss']:.6f}, "
+            f"{st['ms']:.1f} ms, launches {st['launches']}")
+        if not np.isfinite(st["loss"]) or st["launches"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"MovingObjects3D train step {i}: loss {st['loss']}, launches "
+                                 f"{st['launches']}, expected {TRAIN_LAUNCHES}")
+    if len(probe.steps) != 2:
+        raise AssertionError(f"the MovingObjects3D train CLI took {len(probe.steps)} steps")
+    log(f"train CLI MovingObjects3D: {wall:.2f} s in all, {probe.wait_s:.2f} s waiting on the "
+        "loader")
+    return {"steps": probe.steps, "step_ms": [st["ms"] for st in probe.steps], "wall_s": wall,
+            "loader_wait_s": probe.wait_s}
+
+
+def phase_warping(torch, dev, root, workdir):
+    """Phase 39: ``apps.warping_objects.main`` on the boat's first
+    ``OBJ_PAIRS`` pairs, with ``--gt_pose`` (one K1 at C=3 a pair) and
+    tracked by ``feature`` with the masks (K1 13 and K6 12 a pair): the
+    masked residual printed per pair, the mosaics decode; the ground-truth
+    residual below the tracked one is not required (random weights)."""
+    from deep_prob_feature_track_torch.apps import warping_objects
+    from deep_prob_feature_track_torch.data.png import read_png
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    out = {}
+    for mode, per_pair in (("gt_pose", counts(gather_twohot=1)),
+                           ("tracked", counts(gather_twohot=13, fused_jtj_jtr=12))):
+        out_dir = os.path.join(workdir, f"warp_{mode}")
+        args = ["--data_root", root, "--object", "boat", "--num_pairs", str(OBJ_PAIRS),
+                "--output_dir", out_dir, "--device", str(dev)]
+        args += ["--gt_pose"] if mode == "gt_pose" else []
+        buf = io.StringIO()
+        K.reset_launches()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            if warping_objects.main(args) != 0:
+                raise AssertionError(f"warping_objects {mode} failed")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(K.LAUNCHES)
+        residuals = [float(line.rsplit(" ", 1)[1]) for line in buf.getvalue().splitlines()
+                     if "masked residual" in line]
+        want = {k: n * OBJ_PAIRS for k, n in per_pair.items()}
+        shapes = {f: read_png(os.path.join(out_dir, f)).shape for f in sorted(os.listdir(out_dir))}
+        log(f"warping_objects {mode}: masked residuals {residuals}, launches {launches}, "
+            f"mosaics {sorted(set(shapes.values()))}, {wall:.2f} s")
+        if launches != want or len(residuals) != OBJ_PAIRS or not np.isfinite(residuals).all():
+            raise AssertionError(f"warping_objects {mode}: launches {launches} (expected "
+                                 f"{want}), residuals {residuals}")
+        if len(shapes) != OBJ_PAIRS or any(s != (2 * H, 2 * W, 3) for s in shapes.values()):
+            raise AssertionError(f"warping_objects {mode}: mosaics {shapes}")
+        out[mode] = {"masked_residual": residuals, "launches": launches, "wall_s": wall}
+    return out
+
+
+def phase_objects(torch, dev):
+    """Phases 36-39 on a MovingObjects3D dataset (``write_mo3d_dataset`` at
+    640x480, every sequence of the categories' ranges) in a temporary
+    directory, removed after."""
+    import shutil
+
+    workdir = tempfile.mkdtemp(prefix="dpft_mo3d_")
+    try:
+        root = os.path.join(workdir, "mo3d")
+        t0 = time.monotonic()
+        write_mo3d_dataset(root)
+        log(f"wrote a MovingObjects3D-format dataset ({MO3D_FRAMES} frames of 640x480, "
+            f"{sum(MO3D_CATEGORIES.values())} sequences) in {time.monotonic() - t0:.1f} s")
+        return {"forwards": phase_obj_forwards(torch, dev, root),
+                "cli_eval": phase_obj_cli_eval(torch, dev, root, workdir),
+                "cli_train": phase_obj_cli_train(torch, dev, root, workdir),
+                "warping_objects": phase_warping(torch, dev, root, workdir)}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def phase_forward(torch, dev, h, w, preset="feature", overrides=()):
     """The B=8 forward of ``preset`` at h x w, with the kernels and with
     their plain versions, and one profiled forward."""
@@ -2376,6 +2849,10 @@ def run(torch, loader, dev, name, smi):
     ufc_mest_train = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, UFC_MEST_TRAIN_LAUNCHES,
                                  overrides=UFC_MEST)
     cli = phase_cli(torch, dev)
+    obj_errors, obj_kernel_rows = phase_objmask_kernels(torch, dev, name)
+    for k, e in obj_errors.items():
+        errors[k] = max(errors[k], e)
+    objects = {"kernel_times": obj_kernel_rows, **phase_objects(torch, dev)}
     m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
                       "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
@@ -2383,7 +2860,8 @@ def run(torch, loader, dev, name, smi):
                       "ufc_train": ufc_train, "ufc_mest_train": ufc_mest_train,
                       "ufc_serve_launches": ufc_launches, "ufc_k4_staged_share": ufc_k4_shares,
                       "preset_agree": presets, "scene_staged_share": scene_shares,
-                      "vga_serve_launches": vga_launches, **cli, "card": smi}), flush=True)
+                      "vga_serve_launches": vga_launches, **cli, "objects": objects,
+                      "card": smi}), flush=True)
 
     # K1 and K6 as the 120x160 serve path launched them, K2 and K3 as the
     # 120x160 train path did; K4 as the 480x640 serve path, K5 as the 480x640

@@ -52,9 +52,8 @@ class _BaseTracker:
         """:return: ``(R [B,3,3], t [B,3])`` on the inputs' device; a
         sample whose ``||t||`` exceeds 1 comes back as the identity, a NaN
         one (a damped system that is not positive definite in float32)
-        as NaN."""
-        if batch_objmask0 is not None or batch_objmask1 is not None:
-            raise NotImplementedError("object masks are not ported (ROADMAP item 3)")
+        as NaN.  The object masks are taken and ignored, as the JAX
+        baselines ignore them: a baseline tracks the whole frame."""
         R, t = self.track(color0, depth0, color1, depth1, K)
         bad = torch.linalg.vector_norm(t, dim=-1) > 1.0
         eye = torch.eye(3, dtype=R.dtype, device=R.device)

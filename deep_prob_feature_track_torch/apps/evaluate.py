@@ -14,17 +14,26 @@ Counterpart of ``deep_prob_feature_track_tpu/apps/evaluate.py``::
     # Iter_Point2Plane, RGBD, ColorICP or Iter_ColorICP
     python -m deep_prob_feature_track_torch.apps.evaluate --tracker RGBD ...
 
+    # object motion on MovingObjects3D: the EPE3D over the object's pixels;
+    # with --obj_only the tracker gets the object masks too
+    python -m deep_prob_feature_track_torch.apps.evaluate \
+        --dataset MovingObjects3D --data_root /path/to/mo3d --obj_only \
+        --keyframes 1,2,4 --save_img 1
+
 Evaluates per (trajectory x keyframe) on the card (``--device cpu`` for
 the CPU), dumps per-frame pickles, prints and saves the cm/deg summary CSV
 under ``--output_dir/<checkpoint name>``.  The checkpoint is a tracker
 ``state_dict`` or a training state written by ``apps/train.py``; without
 one the weights are a seeded init.  A ``--tracker`` baseline's results go
-under ``nolearning_<tracker>``.  ``--time`` prints the stage timers (it
-synchronises the card at every stage).
+under ``nolearning_<tracker>``; it takes and ignores the object masks.
+``--time`` prints the stage timers (it synchronises the card at every
+stage).  ``--save_img N`` draws the learned tracker's per-level features,
+sigma, weighted residual and the finest level's matches for the first N
+batches of the first loader, as PNG files under ``<output dir>/vis``
+(``dump_diagnostics``).
 
-Not ported, and raising ``NotImplementedError``: ``--save_img`` and
-``--obj_only`` (ROADMAP item 3), the MovingObjects3D, ScanNet and
-VaryLighting datasets (items 3 and 6) and ``--mesh`` (item 8).
+Not ported, and raising ``NotImplementedError``: the ScanNet and
+VaryLighting datasets (ROADMAP item 6) and ``--mesh`` (item 8).
 """
 
 from __future__ import annotations
@@ -64,14 +73,63 @@ def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for an option the port lacks, naming
     the ROADMAP item that ports it."""
     missing = [
-        (args.save_img > 0, "--save_img", "3"),
-        (args.obj_only, "--obj_only", "3"),
-        (args.dataset != "TUM_RGBD", f"--dataset {args.dataset}", "3 and 6"),
+        (args.dataset in ("ScanNet", "VaryLighting"), f"--dataset {args.dataset}", "6"),
         (args.mesh, "--mesh", "8"),
     ]
     for hit, what, item in missing:
         if hit:
             raise NotImplementedError(f"{what} is not ported (ROADMAP item {item})")
+
+
+def dump_diagnostics(net, loader, out_dir, n_batches, device, has_mask=False):
+    """Draw the tracker's per-level diagnostics (``track_diagnostics``) of
+    the first item of each of the first ``n_batches`` batches into
+    ``out_dir/batch{i:03d}/``: ``feat0_l{level}.png`` (the RGB image, the
+    channel mean and each channel of the frame-0 features),
+    ``sigma0_l{level}.png`` (the channel-mean sigma, jet),
+    ``residual_l{level}.png`` (the channel-mean |weighted residual|, jet)
+    and ``matches.png`` (the finest level's valid matches on frame 1).
+    With ``has_mask`` the object masks go to the tracker."""
+    import numpy as np
+    import torch
+
+    from ..data.pipeline import to_device
+    from ..evaluation import KEYS
+    from ..utils import display
+
+    os.makedirs(out_dir, exist_ok=True)
+    for bi, batch in enumerate(loader):
+        if bi >= n_batches:
+            break
+        dev = to_device(batch, device)
+        masks = {}
+        if has_mask and "obj_mask0" in batch:
+            masks = {k: dev[k] for k in ("obj_mask0", "obj_mask1")}
+        with torch.inference_mode():
+            _, diag = net.track_diagnostics(*(dev[k] for k in KEYS), **masks)
+
+        def first(t):
+            return t[0].cpu().numpy()
+
+        bdir = os.path.join(out_dir, f"batch{bi:03d}")
+        os.makedirs(bdir, exist_ok=True)
+        rgb0 = batch["color0"][0]
+        for lvl in range(4):
+            display.save_image(os.path.join(bdir, f"feat0_l{lvl}.png"),
+                               display.visualize_feature_channels(
+                                   first(diag["features0"][lvl]), rgb=rgb0))
+            display.save_image(os.path.join(bdir, f"sigma0_l{lvl}.png"),
+                               display.image_to_display(first(diag["sigma0"][lvl]).mean(axis=0),
+                                                        cmap="jet"))
+            display.save_image(os.path.join(bdir, f"residual_l{lvl}.png"),
+                               display.image_to_display(
+                                   np.abs(first(diag["residual"][lvl])).mean(axis=0),
+                                   cmap="jet"))
+        coords, ok = diag["matches"][0]
+        display.save_image(os.path.join(bdir, "matches.png"),
+                           display.visualize_matches_on_image(
+                               batch["color1"][0], first(coords)[:, first(ok)]))
+    print(f"[evaluate] wrote diagnostics mosaics to {out_dir}")
 
 
 def main(argv=None):
@@ -86,6 +144,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     keyframes = [int(k) for k in args.keyframes.split(",")]
+    has_mask = args.dataset == "MovingObjects3D"
     timers = Timers(block=True) if args.time else None
     loaders = create_eval_loaders(
         args.dataset, args.eval_set, keyframes, args.batch_size,
@@ -99,8 +158,8 @@ def main(argv=None):
         baseline = make_baseline(args.tracker)
         ckpt_name = f"nolearning_{args.tracker}"
 
-        def net(c0, c1, d0, d1, K):
-            return baseline.batch_track(c0, d0, c1, d1, K)
+        def net(c0, c1, d0, d1, K, obj_mask0=None, obj_mask1=None):
+            return baseline.batch_track(c0, d0, c1, d1, K, obj_mask0, obj_mask1)
     else:
         net = build_tracker(args.preset, args.checkpoint, device, overrides=args.set)
         if args.checkpoint:
@@ -111,7 +170,8 @@ def main(argv=None):
 
     results = {}
     for key, loader in loaders.items():
-        info = evaluate_two_view(loader, net, device, timers=timers)
+        info = evaluate_two_view(loader, net, device, has_mask=has_mask,
+                                 obj_only=args.obj_only, timers=timers)
         results[key] = info
         print(
             f"{key}: EPE3D={info['epes'].mean() * 100:.3f}cm  "
@@ -121,6 +181,9 @@ def main(argv=None):
         )
 
     out_dir = os.path.join(args.output_dir, ckpt_name)
+    if args.save_img > 0 and args.tracker == "learning_based":
+        dump_diagnostics(net, next(iter(loaders.values())), os.path.join(out_dir, "vis"),
+                         args.save_img, device, has_mask=has_mask)
     csv_path = os.path.join(out_dir, "summary.csv")
     summarize_results(results, keyframes, output_csv=csv_path, dump_dir=out_dir)
     with open(csv_path) as f:

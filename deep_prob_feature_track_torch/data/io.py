@@ -13,6 +13,9 @@ and in the same order, so that both give the same bits:
   depth_scale``, then the clip (``dpft_decode_depth16``).
 
 The output size is ``round(H * scale)`` with the scale in float32.
+
+The JAX package's MovingObjects3D loader reads depth and masks through PIL
+instead; :func:`resize_nearest_pil` copies PIL's nearest resize for it.
 """
 
 from __future__ import annotations
@@ -86,3 +89,33 @@ def read_depth_png(
 
 def hwc_to_chw(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(img, (2, 0, 1)))
+
+
+def _pil_nearest_index(n_in: int, n_out: int, accumulate: bool) -> np.ndarray:
+    """The source index of each of ``n_out`` samples in PIL's nearest
+    resize: ``floor((i + 0.5) * n_in / n_out)`` in float64, taken as PIL
+    takes it: for 8-bit images by adding the step to the running
+    coordinate, sample after sample (``ImagingScaleAffine``), for 16-bit
+    ones at each sample directly (``ImagingGenericTransform``).  The two
+    differ in the last bit where the step is not exact (odd sizes)."""
+    step = n_in / n_out
+    if accumulate:
+        x = np.full(n_out, step)
+        x[0] = step * 0.5
+        x = np.add.accumulate(x)
+    else:
+        x = (np.arange(n_out) + 0.5) * step
+    return np.minimum(x.astype(np.int64), n_in - 1)
+
+
+def resize_nearest_pil(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """PIL's ``Image.resize((out_w, out_h), Image.NEAREST)`` of an 8- or
+    16-bit image [H,W] or [H,W,C], which samples at pixel centres (the
+    native tier of :func:`read_depth_png` samples at ``floor(dst * H /
+    out_h)``, which picks other pixels at 0.25)."""
+    H, W = img.shape[:2]
+    if (out_h, out_w) == (H, W):
+        return img
+    accumulate = img.dtype == np.uint8
+    return img[_pil_nearest_index(H, out_h, accumulate)][:, _pil_nearest_index(W, out_w,
+                                                                                accumulate)]

@@ -1,8 +1,8 @@
 """Dataset factory: ``get_dataset_root`` and ``load_data``.
 
 Counterpart of ``deep_prob_feature_track_tpu/data/loader.py`` for the TUM
-RGB-D dataset; MovingObjects3D, ScanNet and VaryLighting are not ported
-(ROADMAP items 3 and 6).  Dataset roots resolve from (in order): an
+RGB-D and MovingObjects3D datasets; ScanNet and VaryLighting are not ported
+(ROADMAP item 6).  Dataset roots resolve from (in order): an
 explicit ``root`` argument, the ``DPFT_DATA_ROOT`` environment variable, or
 a per-hostname entry in ``setup/datasets.yaml``, which needs PyYAML.
 """
@@ -56,13 +56,24 @@ def load_data(
 ):
     """Create a dataset.
 
-    :param dataset: TUM_RGBD (MovingObjects3D, ScanNet and VaryLighting
+    :param dataset: TUM_RGBD or MovingObjects3D (ScanNet and VaryLighting
         raise ``NotImplementedError``)
     :param load_type: train | validation | test | keyframe
     """
-    if dataset in ("MovingObjects3D", "ScanNet", "VaryLighting"):
-        raise NotImplementedError(
-            f"the {dataset} dataset is not ported (ROADMAP items 3 and 6)")
+    if dataset in ("ScanNet", "VaryLighting"):
+        raise NotImplementedError(f"the {dataset} dataset is not ported (ROADMAP item 6)")
+    augment = ColorAugment(seed=augment_seed) if load_type == "train" else None
+    if dataset == "MovingObjects3D":
+        from .moving_objects import MovingObjects3D
+
+        return MovingObjects3D(
+            root=get_dataset_root("MovingObjects3D", root),
+            category=load_type,
+            keyframes=list(keyframes),
+            select_traj=select_traj,
+            image_resize=image_resize,
+            augment=augment,
+        )
     if dataset != "TUM_RGBD":
         raise ValueError(f"unsupported dataset {dataset!r}")
     from .tum import TUM
@@ -74,5 +85,5 @@ def load_data(
         select_traj=select_traj,
         image_resize=image_resize,
         truncate_depth=truncate_depth,
-        augment=ColorAugment(seed=augment_seed) if load_type == "train" else None,
+        augment=augment,
     )

@@ -1,11 +1,13 @@
-"""PNG decoding on ``zlib`` and numpy alone.
+"""PNG decoding and encoding on ``zlib`` and numpy alone.
 
 The machine that runs the card has neither OpenCV nor PIL, so the port
-reads the datasets' PNG files itself.  :func:`read_png` returns the
-samples of a non-interlaced file of colour type 0 (gray), 2 (RGB), 4 (gray
-and alpha) or 6 (RGBA) at 8 or 16 bits, in the file's channel order, with
-16-bit samples as ``uint16``.  Palette files, bit depths under 8 and
-interlaced files raise ``ValueError`` with the file's name.
+reads the datasets' PNG files and writes its diagnostic images itself.
+:func:`read_png` returns the samples of a non-interlaced file of colour
+type 0 (gray), 2 (RGB), 4 (gray and alpha) or 6 (RGBA) at 8 or 16 bits, in
+the file's channel order, with 16-bit samples as ``uint16``; of an 8-bit
+palette file (colour type 3) it returns the palette indices, one channel,
+as PIL reads them.  Bit depths under 8 and interlaced files raise
+``ValueError`` with the file's name.  :func:`write_png` writes 8-bit RGB.
 
 Each row of the file is filtered by one of five filters.  None, Sub (a
 running sum mod 256 along the row) and Up (a sum with the row above) take a
@@ -24,7 +26,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
 
 
 def _chunks(data: bytes, path: str):
@@ -58,9 +60,9 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: PNG has no IHDR chunk")
     width, height, depth, color, _, _, interlace = header
-    if color not in _CHANNELS or depth not in (8, 16):
+    if color not in _CHANNELS or depth not in (8, 16) or (color == 3 and depth != 8):
         raise ValueError(f"{path}: PNG colour type {color} at {depth} bits is not supported "
-                         "(palette files and bit depths under 8 are not)")
+                         "(bit depths under 8 are not)")
     if interlace:
         raise ValueError(f"{path}: interlaced PNG files are not supported")
     channels = _CHANNELS[color]
@@ -116,3 +118,21 @@ def _unfilter_diagonals(rows: np.ndarray, filters: np.ndarray) -> np.ndarray:
         pred = np.choose(filters[y][:, None], (np.zeros_like(a), a, b, (a + b) >> 1, paeth))
         out[y + 1, x + 1] = (coded[y, x] + pred) & 255
     return out[1:, 1:].astype(np.uint8)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write ``img``, ``uint8`` [H,W,3], as a non-interlaced 8-bit RGB PNG
+    (colour type 2) with unfiltered rows."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"{path}: write_png takes uint8 [H,W,3], got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + _chunk(b"IHDR", header)
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))

@@ -84,11 +84,16 @@ def create_eval_loaders(
 
 
 def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
+                      has_mask: bool = False, obj_only: bool = False,
                       timers=None) -> Dict[str, np.ndarray]:
     """The two-view eval loop.
 
-    :param forward_fn: ``(color0, color1, depth0, depth1, K) -> (R, t)`` on
-        tensors on ``device``
+    :param forward_fn: ``(color0, color1, depth0, depth1, K[, obj_mask0=,
+        obj_mask1=]) -> (R, t)`` on tensors on ``device``
+    :param has_mask: the batches hold object masks (MovingObjects3D): the
+        EPE3D counts only the frame-0 object's pixels
+    :param obj_only: with ``has_mask``, the masks also go to the forward,
+        which then tracks the object
     :return: dict of per-frame arrays (R_est, t_est, epes, angular_error,
         translation_error) and the frames' ``names``; the padding of the
         last batch is dropped
@@ -100,8 +105,11 @@ def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
         if timers:
             timers.tic("forward step")
         dev = to_device(batch, device)
+        masks = {}
+        if has_mask and obj_only:
+            masks = {k: dev[k] for k in ("obj_mask0", "obj_mask1")}
         with torch.inference_mode():
-            R, t = forward_fn(*(dev[k] for k in KEYS))
+            R, t = forward_fn(*(dev[k] for k in KEYS), **masks)
         if timers:
             timers.toc("forward step")
 
@@ -115,6 +123,8 @@ def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
             ang, trs = losses.compute_rpe_error(R, t, R_gt, t_gt)
             depth0 = dev["depth0"]
             invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
+            if has_mask and "obj_mask0" in dev:
+                invalid = invalid | ~dev["obj_mask0"]
             epes = losses.compute_rt_epe_loss(R, t, R_gt, t_gt, depth0, dev["calib"],
                                               invalid=invalid)
         out["angular_error"].append(ang.cpu().numpy()[mask])

@@ -22,7 +22,8 @@ class ScaleNet(nn.Module):
     def __init__(self, estimator_type: str = "None", scale: float = 0.01):
         super().__init__()
         if estimator_type != "None":
-            raise NotImplementedError(f"ScaleNet({estimator_type!r}) is not ported")
+            raise NotImplementedError(
+                f"ScaleNet({estimator_type!r}) is not ported (ROADMAP item 3)")
         self.scale = scale
 
     def forward(self, residual, another_residual=None, w_prior=None):
@@ -98,7 +99,8 @@ class SFMPoseNet(nn.Module):
         super().__init__()
         if multi_hypo != "prob_fuse" or res_input:
             raise NotImplementedError(
-                f"SFMPoseNet(multi_hypo={multi_hypo!r}, res_input={res_input}) is not ported")
+                f"SFMPoseNet(multi_hypo={multi_hypo!r}, res_input={res_input}) is not ported "
+                "(ROADMAP item 3)")
         self.scale_motion = scale_motion
         self.net = nn.Sequential(
             ConvBlock(in_channels, 256, 3, dilation=2),

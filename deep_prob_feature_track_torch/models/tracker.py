@@ -10,11 +10,13 @@ the classical presets ``RGB`` (grayscale IC), ``ICP`` (point-to-plane ICP)
 and ``RGB+ICP`` (grayscale U_IC with the fused ICP term), which start from
 the identity pose; and of their variants over the forward-compositional
 U_FC track (``direction="forward"`` with a sigma), every feature head and
-every sigma type of the encoder; ``compute_residual`` gives each track's
-average residual at a given pose and level.  The one-view ``ConvRGBD``
-encoder, the ``dense_net`` pose initializer, the learned ``ScaleNet``
-types, weights per level, uncertainty propagation and object masks raise
-``NotImplementedError``.
+every sigma type of the encoder.  Every preset takes object masks (the
+relative motion of an object between two frames, given its masks in both):
+the forward, ``compute_residual`` (each track's average residual at a given
+pose and level) and ``track_diagnostics`` (the per-level maps that the
+evaluate CLI's ``--save_img`` draws).  The one-view ``ConvRGBD`` encoder,
+the ``dense_net`` pose initializer, the learned ``ScaleNet`` types, weights
+per level and uncertainty propagation raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,8 +30,14 @@ from torch import nn
 from ..geometry import warp as W
 from ..ops.image import image_pyramid
 from ..solvers.icp import ICPSigmaModel
+from ..solvers.residuals import (
+    build_inverse_warp_operand,
+    compute_inverse_residuals,
+    compute_warped_residual,
+)
 from ..solvers.trust_region import (
     DirectSolver,
+    _warp_forward_depth,
     tr_ic_level,
     tr_ic_residual,
     tr_icp_level,
@@ -99,15 +107,20 @@ _PORTED = {
 }
 
 
+# the ROADMAP item that ports each config field's other values (3 by default)
+_ITEM = {"uncer_prop": 4}
+
+
 def _check_ported(cfg: TrackerConfig) -> None:
     for key, values in _PORTED.items():
         if getattr(cfg, key) not in values:
             raise NotImplementedError(
                 f"TrackerConfig.{key}={getattr(cfg, key)!r} is not ported "
-                f"(ported: {', '.join(map(repr, values))})")
+                f"(ported: {', '.join(map(repr, values))}; ROADMAP item {_ITEM.get(key, 3)})")
     if cfg.encoder_name != "ConvRGBD2" and cfg.predicts_init_pose:
         raise NotImplementedError(
-            f"a predicted initial pose over the {cfg.encoder_name} encoder is not ported")
+            f"a predicted initial pose over the {cfg.encoder_name} encoder is not ported "
+            "(ROADMAP item 3)")
 
 
 # sigma types whose channels are copies of channel 0: the encoder repeats a
@@ -194,7 +207,13 @@ class LeastSquareTracking(nn.Module):
         x = image_pyramid((I[:, 0] * 0.299 + I[:, 1] * 0.587 + I[:, 2] * 0.114)[:, None])
         return x, [torch.ones_like(a) for a in x]
 
-    def _preprocess(self, img0, img1, depth0, depth1, pose_init=None):
+    def _preprocess(self, img0, img1, depth0, depth1, pose_init=None, obj_mask0=None,
+                    obj_mask1=None):
+        """The encoded pair, its pyramids and the initial pose: ``(x0, x1,
+        sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, m0, m1, pose)``, each
+        but the pose a list over the four levels; ``m0``/``m1`` are the
+        object masks' bool pyramids (a window with any object pixel is
+        object), or Nones."""
         cfg = self.cfg
         invD0 = torch.clamp(1.0 / depth0, 0.0, 10.0)
         invD1 = torch.clamp(1.0 / depth1, 0.0, 10.0)
@@ -231,6 +250,8 @@ class LeastSquareTracking(nn.Module):
             dpt1 = image_pyramid(depth1, pool="max")
         else:
             dpt0 = dpt1 = [None] * 4
+        m0 = image_pyramid(obj_mask0.bool()) if obj_mask0 is not None else [None] * 4
+        m1 = image_pyramid(obj_mask1.bool()) if obj_mask1 is not None else [None] * 4
         if pose_init is not None:
             pose = pose_init
         elif self.pose_predictor is not None:
@@ -240,7 +261,7 @@ class LeastSquareTracking(nn.Module):
             pose = (torch.eye(3, dtype=invD0.dtype, device=invD0.device).repeat(B, 1, 1),
                     invD0.new_zeros((B, 3)))
         return (x0, x1, self._slim_sigma(sigma0), self._slim_sigma(sigma1), inv_d0, inv_d1,
-                dpt0, dpt1, pose)
+                dpt0, dpt1, m0, m1, pose)
 
     def _mest(self, residual, x0, x1, w_prior):
         """The M-estimator weights of one IC level."""
@@ -254,8 +275,9 @@ class LeastSquareTracking(nn.Module):
         return DirectSolver("resvol", cfg.direction, cfg.tr_samples, self.solver_func)
 
     def _level_update(self, pose, x0, x1, sigma0, sigma1, invD0, invD1, dpt0, dpt1, K,
-                      w_prior):
-        """One pyramid level of the configured track: ``(pose, weights)``."""
+                      w_prior, m0=None, m1=None):
+        """One pyramid level of the configured track, with the level's
+        object masks ``m0``/``m1`` where given: ``(pose, weights)``."""
         cfg = self.cfg
         track = cfg.track_type
         if track == "U_IC":
@@ -265,14 +287,15 @@ class LeastSquareTracking(nn.Module):
             w_icp = self.scaler_func(invD0, None, w_prior) if cfg.combine_icp else None
             pose, weights, _ = tr_uic_level(
                 pose, x0, x1, invD0, invD1, K, sigma0, sigma1,
-                depth0=dpt0, depth1=dpt1, w_icp=w_icp,
+                depth0=dpt0, depth1=dpt1, w_icp=w_icp, obj_mask0=m0, obj_mask1=m1,
                 max_iter=cfg.max_iter_per_pyr, remove_tru_sigma=cfg.remove_tru_sigma,
                 plain=self.plain_kernels,
             )
         elif track == "IC":
             pose, weights, _ = tr_ic_level(
                 pose, x0, x1, invD0, invD1, K, self._mest, self._solver(), w_prior=w_prior,
-                max_iter=cfg.max_iter_per_pyr, plain=self.plain_kernels,
+                obj_mask0=m0, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
+                plain=self.plain_kernels,
             )
         elif track == "U_FC":
             # in training the estimator runs once more, at the zero
@@ -280,33 +303,37 @@ class LeastSquareTracking(nn.Module):
             # 1 + max_iter times a level, as in the JAX package
             pose, weights, _ = tr_ufc_level(
                 pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, self._mest, self._solver(),
-                w_prior=w_prior, max_iter=cfg.max_iter_per_pyr, train=self.training,
-                plain=self.plain_kernels,
+                w_prior=w_prior, obj_mask0=m0, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
+                train=self.training, plain=self.plain_kernels,
             )
         else:  # ICP
             pose, weights, _ = tr_icp_level(
-                pose, dpt0, dpt1, K, w_prior=w_prior, max_iter=cfg.max_iter_per_pyr,
+                pose, dpt0, dpt1, K, w_prior=w_prior, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
                 direction=cfg.direction, sigma_model=ICPSigmaModel(baseline=1.0),
                 plain=self.plain_kernels,
             )
         return pose, weights
 
-    def forward(self, img0, img1, depth0, depth1, K, pose_init=None):
+    def forward(self, img0, img1, depth0, depth1, K, pose_init=None, obj_mask0=None,
+                obj_mask1=None):
         """:param img0/img1: [B,3,H,W] RGB in [0,1]
         :param depth0/depth1: [B,1,H,W] metric depth
         :param K: [B,4] intrinsics [fx,fy,cx,cy]
         :param pose_init: ``(R [B,3,3], t [B,3])`` to start from instead of
             the predicted initial pose or the identity
+        :param obj_mask0/obj_mask1: [B,1,H,W] bool object masks of the two
+            frames: the pose is then the object's relative motion
         :return: eval: final pose (R, t); training: (pyr_R, pyr_t)
         """
-        x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, pose = self._preprocess(
-            img0, img1, depth0, depth1, pose_init)
+        x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, m0, m1, pose = self._preprocess(
+            img0, img1, depth0, depth1, pose_init, obj_mask0, obj_mask1)
         poses = [pose] if self.cfg.predicts_init_pose and self.cfg.train_init_pose else []
         w_prior = torch.ones_like(inv_d0[3]) * 0.001
         for level in (3, 2, 1, 0):
             pose, w_prior = self._level_update(
                 pose, x0[level], x1[level], sigma0[level], sigma1[level], inv_d0[level],
-                inv_d1[level], dpt0[level], dpt1[level], W.scale_K(K, level), w_prior)
+                inv_d1[level], dpt0[level], dpt1[level], W.scale_K(K, level), w_prior,
+                m0[level], m1[level])
             poses.append(pose)
         if self.training:
             return torch.stack([R for R, _ in poses], 1), torch.stack([t for _, t in poses], 1)
@@ -315,17 +342,17 @@ class LeastSquareTracking(nn.Module):
     def compute_residual(self, img0, img1, depth0, depth1, K, pose_init=None, level: int = 0,
                          obj_mask0=None, obj_mask1=None):
         """The configured track's average residual at one pose and level
-        (the convergence-basin study), from the encoded pair.
+        (the convergence-basin study), from the encoded pair.  The object
+        masks reach the U_IC feature residual and the IC residual; the U_FC
+        and ICP residuals take none, as in the JAX function.
 
         :param pose_init: ``(R, t)``; without it the predicted initial pose
             or the identity
         :return: ``(pose, avg_residual [B])``
         """
-        if obj_mask0 is not None or obj_mask1 is not None:
-            raise NotImplementedError("object masks are not ported (ROADMAP item 3)")
         cfg = self.cfg
-        x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, pose = self._preprocess(
-            img0, img1, depth0, depth1, pose_init)
+        x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, m0, m1, pose = self._preprocess(
+            img0, img1, depth0, depth1, pose_init, obj_mask0, obj_mask1)
         i = level
         K_i = W.scale_K(K, i)
         track = cfg.track_type
@@ -335,14 +362,88 @@ class LeastSquareTracking(nn.Module):
             w_icp = self.scaler_func(inv_d0[i], None, w_prior) if cfg.combine_icp else None
             loss = tr_uic_residual(
                 pose, x0[i], x1[i], inv_d0[i], inv_d1[i], K_i, sigma0[i], sigma1[i],
-                depth0=dpt0[i], depth1=dpt1[i], w_icp=w_icp,
+                depth0=dpt0[i], depth1=dpt1[i], w_icp=w_icp, obj_mask0=m0[i], obj_mask1=m1[i],
                 remove_tru_sigma=cfg.remove_tru_sigma, plain=self.plain_kernels)
         elif track == "IC":
             loss = tr_ic_residual(pose, x0[i], x1[i], inv_d0[i], inv_d1[i], K_i, self._mest,
-                                  w_prior=torch.ones_like(inv_d0[i]), plain=self.plain_kernels)
+                                  w_prior=torch.ones_like(inv_d0[i]), obj_mask0=m0[i],
+                                  obj_mask1=m1[i], plain=self.plain_kernels)
         elif track == "U_FC":
             loss = tr_ufc_residual(pose, x0[i], x1[i], dpt0[i], dpt1[i], K_i, sigma0[i],
                                    sigma1[i], plain=self.plain_kernels)
         else:  # ICP
             loss = tr_icp_residual(pose, dpt0[i], dpt1[i], K_i, plain=self.plain_kernels)
         return pose, loss
+
+    def track_diagnostics(self, img0, img1, depth0, depth1, K, obj_mask0=None, obj_mask1=None):
+        """The eval forward, with per-level maps for the evaluate CLI's
+        ``--save_img`` (``utils/display``): the encoded feature and sigma
+        pyramids, and at each level's final pose the weighted residual map,
+        its invalid mask, the pose and where a strided grid of frame-0
+        pixels lands in frame 1.  The residual map is the track's own: the
+        U_IC (with the masks, one gather of the C=11 operand) or IC residual
+        (with both masks); for U_FC the uncertainty-normalized residual of
+        the forward warp, and for ICP the warped depth's discrepancy, both
+        without masks, as in the JAX function.
+
+        :return: ``(pose, diag)``: ``diag`` maps ``features0/1``,
+            ``sigma0/1`` (broadcast to the feature channels), ``residual``,
+            ``invalid`` (bool), ``poses`` (``(R, t)``) and ``matches``
+            (``(coords [B,2,N], valid [B,N])``) to lists indexed by level
+            (0 = finest)
+        """
+        cfg = self.cfg
+        x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, m0, m1, pose = self._preprocess(
+            img0, img1, depth0, depth1, None, obj_mask0, obj_mask1)
+
+        def viz_sigma(sigmas, feats):
+            return [s if s is None or s.shape[1] == f.shape[1] else s.expand_as(f)
+                    for s, f in zip(sigmas, feats)]
+
+        diag = {"features0": x0, "features1": x1, "sigma0": viz_sigma(sigma0, x0),
+                "sigma1": viz_sigma(sigma1, x1), **{k: [None] * 4 for k in (
+                    "residual", "invalid", "poses", "matches")}}
+        plain = self.plain_kernels
+        w_prior = torch.ones_like(inv_d0[3]) * 0.001
+        for level in (3, 2, 1, 0):
+            K_l = W.scale_K(K, level)
+            pose, w_prior = self._level_update(
+                pose, x0[level], x1[level], sigma0[level], sigma1[level], inv_d0[level],
+                inv_d1[level], dpt0[level], dpt1[level], K_l, w_prior, m0[level], m1[level])
+            B, _, H, W_ = inv_d0[level].shape
+            track = cfg.track_type
+            if track in ("U_IC", "IC"):
+                px, py = W.generate_xy_grid(B, H, W_, K_l)
+                u, v, _ = W.batch_warp_inverse_depth(px, py, inv_d0[level], pose, K_l)
+                if track == "U_IC":
+                    out, _, _ = compute_inverse_residuals(
+                        pose, inv_d0[level], x0[level], sigma0[level], px, py, K_l,
+                        build_inverse_warp_operand(inv_d1[level], x1[level], sigma1[level],
+                                                   m1[level]),
+                        obj_mask0=m0[level], remove_tru_sigma=cfg.remove_tru_sigma,
+                        plain=plain)
+                    res_map, invalid = out.weighted_res, out.invalid
+                else:
+                    res_map, invalid = compute_warped_residual(
+                        pose, inv_d0[level], inv_d1[level], x0[level], x1[level], px, py, K_l,
+                        m0[level], m1[level], plain=plain)
+            else:
+                u, v, dpt_r, depth_valid, _, _ = _warp_forward_depth(dpt0[level], pose, K_l)
+                if track == "U_FC":
+                    dpt1_w, f_r, s_r = W.warp_multi([dpt1[level], x1[level], sigma1[level]],
+                                                    u, v, plain=plain)
+                    sig = torch.sqrt(s_r * s_r + sigma0[level] * sigma0[level])
+                    invalid = W.check_occ_prewarped(dpt_r, dpt1_w, u, v) | ~depth_valid
+                    res_map = ((f_r - x0[level]) / sig).masked_fill(invalid, 1e-6)
+                else:  # ICP: the warped depth's discrepancy
+                    dpt1_w = W.warp_features(dpt1[level], u, v, plain=plain)
+                    invalid = W.check_occ_prewarped(dpt_r, dpt1_w, u, v) | ~depth_valid
+                    res_map = (dpt1_w - dpt_r).masked_fill(invalid, 0.0)
+            sh, sw = max(H // 8, 1), max(W_ // 8, 1)
+            grid = (u[:, 0, ::sh, ::sw].reshape(B, -1), v[:, 0, ::sh, ::sw].reshape(B, -1))
+            diag["matches"][level] = (torch.stack(grid, dim=1),
+                                      ~invalid[:, 0, ::sh, ::sw].reshape(B, -1))
+            diag["residual"][level] = res_map
+            diag["invalid"][level] = invalid
+            diag["poses"][level] = pose
+        return pose, diag

@@ -44,8 +44,12 @@ def max_pool2(x: torch.Tensor, factor: int) -> torch.Tensor:
 def image_pyramid(
     x: torch.Tensor, scales: Sequence[int] = (0, 1, 2, 3), pool: str = "avg"
 ) -> List[torch.Tensor]:
-    """Multi-scale pyramid, each level pooled from ``x`` by 2^s."""
+    """Multi-scale pyramid, each level pooled from ``x`` by 2^s.  A bool
+    map (an object mask) is pooled as float and cast back, so that a window
+    holding any True pixel stays True."""
     fn = {"avg": avg_pool2, "max": max_pool2}[pool]
+    if x.dtype == torch.bool:
+        return [fn(x.float(), 1 << s).bool() for s in scales]
     return [fn(x, 1 << s) for s in scales]
 
 

@@ -240,7 +240,7 @@ def staged_share(v0, u0, H: int, W: int, C: int) -> float:
     vlo, vhi, ulo, uhi = _tile_boxes(v0, u0, H, W, th)
     c0 = ulo * C // 32 * 32
     staged = (vhi - vlo + 2 <= th + 3) & ((uhi + 2) * C - c0 <= 32 * window_chunks(C))
-    return staged.double().mean().item() if has_window(W, C) else 0.0
+    return _share(staged) if has_window(W, C) else 0.0
 
 
 def grads_staged_share(v0, u0, H: int, W: int, C: int) -> float:
@@ -250,4 +250,10 @@ def grads_staged_share(v0, u0, H: int, W: int, C: int) -> float:
     ``GRADS_BOX_FLOATS``."""
     vlo, vhi, ulo, uhi = _tile_boxes(v0, u0, H, W, GRADS_TILE_H)
     box = (vhi - vlo + 2) * (uhi - ulo + 2) * C
-    return (box <= GRADS_BOX_FLOATS).double().mean().item()
+    return _share(box <= GRADS_BOX_FLOATS)
+
+
+def _share(mask) -> float:
+    """The share of True in ``mask``, exact: a count over a count (a mean
+    on the card multiplies by 1/N, and all-True then reads 1 - 2^-53)."""
+    return mask.sum().item() / mask.numel()

@@ -55,21 +55,40 @@ def _project(vertex0, pose10, K):
     return v0_in_1, u_.reshape(shape), v_.reshape(shape), inviews.reshape(shape)
 
 
-def _point_to_plane(vertex0, vertex1, normal1, pose10, K, warp_op, plain):
+def _point_to_plane(vertex0, vertex1, normal1, pose10, K, warp_op, plain, obj_mask0=None,
+                    obj_mask1=None):
     """The shared half of both point-to-plane residuals: ``T v0`` in frame 1,
     the warped normals ``[B,3,HW]``, the difference ``T v0 - v1_r``
     ``[B,3,HW]``, the residual ``n_r . diff`` ``[B,1,H,W]`` and the invalid
-    mask (out of view, or ``|diff| > 0.1``)."""
+    mask (out of view, or ``|diff| > 0.1``; outside the frame-0 object
+    ``obj_mask0``, or where the warped frame-1 mask is not > 0).  The
+    frame-1 mask rides in the operand as its third map: ``warp_op``, when
+    given, must hold it exactly when ``obj_mask1`` is given."""
     B, _, H, W_ = vertex0.shape
     v0_in_1, u, v, inviews = _project(vertex0, pose10, K)
     if warp_op is None:
-        warp_op = W.make_warp_operand([vertex1, normal1])
-    r_vertex1, r_normal1 = W.warp_operand(*warp_op, u, v, plain=plain)
+        warp_op = icp_operand(vertex1, normal1, obj_mask1)
+    warped = W.warp_operand(*warp_op, u, v, plain=plain)
+    r_vertex1, r_normal1 = warped[:2]
     diff = v0_in_1 - r_vertex1.reshape(B, 3, H * W_)
     n_r = r_normal1.reshape(B, 3, H * W_)
     occ = ~inviews | (torch.linalg.vector_norm(diff, dim=1).reshape(B, 1, H, W_) > 0.1)
+    if obj_mask0 is not None:
+        occ = occ | ~obj_mask0.bool()
+    if obj_mask1 is not None:
+        occ = occ | ~(warped[2] > 0)
     res = (n_r * diff).sum(dim=1).reshape(B, 1, H, W_)
     return v0_in_1, r_normal1, n_r, res, occ
+
+
+def icp_operand(vertex1, normal1, obj_mask1=None):
+    """The stacked operand ``[vertex1 | normal1]`` (C=6) that the ICP
+    residuals warp, with the frame-1 object mask as a seventh channel where
+    given; loop-invariant."""
+    maps = [vertex1, normal1]
+    if obj_mask1 is not None:
+        maps.append(obj_mask1.bool().to(vertex1.dtype))
+    return W.make_warp_operand(maps)
 
 
 def _normalize(res, J, vertex0, r_normal1, R, sigma_model):
@@ -82,22 +101,24 @@ def _normalize(res, J, vertex0, r_normal1, R, sigma_model):
     return res, -J
 
 
-def icp_residuals_inverse(vertex0, vertex1, normal1, pose10, K,
-                          sigma_model: ICPSigmaModel = ICPSigmaModel(),
+def icp_residuals_inverse(vertex0, vertex1, normal1, pose10, K, obj_mask0=None,
+                          obj_mask1=None, sigma_model: ICPSigmaModel = ICPSigmaModel(),
                           normalize_residual: bool = True, warp_op=None, plain: bool = False):
     """Inverse point-to-plane residual ``n_r . (T v0 - v1_r)`` and its
     Jacobian ``[(n_r^T R) [v0]x | -(n_r^T R)]``, sigma-normalized and
-    sign-flipped for the inverse composition.
+    sign-flipped for the inverse composition.  Pixels outside the frame-0
+    object ``obj_mask0``, or whose warped frame-1 mask ``obj_mask1`` is not
+    > 0, are invalid.
 
-    :param warp_op: the stacked operand of ``[vertex1 | normal1]``
-        (``W.make_warp_operand``), to reuse across iterations; built from
-        them when None
+    :param warp_op: the stacked operand of :func:`icp_operand` (with the
+        frame-1 mask exactly when ``obj_mask1`` is given), to reuse across
+        iterations; built from the maps when None
     :return: ``(res [B,1,H,W], J [B,HW,6], occ [B,1,H,W])``
     """
     R = pose10[0]
     B = vertex0.shape[0]
     _, r_normal1, n_r, res, occ = _point_to_plane(vertex0, vertex1, normal1, pose10, K,
-                                                  warp_op, plain)
+                                                  warp_op, plain, obj_mask0, obj_mask1)
     NtC10 = torch.einsum("bcp,bcd->bpd", n_r, R)  # n_r^T R  [B,HW,3]
     v0_pix = vertex0.reshape(B, 3, -1).transpose(1, 2)
     # a^T [v]x == (a x v)^T

@@ -20,23 +20,46 @@ class ResidualOutput(NamedTuple):
     invalid: torch.Tensor       # [B,1,H,W] bool, True where invalid
 
 
+def merge_object_masks(occ, u, v, obj_mask0=None, obj_mask1=None, plain: bool = False):
+    """Fold the object masks into the invalid mask ``occ`` [B,1,H,W]:
+    pixels outside the frame-0 object, and pixels whose warp (u, v) lands
+    outside the frame-1 object (its bilinear sample is not > 0), are
+    invalid.  ``obj_mask1`` is the frame-1 mask [B,1,H,W] or its prebuilt
+    operand (``W.make_warp_operand``); it is warped in a gather of its own.
+    """
+    if obj_mask0 is not None:
+        occ = occ | ~obj_mask0.bool()
+    if obj_mask1 is not None:
+        if isinstance(obj_mask1, torch.Tensor):
+            obj_mask1 = W.make_warp_operand([obj_mask1.bool().to(u.dtype)])
+        occ = occ | ~(W.warp_operand(*obj_mask1, u, v, plain=plain)[0] > 0)
+    return occ
+
+
 def compute_inverse_residuals(
-    pose10, invD0, x0, sigma0, px, py, K, warp_op,
+    pose10, invD0, x0, sigma0, px, py, K, warp_op, obj_mask0=None,
     remove_tru_sigma: bool = False, plain: bool = False,
 ):
     """Inverse-compositional residual: warp + occlusion + compose.
 
-    The target inverse depth, features and sigma are warped in ONE gather
-    of the stacked operand ``warp_op`` (:func:`build_inverse_warp_operand`).
-    ``remove_tru_sigma`` also invalidates pixels where either sigma map is
-    exactly at its batch-global min or max.
+    The target inverse depth, features and sigma (and the frame-1 object
+    mask, where :func:`build_inverse_warp_operand` was given one) are
+    warped in ONE gather of the stacked operand ``warp_op``.  Pixels
+    outside the frame-0 object ``obj_mask0``, or whose warped frame-1 mask
+    is not > 0, are invalid.  ``remove_tru_sigma`` also invalidates pixels
+    where either sigma map is exactly at its batch-global min or max.
 
     :return: ``(ResidualOutput, u, v)``
     """
     u, v, inv_z = W.batch_warp_inverse_depth(px, py, invD0, pose10, K)
-    invD1_w, f_r, sigma_r = W.warp_operand(warp_op[0], warp_op[1], u, v, plain=plain)
+    warped = W.warp_operand(warp_op[0], warp_op[1], u, v, plain=plain)
+    invD1_w, f_r, sigma_r = warped[:3]
 
     occ = W.check_occ_prewarped(inv_z, invD1_w, u, v)
+    if obj_mask0 is not None:
+        occ = occ | ~obj_mask0.bool()
+    if len(warped) > 3:
+        occ = occ | ~(warped[3] > 0)
     res = f_r - x0
     sigma = torch.sqrt(sigma_r * sigma_r + sigma0 * sigma0)
     weighted = res / sigma
@@ -52,45 +75,54 @@ def compute_inverse_residuals(
     return ResidualOutput(weighted, res, sigma, occ), u, v
 
 
-def build_inverse_warp_operand(invD1, x1, sigma1):
+def build_inverse_warp_operand(invD1, x1, sigma1, obj_mask1=None):
     """Stacked channels-last operand ``[invD1 | x1 | sigma1]`` of the maps
-    the U_IC iteration warps (loop-invariant: built once per level)."""
-    return W.make_warp_operand([invD1, x1, sigma1])
+    the U_IC iteration warps, with the frame-1 object mask as one more
+    channel where given (loop-invariant: built once per level)."""
+    maps = [invD1, x1, sigma1]
+    if obj_mask1 is not None:
+        maps.append(obj_mask1.bool().to(x1.dtype))
+    return W.make_warp_operand(maps)
 
 
-def make_ic_operands(x1, invD1, samples: int = 1):
+def make_ic_operands(x1, invD1, samples: int = 1, obj_mask1=None):
     """The channels-last operands of ``x1`` and ``invD1`` that the IC
-    residual warps, one gather each, as the JAX package warps them; with
-    ``samples`` > 1 each plane is repeated along the batch, sample-major
-    (index ``s * B + b``), for the poses of the damping samples.  Built
-    once per level."""
+    residual warps, one gather each, as the JAX package warps them, and of
+    the frame-1 object mask where given (a third gather); with ``samples``
+    > 1 each plane is repeated along the batch, sample-major (index ``s * B
+    + b``), for the poses of the damping samples.  Built once per level."""
+    maps = [x1, invD1] if obj_mask1 is None else [x1, invD1, obj_mask1.bool().to(x1.dtype)]
     return [W.make_warp_operand([m.repeat(samples, 1, 1, 1) if samples > 1 else m])
-            for m in (x1, invD1)]
+            for m in maps]
 
 
-def warped_residual(pose10, invD0, x0, px, py, K, operands, plain: bool = False):
+def warped_residual(pose10, invD0, x0, px, py, K, operands, obj_mask0=None,
+                    plain: bool = False):
     """:func:`compute_warped_residual` on the operands of
-    :func:`make_ic_operands`; with folded operands, every argument has
-    their batch."""
+    :func:`make_ic_operands` (the object mask of frame 1 among them where
+    they hold three); with folded operands, every argument has their
+    batch."""
     u, v, inv_z = W.batch_warp_inverse_depth(px, py, invD0, pose10, K)
     x1_warped = W.warp_operand(*operands[0], u, v, plain=plain)[0]
     invD1_warped = W.warp_operand(*operands[1], u, v, plain=plain)[0]
     occ = W.check_occ_prewarped(inv_z, invD1_warped, u, v)
+    occ = merge_object_masks(occ, u, v, obj_mask0, operands[2] if len(operands) > 2 else None,
+                             plain=plain)
     return (x1_warped - x0).masked_fill(occ, 1e-3), occ
 
 
 def compute_warped_residual(pose10, invD0, invD1, x0, x1, px, py, K,
                             obj_mask0=None, obj_mask1=None, plain: bool = False):
     """Plain warped residual ``x1(w(x)) - x0`` of the IC track, 1e-3 where
-    invalid.  ``x1`` and ``invD1`` (for the occlusion test) warp in one
-    gather each, as in the JAX package.  Object masks are not ported.
+    invalid.  ``x1``, ``invD1`` (for the occlusion test) and the frame-1
+    object mask warp in one gather each, as in the JAX package; the object
+    masks fold in through :func:`merge_object_masks`.
 
     :return: ``(residuals [B,C,H,W], invalid [B,1,H,W])``
     """
-    if obj_mask0 is not None or obj_mask1 is not None:
-        raise NotImplementedError("object masks are not ported")
-    return warped_residual(pose10, invD0, x0, px, py, K, make_ic_operands(x1, invD1),
-                           plain=plain)
+    return warped_residual(pose10, invD0, x0, px, py, K,
+                           make_ic_operands(x1, invD1, obj_mask1=obj_mask1),
+                           obj_mask0=obj_mask0, plain=plain)
 
 
 def compute_avg_loss(x_list, invalid) -> torch.Tensor:

@@ -15,6 +15,10 @@ iteration runs K1 once, on one operand of the target depth, features,
 sigma and their gradients (C=28 with a 1-channel sigma), and weighs its
 system in tensor ops (no K6); an ICP iteration runs K1 once.  Where
 ``use_tiles`` holds, K4 takes K1's place; under autograd K2 (K5) does.
+Object masks ride in the U_IC, fused-ICP and U_FC operands as one more
+channel (no more launches); an IC residual warps the frame-1 mask in a
+gather of its own (three K1 a residual), and the stand-alone ICP track and
+the U_FC residual ignore the masks, as the JAX functions do.
 
 The ``tr_*_residual`` functions give each track's average residual at a
 fixed pose (``residuals.compute_avg_loss``), for the convergence-basin
@@ -147,7 +151,7 @@ def direct_solve(solver: DirectSolver, JtWJ, JtR, pose, residual_fn=None, jtr_fn
 
 def tr_uic_level(
     pose, x0, x1, invD0, invD1, K, sigma0, sigma1,
-    depth0=None, depth1=None, w_icp=None,
+    depth0=None, depth1=None, w_icp=None, obj_mask0=None, obj_mask1=None,
     max_iter: int = 3, remove_tru_sigma: bool = False,
     icp_sigma: icp_mod.ICPSigmaModel = icp_mod.ICPSigmaModel(), plain: bool = False,
 ):
@@ -159,7 +163,11 @@ def tr_uic_level(
     every iteration.  The caller makes ``w_icp``: the JAX function has
     ``scale_fn`` compute it from the residuals at the incoming pose, and the
     one ported scale, ``ScaleNet("None")``, reads only their shape (under
-    ``jit`` XLA drops those residuals too).
+    ``jit`` XLA drops those residuals too).  The object masks
+    ``obj_mask0/1`` [B,1,H,W] (bool) go to every feature residual and to
+    every ICP residual: the frame-1 mask rides in each operand as one more
+    channel (C=11 for the feature operand of ``feature``, 7 for the ICP
+    one), so the launches stay one gather per warp.
 
     :param plain: use the kernels' plain versions on any device
     :return: ``(pose, weights, JtWJ)``: the weights are ``w_icp``, or
@@ -168,27 +176,27 @@ def tr_uic_level(
     B, _, H, W_ = x0.shape
     px, py = W.generate_xy_grid(B, H, W_, K)
     pre = precompute_uic(invD0, x0, sigma0, px, py, K)
-    warp_op = build_inverse_warp_operand(invD1, x1, sigma1)
+    warp_op = build_inverse_warp_operand(invD1, x1, sigma1, obj_mask1)
 
     combine_icp = w_icp is not None
     if combine_icp:
         vertex0 = W.compute_vertex(depth0, px, py)
         vertex1 = W.compute_vertex(depth1, px, py)
         normal1 = compute_normal(vertex1)
-        icp_op = W.make_warp_operand([vertex1, normal1])  # loop-invariant
+        icp_op = icp_mod.icp_operand(vertex1, normal1, obj_mask1)  # loop-invariant
 
     JtWJ = torch.zeros((B, 6, 6), dtype=x0.dtype, device=x0.device)
     for _ in range(max_iter):
         out, _, _ = compute_inverse_residuals(
-            pose, invD0, x0, sigma0, px, py, K, warp_op,
+            pose, invD0, x0, sigma0, px, py, K, warp_op, obj_mask0=obj_mask0,
             remove_tru_sigma=remove_tru_sigma, plain=plain,
         )
         fac = uic_factors(pre, out.res, out.sigma, sigma0)
         JtWJ, JtR = jtj_jtr(fac, out.weighted_res, plain=plain)
         if combine_icp:
             icp_res, icp_J, _ = icp_mod.icp_residuals_inverse(
-                vertex0, vertex1, normal1, pose, K, sigma_model=icp_sigma, warp_op=icp_op,
-                plain=plain)
+                vertex0, vertex1, normal1, pose, K, obj_mask0, obj_mask1, sigma_model=icp_sigma,
+                warp_op=icp_op, plain=plain)
             icp_JtJ, icp_JtR = icp_mod.icp_jtj_jtr(w_icp.reshape(B, H * W_, 1) * icp_J,
                                                    w_icp * icp_res)
             JtWJ = JtWJ + icp_JtJ
@@ -198,15 +206,18 @@ def tr_uic_level(
 
 
 def tr_uic_residual(pose, x0, x1, invD0, invD1, K, sigma0, sigma1, depth0=None, depth1=None,
-                    w_icp=None, remove_tru_sigma: bool = False, plain: bool = False):
+                    w_icp=None, obj_mask0=None, obj_mask1=None, remove_tru_sigma: bool = False,
+                    plain: bool = False):
     """The U_IC track's average residual at ``pose`` [B]; with ICP
     weights ``w_icp`` the weighted inverse point-to-plane residual of
     ``depth0/1`` (default ICP sigma model) joins it, over the pixels valid
-    in both."""
+    in both.  The object masks reach the feature residual alone: the ICP
+    term takes none, as in the JAX function."""
     B, _, H, W_ = x0.shape
     px, py = W.generate_xy_grid(B, H, W_, K)
     out, _, _ = compute_inverse_residuals(
-        pose, invD0, x0, sigma0, px, py, K, build_inverse_warp_operand(invD1, x1, sigma1),
+        pose, invD0, x0, sigma0, px, py, K,
+        build_inverse_warp_operand(invD1, x1, sigma1, obj_mask1), obj_mask0=obj_mask0,
         remove_tru_sigma=remove_tru_sigma, plain=plain)
     if w_icp is None:
         return compute_avg_loss([out.weighted_res], out.invalid)
@@ -218,18 +229,21 @@ def tr_uic_residual(pose, x0, x1, invD0, invD1, K, sigma0, sigma1, depth0=None, 
     return compute_avg_loss([out.weighted_res, w_icp * icp_res], out.invalid | icp_occ)
 
 
-def tr_ic_residual(pose, x0, x1, invD0, invD1, K, mest_fn, w_prior=None, plain: bool = False):
-    """The IC track's average M-estimator-weighted residual at ``pose`` [B]."""
+def tr_ic_residual(pose, x0, x1, invD0, invD1, K, mest_fn, w_prior=None, obj_mask0=None,
+                   obj_mask1=None, plain: bool = False):
+    """The IC track's average M-estimator-weighted residual at ``pose`` [B],
+    with both object masks."""
     B, _, H, W_ = x0.shape
     px, py = W.generate_xy_grid(B, H, W_, K)
     residuals, occ = compute_warped_residual(pose, invD0, invD1, x0, x1, px, py, K,
-                                             plain=plain)
+                                             obj_mask0, obj_mask1, plain=plain)
     weights = mest_fn(residuals, x0, x1, w_prior)
     return compute_avg_loss([weights * residuals], occ)
 
 
 def tr_ic_level(pose, x0, x1, invD0, invD1, K, mest_fn, solver: DirectSolver,
-                w_prior=None, max_iter: int = 3, plain: bool = False):
+                w_prior=None, obj_mask0=None, obj_mask1=None, max_iter: int = 3,
+                plain: bool = False):
     """One pyramid level of the IC track: the template Jacobian and the
     M-estimator weights come from the residual at the incoming pose; each
     iteration solves, then takes the residual at the new pose.  The last
@@ -237,20 +251,26 @@ def tr_ic_level(pose, x0, x1, invD0, invD1, K, mest_fn, solver: DirectSolver,
     drops it), and is not computed; its ``resvol`` damping samples are.
     The samples' operands are folded once per level.
 
+    The first residual takes both object masks; the residuals of the
+    iterations and of the damping samples take ``obj_mask1`` alone, as in
+    the JAX function.  The frame-1 mask warps in a gather of its own (one
+    more K1 a residual).
+
     :return: ``(pose, weights, JtWJ)``
     """
     B, _, H, W_ = x0.shape
     px, py = W.generate_xy_grid(B, H, W_, K)
     pre = precompute_ic(invD0, x0, px, py, K)
-    operands = make_ic_operands(x1, invD1)
-    residuals, _ = warped_residual(pose, invD0, x0, px, py, K, operands, plain=plain)
+    operands = make_ic_operands(x1, invD1, obj_mask1=obj_mask1)
+    residuals, _ = warped_residual(pose, invD0, x0, px, py, K, operands, obj_mask0,
+                                   plain=plain)
     weights = mest_fn(residuals, x0, x1, w_prior)
     JtWJ, _ = jtj_jtr(pre.fac, residuals, weights=weights)
     sample_fns = ()
     if solver.kind == "resvol":
         S = solver.samples
         folded = [t.repeat(S, *[1] * (t.ndim - 1)) for t in (invD0, x0, px, py, K)]
-        sample_ops = make_ic_operands(x1, invD1, S)
+        sample_ops = make_ic_operands(x1, invD1, S, obj_mask1)
 
         def residual_fn(poses):
             return warped_residual(poses, *folded, sample_ops, plain=plain)[0]
@@ -312,7 +332,8 @@ def _warp_forward_depth(dpt0, pose, K, dpt_thr: float = 1e-6):
 
 
 def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: DirectSolver,
-                 w_prior=None, max_iter: int = 3, train: bool = False, plain: bool = False):
+                 w_prior=None, obj_mask0=None, obj_mask1=None, max_iter: int = 3,
+                 train: bool = False, plain: bool = False):
     """One level of the forward-compositional uncertainty track (U_FC).
 
     The target's depth, features, sigma and the Sobel gradients of both
@@ -325,7 +346,9 @@ def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: D
     weighted by ``mest_fn`` of the residual, damped by ``lev_mar_damp``,
     for a forward (``solver.direction``) update.  ``solver`` gives only
     the direction: a ``resvol`` solver's damping net is not applied, as in
-    the JAX package.
+    the JAX package.  Pixels outside the frame-0 object ``obj_mask0``, or
+    whose warped frame-1 mask (the operand's last channel: C=29) is not >
+    0, are invalid too.
 
     :param train: apply ``mest_fn`` first at the zero residual, as the JAX
         package does for its initial weights: in training a learned
@@ -339,7 +362,10 @@ def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: D
     B = x0.shape[0]
     gxf1, gyf1 = sobel_gradients(x1)
     gxs1, gys1 = sobel_gradients(sigma1)
-    op, sizes = W.make_warp_operand([dpt1, x1, sigma1, gxf1, gyf1, gxs1, gys1])
+    maps = [dpt1, x1, sigma1, gxf1, gyf1, gxs1, gys1]
+    if obj_mask1 is not None:
+        maps.append(obj_mask1.bool().to(x1.dtype))
+    op, sizes = W.make_warp_operand(maps)
 
     weights = None
     if train or max_iter == 0:
@@ -347,8 +373,13 @@ def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: D
     JtWJ = torch.zeros((B, 6, 6), dtype=x0.dtype, device=x0.device)
     for _ in range(max_iter):
         u, v, dpt_r, depth_valid, u6, v6 = _warp_forward_depth(dpt0, pose, K)
-        dpt1_w, f_r, sigma_r, a_f, b_f, a_s, b_s = W.warp_operand(op, sizes, u, v, plain=plain)
+        warped = W.warp_operand(op, sizes, u, v, plain=plain)
+        dpt1_w, f_r, sigma_r, a_f, b_f, a_s, b_s = warped[:7]
         occ = W.check_occ_prewarped(dpt_r, dpt1_w, u, v) | ~depth_valid
+        if obj_mask0 is not None:
+            occ = occ | ~obj_mask0.bool()
+        if obj_mask1 is not None:
+            occ = occ | ~(warped[7] > 0)
         res = f_r - x0
         sigma = torch.sqrt(sigma_r * sigma_r + sigma0 * sigma0)
         weighted_res = torch.where(occ, 1e-6, res / sigma)
@@ -363,11 +394,13 @@ def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: D
     return pose, weights, JtWJ
 
 
-def tr_ufc_residual(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, plain: bool = False):
+def tr_ufc_residual(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, obj_mask1=None,
+                    plain: bool = False):
     """The U_FC track's average uncertainty-normalized residual at
     ``pose`` [B]: the target depth, features and sigma warp in one gather
     of their stacked operand (the JAX package warps them one by one, to
-    the same values)."""
+    the same values).  ``obj_mask1`` is taken and ignored, as in the JAX
+    function: this residual masks no object."""
     u, v, dpt_r, depth_valid, _, _ = _warp_forward_depth(dpt0, pose, K)
     dpt1_w, f_r, sigma_r = W.warp_multi([dpt1, x1, sigma1], u, v, plain=plain)
     occ = W.check_occ_prewarped(dpt_r, dpt1_w, u, v) | ~depth_valid
@@ -376,12 +409,13 @@ def tr_ufc_residual(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, plain: bool = F
     return compute_avg_loss([weighted], occ)
 
 
-def tr_icp_level(pose, depth0, depth1, K, w_prior=None, max_iter: int = 3,
+def tr_icp_level(pose, depth0, depth1, K, w_prior=None, obj_mask1=None, max_iter: int = 3,
                  direction: str = "inverse",
                  sigma_model: icp_mod.ICPSigmaModel = icp_mod.ICPSigmaModel(baseline=1.0),
                  plain: bool = False):
     """One level of the stand-alone point-to-plane ICP track, inverse- or
-    forward-compositional.
+    forward-compositional.  ``obj_mask1`` is taken and ignored, as in the
+    JAX function: the stand-alone ICP track masks no object.
 
     :return: ``(pose, weights, JtJ)``; the weights are ones
     """
@@ -390,7 +424,7 @@ def tr_icp_level(pose, depth0, depth1, K, w_prior=None, max_iter: int = 3,
     vertex0 = W.compute_vertex(depth0, px, py)
     vertex1 = W.compute_vertex(depth1, px, py)
     normal1 = compute_normal(vertex1)
-    icp_op = W.make_warp_operand([vertex1, normal1])
+    icp_op = icp_mod.icp_operand(vertex1, normal1)
     residual_fn, update = {
         "inverse": (icp_mod.icp_residuals_inverse, inverse_update_pose),
         "forward": (icp_mod.icp_residuals_forward, forward_update_pose),
@@ -424,9 +458,10 @@ def tr_icp_point_level(pose, depth0, depth1, K, max_iter: int = 10, dist_thr: fl
     return pose, JtJ
 
 
-def tr_icp_residual(pose, depth0, depth1, K, plain: bool = False):
+def tr_icp_residual(pose, depth0, depth1, K, obj_mask1=None, plain: bool = False):
     """The ICP track's average inverse point-to-plane residual at ``pose``
-    [B], with the ICP preset's sigma model (baseline 1.0)."""
+    [B], with the ICP preset's sigma model (baseline 1.0); ``obj_mask1``
+    is taken and ignored, as in the JAX function."""
     B, _, H, W_ = depth0.shape
     px, py = W.generate_xy_grid(B, H, W_, K)
     vertex0 = W.compute_vertex(depth0, px, py)

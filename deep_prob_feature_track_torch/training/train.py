@@ -18,10 +18,14 @@ damping samples of 3 iterations and 2 new residuals each warp the features
 and the occlusion depth; and the M-estimator's 3 upsamples) and K3 27 times
 (the feature warps and the upsamples); no K6.
 
+A batch with object masks (``obj_mask0/1``, MovingObjects3D) trains the
+object's relative motion: the masks go to the tracker, and the EPE3D loss
+counts only the frame-0 object's pixels.
+
 Not ported, and raising ``NotImplementedError``: the URPE / UEPE3D losses
-(ROADMAP item 4), object masks (item 3), gradient accumulation
-(``accum_steps > 1``) and the non-finite guard (item 5), and the device mesh
-(item 8).  Checkpoints are in ``training/checkpoints.py``.
+(ROADMAP item 4), gradient accumulation (``accum_steps > 1``) and the
+non-finite guard (item 5), and the device mesh (item 8).  Checkpoints are
+in ``training/checkpoints.py``.
 """
 
 from __future__ import annotations
@@ -94,8 +98,10 @@ def compute_loss(net: LeastSquareTracking, train_cfg: TrainConfig,
     statistics.
 
     Batch keys: color0/1 [B,3,H,W], depth0/1 [B,1,H,W], calib [B,4],
-    transform [B,4,4] and optionally pad_mask [B].  EPE3D: pixels at the
-    batch-global depth min or max are left out of the loss, and the loss is
+    transform [B,4,4] and optionally pad_mask [B] and the bool object masks
+    obj_mask0/1 [B,1,H,W], which go to the tracker.  EPE3D: pixels at the
+    batch-global depth min or max, and pixels outside the frame-0 object,
+    are left out of the loss, and the loss is
     ``1e2`` times the EPE3D summed over the pose pyramid, averaged over the
     samples that ``pad_mask`` keeps.  RPE: over the pose pyramid, the sum of
     the batch norms of the angle and translation errors.
@@ -103,12 +109,11 @@ def compute_loss(net: LeastSquareTracking, train_cfg: TrainConfig,
     if train_cfg.loss not in ("EPE3D", "RPE"):
         raise NotImplementedError(
             f"loss {train_cfg.loss!r} is not ported (EPE3D and RPE are; ROADMAP item 4)")
-    if "obj_mask0" in batch:
-        raise NotImplementedError("object masks are not ported (ROADMAP item 3)")
     if not net.training:
         raise ValueError("compute_loss needs the tracker in training mode (net.train())")
+    masks = {k: batch[k] for k in ("obj_mask0", "obj_mask1") if k in batch}
     pyr_R, pyr_t = net(batch["color0"], batch["color1"], batch["depth0"], batch["depth1"],
-                       batch["calib"])
+                       batch["calib"], **masks)
     T = batch["transform"]
     if train_cfg.loss == "RPE":
         ang, trs = losses.compute_rpe_loss(pyr_R, pyr_t, T[:, :3, :3], T[:, :3, 3])
@@ -116,6 +121,8 @@ def compute_loss(net: LeastSquareTracking, train_cfg: TrainConfig,
     else:
         depth0 = batch["depth0"]
         invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
+        if "obj_mask0" in batch:
+            invalid = ~batch["obj_mask0"].bool() | invalid  # the loss on the object alone
         per_sample = 1e2 * losses.compute_rt_epe_loss(
             pyr_R, pyr_t, T[:, :3, :3], T[:, :3, 3], depth0, batch["calib"], invalid=invalid)
     mask = batch.get("pad_mask")

@@ -172,8 +172,12 @@ def test_divergence_guard(monkeypatch):
     R_ref, t_ref = jax_tracker.batch_track(*(a.numpy() for a in scene))
     np.testing.assert_array_equal(R_out.numpy(), R_ref)
     np.testing.assert_array_equal(t_out.numpy(), t_ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        tracker.batch_track(*scene, batch_objmask0=scene[1])
+    # the object masks are taken and ignored, as the JAX baselines take them
+    masks = [torch.ones_like(scene[1], dtype=torch.bool)] * 2
+    R_m, t_m = tracker.batch_track(*scene, *masks)
+    R_jm, t_jm = jax_tracker.batch_track(*(a.numpy() for a in (*scene, *masks)))
+    np.testing.assert_array_equal(R_m.numpy(), R_jm)
+    np.testing.assert_array_equal(t_m.numpy(), t_jm)
     with pytest.raises(ValueError, match="baseline"):
         pb.make_baseline("Open3D")
 

@@ -187,8 +187,17 @@ def test_pose_init_replaces_the_initial_pose(scene):
     torch.testing.assert_close(R_p, R, rtol=0, atol=0)
     torch.testing.assert_close(t_p, t, rtol=0, atol=0)
     assert (t_i - t).abs().max() > 1e-4
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        net.compute_residual(*ins, obj_mask0=ins[2])
+    # object masks: all-object masks change nothing, a partial one does
+    with torch.inference_mode():
+        _, plain = net.compute_residual(*ins, pose_init=(R_i, t_i))
+        whole = torch.ones_like(ins[2], dtype=torch.bool)
+        _, masked = net.compute_residual(*ins, pose_init=(R_i, t_i), obj_mask0=whole,
+                                         obj_mask1=whole)
+        part = whole.clone()
+        part[..., : part.shape[-1] // 2] = False
+        _, half = net.compute_residual(*ins, pose_init=(R_i, t_i), obj_mask0=part)
+    torch.testing.assert_close(masked, plain, rtol=0, atol=0)
+    assert (half - plain).abs().max() > 1e-6
 
 
 # ----------------------------------------------------------------- the basin

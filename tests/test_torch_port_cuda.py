@@ -137,7 +137,7 @@ FLAT_CASES = [(3, 30, 40, 30 * 40 - 13), (2, 120, 160, 120 * 160 - 13)]
 
 
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
-@pytest.mark.parametrize("C", [1, 3, 6, 10, 17, 28, 49])
+@pytest.mark.parametrize("C", [1, 3, 6, 7, 10, 11, 17, 28, 29, 49])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES)
 def test_gather_kernel_bitwise_on_flat_runs(cuda, coords, C, B, H, W, N):
     F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(C)).to(cuda)
@@ -159,7 +159,7 @@ def _plane(cuda, B, H, W, C, offset):
 
 @pytest.mark.parametrize("offset", [False, True])
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
-@pytest.mark.parametrize("C", [1, 3, 6, 10, 17, 28, 40, 49])
+@pytest.mark.parametrize("C", [1, 3, 6, 10, 11, 17, 28, 40, 49])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES + [(64, 15, 20, 300)])
 def test_gather_grads_kernel_on_flat_runs(cuda, offset, coords, C, B, H, W, N):
     """K2 on compact runs (smooth, off the plane, a 15x20 plane), scattered
@@ -183,7 +183,7 @@ def test_gather_grads_kernel_on_flat_runs(cuda, offset, coords, C, B, H, W, N):
 
 
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
-@pytest.mark.parametrize("C", [1, 3, 10, 17, 28])
+@pytest.mark.parametrize("C", [1, 3, 10, 11, 17, 28])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES + [(64, 2, 2, 300), (64, 15, 20, 300)])
 def test_splat_kernel_on_flat_tiles(cuda, coords, C, B, H, W, N):
     """Staged tiles, global tiles and launches that mix them; on a 2x2 and
@@ -392,6 +392,9 @@ def _tile_maps(cuda, B, H, W, Hs, Ws, coords, seed=0):
     (2, 96, 448, 10, 83, 301),    # a sample grid that is not a multiple of the tile
     (8, 480, 640, 6, 480, 640),   # K4 on the ICP warp of the 640x480 feature_icp forward
     (4, 480, 640, 6, 480, 640),   # K5 on it in the 640x480 feature_icp step
+    (8, 480, 640, 11, 480, 640),  # K4 on the masked U_IC operand (an object mask)
+    (4, 480, 640, 11, 480, 640),  # K5 on it
+    (8, 480, 640, 7, 480, 640),   # K4 on the masked ICP operand
 ])
 def test_tiles_kernels_match_plain(cuda, coords, B, H, W, C, Hs, Ws):
     from deep_prob_feature_track_torch.ops.kernels import tiles
@@ -438,7 +441,7 @@ def _k4_matches_plain_and_k1(F, maps):
     torch.testing.assert_close(out, k1, rtol=0, atol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("C", [1, 3, 6, 10, 17, 28])
+@pytest.mark.parametrize("C", [1, 3, 6, 7, 10, 11, 17, 28, 29])
 @pytest.mark.parametrize("coords", ["smooth", "mixed", "offplane"])
 @pytest.mark.parametrize("B,H,W,Hs,Ws,smooth", [
     (1, 480, 640, 480, 640, "all"),   # 600 tiles (1200 at C=17): more than the grid's CTAs
@@ -591,6 +594,45 @@ def test_preset_forward_kernels_match_plain_on_card(cuda, preset):
     torch.testing.assert_close(t, tp, rtol=0, atol=PRESET_ATOL[preset])
     eye = torch.eye(3, device=cuda).expand_as(R)
     assert (R.transpose(1, 2) @ R - eye).abs().max() < 1e-4
+    assert np.isfinite(t.cpu().numpy()).all()
+
+
+# a masked forward's launches (an object mask in both frames): as unmasked
+# where the mask rides in the operand (U_IC C=11, the fused ICP term C=7,
+# U_FC C=29) or is ignored (ICP); the IC residual warps the frame-1 mask in a
+# gather of its own
+MASKED_LAUNCHES = {
+    ("feature", ()): {"gather_twohot": 12, "fused_jtj_jtr": 12},
+    ("feature_icp", ()): {"gather_twohot": 24, "fused_jtj_jtr": 12},
+    ("DeepIC", ()): {"gather_twohot": 75},
+    ("feature", ("direction=forward",)): {"gather_tiles": 3, "gather_twohot": 9},
+    ("RGB", ()): {"gather_twohot": 36},
+    ("ICP", ()): {"gather_twohot": 12},
+    ("RGB+ICP", ()): {"gather_twohot": 24, "fused_jtj_jtr": 12},
+}
+
+
+@pytest.mark.parametrize("preset,overrides", sorted(MASKED_LAUNCHES))
+def test_masked_forward_kernels_match_plain_on_card(cuda, preset, overrides):
+    """Every preset with object masks (an ellipse in frame 0, a shifted one
+    in frame 1): kernels against plain within 1e-4 on R and t, the launch
+    counts of ``MASKED_LAUNCHES``."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
+
+    batch = example_batch(8, 120, 160, seed=3, device=cuda)
+    yy = torch.arange(120, device=cuda)[:, None].float()
+    xx = torch.arange(160, device=cuda)[None, :].float()
+    masks = [((((yy - 60 - dy) / 40) ** 2 + ((xx - 80 - dx) / 55) ** 2) < 1).expand(8, 1, 120, 160)
+             for dy, dx in ((0, 0), (4, 6))]
+    kern = build_tracker(preset, device=cuda, overrides=overrides)
+    plain = build_tracker(preset, device=cuda, plain_kernels=True, overrides=overrides)
+    tk.reset_launches()
+    with torch.inference_mode():
+        R, t = kern(*batch, obj_mask0=masks[0], obj_mask1=masks[1])
+        assert tk.LAUNCHES == _launches(**MASKED_LAUNCHES[(preset, overrides)])
+        Rp, tp = plain(*batch, obj_mask0=masks[0], obj_mask1=masks[1])
+    torch.testing.assert_close(R, Rp, rtol=0, atol=1e-4)
+    torch.testing.assert_close(t, tp, rtol=0, atol=1e-4)
     assert np.isfinite(t.cpu().numpy()).all()
 
 

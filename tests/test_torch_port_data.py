@@ -143,9 +143,16 @@ def test_png_rgb16_keeps_the_high_byte(tmp_path, rng, filter_type):
 
 
 def test_png_refuses_palette_interlace_and_corruption(tmp_path, rng):
+    """An 8-bit palette file decodes to its indices, as PIL reads it; one
+    of 4 bits is refused."""
     palette = str(tmp_path / "palette.png")
     Image.fromarray(_image(rng, (5, 6), np.uint8)).convert("P").save(palette)
-    with pytest.raises(ValueError, match="palette.png: PNG colour type 3"):
+    np.testing.assert_array_equal(read_png(palette)[..., 0], np.asarray(Image.open(palette)))
+    data = bytearray(open(palette, "rb").read())
+    data[24] = 4  # IHDR's bit depth; then its CRC again
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+    open(palette, "wb").write(bytes(data))
+    with pytest.raises(ValueError, match="palette.png: PNG colour type 3 at 4 bits"):
         read_png(palette)
     path = str(tmp_path / "interlaced.png")
     write_png(path, _image(rng, (5, 6, 3), np.uint8))
@@ -297,6 +304,6 @@ def test_dataset_roots_and_unported_datasets(monkeypatch):
     monkeypatch.setitem(sys.modules, "yaml", None)  # a machine without PyYAML
     with pytest.raises(ImportError, match="--data_root"):
         ploader.get_dataset_root("TUM_RGBD")
-    for name in ("MovingObjects3D", "ScanNet", "VaryLighting"):
-        with pytest.raises(NotImplementedError, match="items 3 and 6"):
+    for name in ("ScanNet", "VaryLighting"):
+        with pytest.raises(NotImplementedError, match="item 6"):
             ploader.load_data(name, [1], root="/x")

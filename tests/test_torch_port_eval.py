@@ -227,11 +227,9 @@ def test_evaluate_cli_on_cpu(evaluated, sequence, tmp_path, monkeypatch, capsys)
             np.testing.assert_array_equal(dumped[name], info[name], err_msg=name)
 
 
-EVAL_FLAGS = [["--save_img", "1"], ["--obj_only"], ["--mesh"],
-              ["--dataset", "MovingObjects3D"], ["--dataset", "ScanNet"],
-              ["--dataset", "VaryLighting"]]
+EVAL_FLAGS = [["--mesh"], ["--dataset", "ScanNet"], ["--dataset", "VaryLighting"]]
 TRAIN_FLAGS = [["--loss", "UEPE3D"], ["--loss", "URPE"], ["--accum_steps", "2"], ["--mesh"],
-               ["--distributed"], ["--debug_nan"], ["--dataset", "MovingObjects3D"]]
+               ["--distributed"], ["--debug_nan"], ["--dataset", "ScanNet"]]
 
 
 @pytest.mark.parametrize("cli,flags", [(pev, f) for f in EVAL_FLAGS]

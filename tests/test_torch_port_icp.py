@@ -201,9 +201,16 @@ def test_warped_residual_and_weighted_ic_system(scene):
     _close(res, res_j)
     _close(occ, occ_j)
     assert (res[occ.expand_as(res)] == 1e-3).all()
-    with pytest.raises(NotImplementedError):
-        tres.compute_warped_residual(_t(s["R"], s["t"]), *_t(*[s[k] for k in args]),
-                                     obj_mask0=occ)
+    # a frame-0 object mask: the pixels outside it join the invalid ones
+    mask = ~occ.numpy()
+    mask[..., :10] = False
+    res_m, occ_m = tres.compute_warped_residual(_t(s["R"], s["t"]), *_t(*[s[k] for k in args]),
+                                                obj_mask0=torch.from_numpy(mask))
+    res_mj, occ_mj = jres.compute_warped_residual(_j(s["R"], s["t"]), *_j(*[s[k] for k in args]),
+                                                  obj_mask0=jnp.asarray(mask))
+    _close(res_m, res_mj)
+    _close(occ_m, occ_mj)
+    assert occ_m.sum() > occ.sum()
 
     pre = tjac.precompute_ic(*_t(s["invD0"], s["x0"], s["px"], s["py"], s["K"]))
     pre_j = jjac.precompute_ic(*_j(s["invD0"], s["x0"], s["px"], s["py"], s["K"]))

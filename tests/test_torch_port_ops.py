@@ -159,7 +159,8 @@ NEW_MODULES = ("data.association", "data.io", "data.loader", "data.pipeline", "d
                "data.transforms", "data.tum", "data.tum_dicts", "evaluation",
                "training.checkpoints", "utils.logger", "utils.timers", "apps.evaluate",
                "apps.train", "apps.baselines", "apps.kf_vo", "apps.traj_eval",
-               "apps.import_checkpoint", "apps.convergence_basin")
+               "apps.import_checkpoint", "apps.convergence_basin", "data.moving_objects",
+               "utils.display", "apps.warping_objects")
 
 
 def _blocked_python(code):
@@ -204,7 +205,10 @@ def test_clis_run_on_numpy_alone(tmp_path):
     keyframe VO, trajectory evaluation, checkpoint import and
     convergence-basin CLIs read a TUM-format sequence (written by
     ``chip_smoke.write_png``, no PIL) and run on the CPU with the same
-    modules blocked."""
+    modules blocked; so do the evaluate CLI with ``--obj_only`` and
+    ``--save_img`` (its PNG files through the port's writer), the train CLI
+    and ``warping_objects`` (both modes) on a MovingObjects3D dataset of
+    ``chip_smoke.write_mo3d_dataset``."""
     code = f"""
 import os
 sys.path.insert(0, {REPO!r})
@@ -245,6 +249,23 @@ assert convergence_basin.main(["--data_root", "", "--trajectory", seq, "--image_
                                "--cb_dimension", "1D", "--pert_samples", "3",
                                "--checkpoint", os.path.join(root, "imported.pt"),
                                "--output", os.path.join(root, "cb.pkl"), "--device", "cpu"]) == 0
+from deep_prob_feature_track_torch.apps import warping_objects
+from deep_prob_feature_track_torch.data import moving_objects
+moving_objects.CATEGORIES.update({{"train": {{"aeroplane": (0, 1)}}, "validation": {{}},
+                                  "test": {{"boat": (0, 1), "motorbike": (0, 1)}}}})
+mo3d = os.path.join(root, "mo3d")
+chip_smoke.write_mo3d_dataset(mo3d, 128, 160, categories={{"aeroplane": 1, "boat": 1,
+                                                           "motorbike": 1}})
+assert evaluate.main(["--dataset", "MovingObjects3D", "--data_root", mo3d, "--keyframes", "1",
+                      "--batch_size", "2", "--obj_only", "--save_img", "1",
+                      "--output_dir", os.path.join(root, "mo3d_out"), "--device", "cpu"]) == 0
+assert train.main(["--dataset", "MovingObjects3D", "--data_root", mo3d, "--keyframes", "1",
+                   "--batch_size", "2", "--epochs", "1", "--max_steps_per_epoch", "1",
+                   "--no_val", "--checkpoint_folder", os.path.join(root, "mo3d_logs"),
+                   "--device", "cpu"]) == 0
+for extra in (["--gt_pose"], []):
+    assert warping_objects.main(["--data_root", mo3d, "--num_pairs", "1", "--device", "cpu",
+                                 "--output_dir", os.path.join(root, "warp", *extra), *extra]) == 0
 """
     out = _blocked_python(code)
     assert out.returncode == 0, out.stderr
@@ -254,3 +275,9 @@ assert convergence_basin.main(["--data_root", "", "--trajectory", seq, "--image_
     assert '"ate_rmse_m"' in out.stdout
     assert os.path.isfile(tmp_path / "imported.pt") and os.path.isfile(tmp_path / "cb.pkl")
     assert len(list((tmp_path / "logs").rglob("checkpoint_epoch1.pt"))) == 1
+    mo3d_out = tmp_path / "mo3d_out" / "nolearning_feature"
+    assert os.path.isfile(mo3d_out / "summary.csv")
+    assert len(list((mo3d_out / "vis").rglob("*.png"))) == 13
+    assert len(list((tmp_path / "mo3d_logs").rglob("checkpoint_epoch1.pt"))) == 1
+    assert {p.name for p in (tmp_path / "warp").rglob("*.png")} == {"pair_0000.png"}
+    assert len(list((tmp_path / "warp").rglob("*.png"))) == 2
