@@ -103,7 +103,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    ``feature_icp``;
 18. profile one B=8 forward at 120x160 and at 480x640 (``torch.profiler``),
    of ``feature`` and, timed too, of ``feature_icp``, and at 120x160 of
-   ``RGB``, ``ICP``, ``RGB+ICP`` and ``DeepIC``: device busy time, the span
+   ``RGB``, ``ICP``, ``RGB+ICP``, ``DeepIC`` and the tracker options
+   ``feature_icp`` with ``scaler=MultiScale2w``, ``feature`` with
+   ``dense_net``, with ``ConvRGBD`` and with ``uncer_prop``: device busy time, the span
    from its first to its last kernel, the idle share of that span, and
    launches and device time by kernel name; with ``--time``, the train
    steps of 17 too (the full run times them in 11, 12 and 21), and K1 at
@@ -225,12 +227,49 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    masks (K1 13, K6 12 a pair): the masked residuals, the mosaics decode;
    the JSON record gets ``objects``.
 
+40. the tracker options' new kernel shapes, against the plain versions: K1
+   (bit-exact) at the learned ICP scale's 640x480 upsample (B=8, the
+   240x320 prior weights to 480x640, C=1); K6's ``FusedJtJ`` at the
+   120x160 B=64 levels with a nonzero JtJ cotangent (the uncertainty
+   losses' path): the forward against the float64 plain version within
+   rtol 1e-5 and 1e-5 of the largest entry, the backward against the plain
+   one bit for bit and against float64 within the same bound;
+41. ``feature_icp`` with the learned ``scaler=MultiScale2w``, served as in
+   8 (K1 27 a batch: the 24 warps and the prior weights' upsamples at
+   levels 2-0, the scale reading the first iteration's residuals; K6 12),
+   against plain within 1e-5 and the CPU within 1e-4; ``scaler=
+   expMultiScale`` the same, forward only, on ``synthetic_batch``'s smooth
+   scenes (it weighs the ICP term up to 400x more: on the requests'
+   uniform-noise depth its flipped ICP masks move the pose ~1e-2); the
+   ``MultiScale2w`` forward
+   at 640x480 B=8 (K4 6 for level 0's feature and ICP operands, K1 21, K6
+   12) against plain within 1e-5;
+42. ``feature`` with the ``dense_net`` initial pose and with the one-view
+   ``ConvRGBD`` encoder, and ``DeepIC`` with ``no_weight_sharing``, each
+   served as in 8 (K1 12 and K6 12; ``DeepIC`` K1 51); ``feature`` with
+   ``multi_hypo=average`` and with ``res_input=1``, forward only; each
+   against plain within 1e-5 and the CPU within 1e-4;
+43. ``feature`` with ``uncer_prop`` on the smooth scenes: the forward's
+   pose and level 0's 6x6 information matrix (K1 12, K6 12), against plain
+   and the CPU (poses within 1e-5 and 1e-4, the matrix within 1e-4 of its
+   largest entry); on the uniform-noise requests, and on the uniform noise
+   of seed 3, the pose and matrix gaps of kernels, plain on the card and
+   the CPU, each pair, are logged;
+44. train ``feature`` with ``uncer_prop`` and the UEPE3D loss, and
+   ``feature_icp`` with ``scaler=MultiScale2w``, as in 11: per step K2,
+   K3, K6 12 times; and K2 27, K3 15, K6 12 times (the scale's upsamples;
+   the ICP operand needs no cotangent);
+45. ``apps.train.main --loss URPE --no_val`` (``uncer_prop`` on) on a
+   written 8-frame sequence linked as the 36 training sequences, 2 steps at
+   120x160 B=64: K2, K3, K6 12 times a step, finite losses; the JSON record
+   gets ``variants``.
+
 Phase 16 also records K4's staged share on the U_FC forwards (480x640 and
 120x160, on the synthetic scene and on the served requests), 17 times K4
 (C=28, beside K1 and ``grid_sample``), K1 (C=28 and 49), K2 and K3 (C=28)
 at U_FC's shapes, and 18 profiles the U_FC forwards (120x160, 480x640 and
 C=49) and, with ``--time``, times its steps.  ``--time`` needs a port
-package with the U_FC track.
+package with the U_FC track and the tracker options of 40-45.
 
 The last lines are a JSON ``kernels`` record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -346,6 +385,17 @@ UFC_WIDE_LAUNCHES = counts(gather_twohot=12)
 # prior weights (K2), and the 3 of the iterations reach the loss (K3)
 UFC_TRAIN_LAUNCHES = counts(gather_twohot_grads=12, splat_twohot=12)
 UFC_MEST_TRAIN_LAUNCHES = counts(gather_twohot_grads=24, splat_twohot=21)
+# the tracker options (phases 40-45): a learned ICP scale reads the first
+# iteration's residuals (no gather of its own) and upsamples the prior
+# weights at levels 2-0 (3 more K1, K2 and K3); the other options launch
+# as their preset
+SCALE = ("scaler=MultiScale2w",)
+UNCER = ("uncer_prop=1",)
+SCALE_SERVE_LAUNCHES = counts(gather_twohot=27, fused_jtj_jtr=12)
+SCALE_VGA_LAUNCHES = counts(gather_tiles=6, gather_twohot=21, fused_jtj_jtr=12)
+SCALE_TRAIN_LAUNCHES = counts(gather_twohot_grads=27, splat_twohot=15, fused_jtj_jtr=12)
+VARIANT_TIMED = (("feature_icp", SCALE), ("feature", ("init_pose_type=dense_net",)),
+                 ("feature", ("encoder_name=ConvRGBD",)), ("feature", UNCER))
 C_ICP = (1, 3, 6)  # the channel counts of the classical and ICP warps
 PRESET_ATOL = 1e-5  # kernel against plain forward of the presets this slice added
 
@@ -1144,11 +1194,22 @@ def _payload(item) -> bytes:
     return buf.getvalue()
 
 
-def request_items(n: int, h: int, w: int):
+def request_items(n: int, h: int, w: int, seed: int = 1):
     from deep_prob_feature_track_torch.apps.serve import example_batch
 
-    batch = [t.numpy() for t in example_batch(n, h, w, seed=1)]
+    batch = [t.numpy() for t in example_batch(n, h, w, seed=seed)]
     return [{k: a[i] for k, a in zip(KEYS, batch)} for i in range(n)]
+
+
+def smooth_items(n: int, h: int, w: int):
+    """``n`` requests of ``training/train.py::synthetic_batch``'s smooth
+    textured scenes (seed 2): on ``request_items``' uniform-noise depth the
+    ICP and occlusion masks flip under one rounding of K6's sums, which a
+    weighted ICP term or an information matrix amplifies."""
+    from deep_prob_feature_track_torch.training.train import synthetic_batch
+
+    batch = synthetic_batch(n, h, w, seed=2)
+    return [{k: batch[k][i].numpy() for k in KEYS} for i in range(n)]
 
 
 def config_name(preset, overrides=()):
@@ -1257,35 +1318,38 @@ def phase_agree(torch, dev, items, n_cpu, preset="feature", plain_atol=1e-4, exp
     return out
 
 
-def _train_state(torch, dev, plain=False, preset="feature", overrides=()):
+def _train_state(torch, dev, plain=False, preset="feature", overrides=(), objective="EPE3D"):
     from deep_prob_feature_track_torch.models.presets import apply_overrides, get_preset
     from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
     from deep_prob_feature_track_torch.training import train as T
 
-    cfg = T.TrainConfig()
+    cfg = T.TrainConfig(loss=objective)
     net = LeastSquareTracking(apply_overrides(get_preset(preset), overrides), plain_kernels=plain)
     return cfg, T.create_train_state(net, cfg, seed=1, device=dev)
 
 
-def _loss_and_grads(torch, dev, batch, plain, preset, overrides=()):
+def _loss_and_grads(torch, dev, batch, plain, preset, overrides=(), objective="EPE3D"):
     from deep_prob_feature_track_torch.training import train as T
 
-    cfg, state = _train_state(torch, dev, plain, preset, overrides)
+    cfg, state = _train_state(torch, dev, plain, preset, overrides, objective)
     loss = T.compute_loss(state.net, cfg, batch)
     loss.backward()
     return loss.item(), {k: p.grad for k, p in state.net.named_parameters()}
 
 
-def phase_train(torch, dev, b, h, w, seed, expected, preset="feature", overrides=()):
-    """Three steps of ``preset`` at b x h x w, with the launch counts
-    ``expected`` per step; kernels against plain versions; step time,
-    memory, profile."""
+def phase_train(torch, dev, b, h, w, seed, expected, preset="feature", overrides=(),
+                objective="EPE3D"):
+    """Three steps of ``preset`` at b x h x w under the loss ``objective``, with the
+    launch counts ``expected`` per step; kernels against plain versions;
+    step time, memory, profile."""
     from deep_prob_feature_track_torch.ops import kernels as K
     from deep_prob_feature_track_torch.training import train as T
 
-    name = config_name(preset, overrides)
+    name = config_name(preset, overrides) + (
+        "" if objective == "EPE3D" else f" --loss {objective}")
     batch = T.synthetic_batch(b, h, w, seed=seed, device=dev)
-    cfg, state = _train_state(torch, dev, preset=preset, overrides=overrides)
+    cfg, state = _train_state(torch, dev, preset=preset, overrides=overrides,
+                              objective=objective)
     step = T.make_train_step(cfg, steps_per_epoch=100)
     launches = {k: 0 for k in K.LAUNCHES}
     losses = []
@@ -1307,7 +1371,7 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature", overrides
     # kernels twice (K3's atomics and cuDNN reorder sums from run to run),
     # then the plain versions
     (loss_k, grads_k), (_, grads_k2), (loss_p, grads_p) = (
-        _loss_and_grads(torch, dev, batch, plain, preset, overrides)
+        _loss_and_grads(torch, dev, batch, plain, preset, overrides, objective)
         for plain in (False, False, True))
 
     def worst_leaf(grads, ref):
@@ -1332,7 +1396,8 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature", overrides
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(torch, lambda: step(state, batch), reps=5, warmup=2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _, plain_state = _train_state(torch, dev, plain=True, preset=preset, overrides=overrides)
+    _, plain_state = _train_state(torch, dev, plain=True, preset=preset, overrides=overrides,
+                                  objective=objective)
     step_plain_ms = time_ms(torch, lambda: step(plain_state, batch), reps=5, warmup=2)
     log(f"{name}: B={b} {h}x{w} train step: {step_ms:.3f} ms with the kernels "
         f"({b / step_ms * 1e3:.1f} samples/s, peak memory {peak_gb:.2f} GB), "
@@ -2611,6 +2676,198 @@ def phase_objects(torch, dev):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def phase_variant_kernels(torch, dev):
+    """Phase 40: K1 at the learned ICP scale's 640x480 upsample (bit-exact);
+    K6's ``FusedJtJ`` forward and backward with a nonzero JtJ cotangent at
+    the 120x160 B=64 levels against its plain version and float64."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    err = {"gather_twohot": 0.0, "fused_jtj_jtr": 0.0}
+    F, args = upsample_inputs(torch, dev, B, H_VGA // 2, W_VGA // 2, seed=150)
+    out, ref = K.gather_twohot_cuda(F, *args), K.gather_twohot_ref(F, *args)
+    torch.cuda.synchronize()
+    e = (out - ref).abs().max().item()
+    log(f"K1 gather_twohot, the learned scale's upsample {H_VGA // 2}x{W_VGA // 2} -> "
+        f"{H_VGA}x{W_VGA}, B={B}: max|kernel - plain| = {e:.3e}")
+    if e != 0.0:
+        raise AssertionError(f"gather_twohot is not bit-exact at the 640x480 upsample: {e}")
+    for i, (h, w) in enumerate(LEVELS):
+        inputs = jtj_inputs(torch, dev, h * w, seed=151 + i, b=B_TRAIN)
+        g = torch.Generator().manual_seed(160 + i)
+        G = torch.randn(B_TRAIN, 6, 6, generator=g)
+        cot = ((G + G.transpose(1, 2)).to(dev), torch.randn(B_TRAIN, 6, 1, generator=g).to(dev))
+
+        def run(plain, dtype):
+            xs = [a.detach().to(dtype).clone().requires_grad_() for a in inputs]
+            outs = K.FusedJtJ.apply(*xs, -1.0, plain)
+            torch.autograd.backward(outs, [c.to(dtype) for c in cot])
+            return [o.detach() for o in outs] + [x.grad for x in xs]
+
+        got, plain32, plain64 = run(False, torch.float32), run(True, torch.float32), [
+            t.float() for t in run(True, torch.float64)]
+        torch.cuda.synchronize()
+        for x, r in zip(got, plain64):
+            torch.testing.assert_close(x, r, rtol=1e-5, atol=1e-5 * r.abs().max().item())
+        if not all(torch.equal(x, r) for x, r in zip(got[2:], plain32[2:])):
+            raise AssertionError(f"FusedJtJ's backward differs from its plain run at level {i}")
+        e = max((x - r).abs().max().item() for x, r in zip(got[:2], plain64[:2]))
+        top = plain64[0].abs().max().item()
+        log(f"K6 FusedJtJ level {i} [{B_TRAIN},{C_RES},{h * w}] with a JtJ cotangent: "
+            f"forward max|kernel - plain f64| = {e:.3e} ({e / top:.2e} of the largest entry), "
+            "backward bit-exact with the plain run")
+        err["fused_jtj_jtr"] = max(err["fused_jtj_jtr"], e)
+    return err
+
+
+def phase_uncer_agree(torch, dev, items):
+    """Phase 43: ``feature`` with ``uncer_prop``: the forward's pose and
+    level 0's information matrix through the kernels (launches pinned)
+    against the plain versions on the card and the CPU, on the smooth
+    scenes ``items``.  ``noise_gaps`` logs the same on uniform noise."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    def run(device, plain=False, batch_items=None):
+        batch = [torch.from_numpy(np.stack([it[k] for it in batch_items or items])).to(device)
+                 for k in KEYS]
+        net = build_tracker("feature", device=device, plain_kernels=plain, overrides=UNCER)
+        with torch.inference_mode():
+            K.reset_launches()
+            (R, t), info = net(*batch)
+            launches = dict(K.LAUNCHES)
+        return [a.cpu().numpy() for a in (R, t, info)], launches
+
+    got, launches = run(dev)
+    name = config_name("feature", UNCER)
+    if launches != SERVE_LAUNCHES:
+        raise AssertionError(f"{name} forward launched {launches}, expected {SERVE_LAUNCHES}")
+    out = {"launches": launches}
+    for other, ref, atol in (("plain", run(dev, True)[0], PRESET_ATOL),
+                             ("cpu", run(torch.device("cpu"))[0], 1e-4)):
+        dR, dt = (np.abs(a - b).max() for a, b in zip(got[:2], ref[:2]))
+        dI = (np.abs(got[2] - ref[2]).max(axis=(1, 2)) / np.abs(ref[2]).max(axis=(1, 2))).max()
+        log(f"{name}: B={len(items)} {H}x{W} forward, kernels vs {other}: max|dR| = {dR:.3e}, "
+            f"max|dt| = {dt:.3e}, level 0 information matrix {dI:.2e} of its largest entry")
+        if not (dR <= atol and dt <= atol and dI <= 1e-4 and np.isfinite(got[2]).all()):
+            raise AssertionError(f"{name}: kernel forward disagrees with the {other} forward")
+        out[other] = [float(dR), float(dt), float(dI)]
+    return out
+
+
+def phase_cli_uncer(torch, dev):
+    """Phase 45: ``apps.train.main --loss URPE --no_val`` on an 8-frame
+    written sequence linked as the 36 training sequences: 2 steps at
+    120x160 B=64, launches pinned, finite losses."""
+    import shutil
+
+    from deep_prob_feature_track_torch.apps import train
+    from deep_prob_feature_track_torch.data.tum_dicts import TUM_TRAINVAL
+
+    workdir = tempfile.mkdtemp(prefix="dpft_uncer_")
+    try:
+        seq = os.path.join(workdir, "seq")
+        write_tum_sequence(seq, n=8)
+        root = os.path.join(workdir, "trainval")
+        os.makedirs(root)
+        for name in (n for names in TUM_TRAINVAL.values() for n in names):
+            os.symlink(seq, os.path.join(root, name))
+        probe = _CliProbe(torch)
+        try:
+            t0 = time.monotonic()
+            if train.main(["--data_root", root, "--keyframes", ",".join(map(str, CLI_KEYFRAMES)),
+                           "--batch_size", str(B_TRAIN), "--image_resize", str(CLI_SMALL),
+                           "--max_steps_per_epoch", "2", "--epochs", "1", "--no_val",
+                           "--loss", "URPE", "--checkpoint_folder", os.path.join(workdir, "logs"),
+                           "--device", str(dev)]) != 0:
+                raise AssertionError("the train CLI failed")
+            wall = time.monotonic() - t0
+        finally:
+            probe.restore()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for i, st in enumerate(probe.steps):
+        log(f"train CLI --loss URPE {CLI_SMALL} B={B_TRAIN} step {i}: loss {st['loss']:.6f}, "
+            f"{st['ms']:.1f} ms, launches {st['launches']}")
+        if not np.isfinite(st["loss"]):
+            raise AssertionError("train CLI --loss URPE: non-finite loss")
+        if st["launches"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"train CLI --loss URPE step {i} launched {st['launches']}, "
+                                 f"expected {TRAIN_LAUNCHES}")
+    if len(probe.steps) != 2:
+        raise AssertionError(f"train CLI --loss URPE took {len(probe.steps)} steps, expected 2")
+    return {"steps": probe.steps, "wall_s": wall}
+
+
+def noise_gaps(torch, dev, items, preset, overrides, label="uniform-noise requests"):
+    """The forwards of ``items`` through the kernels, their plain versions on
+    the card and on the CPU: the largest pose gaps between each pair, and
+    with ``uncer_prop`` the largest gap of level 0's information matrix
+    relative to its largest entry, per sample; logged and returned, not
+    held (a float32 hazard of uniform-noise depth: a flipped occlusion,
+    ICP or sigma-extreme pixel moves the solve by its own share)."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+
+    poses, infos = [], []
+    for device, plain in ((dev, False), (dev, True), (torch.device("cpu"), True)):
+        batch = [torch.from_numpy(np.stack([it[k] for it in items])).to(device) for k in KEYS]
+        net = build_tracker(preset, device=device, plain_kernels=plain, overrides=overrides)
+        with torch.inference_mode():
+            out = net(*batch)
+        pose, info = out if isinstance(out[0], tuple) else (out, None)
+        poses.append(np.concatenate([a.cpu().numpy().reshape(len(items), -1) for a in pose],
+                                    axis=1))
+        infos.append(None if info is None else info.cpu().numpy())
+    gaps = {}
+    for pair, (i, j) in (("kernels_plain", (0, 1)), ("plain_cpu", (1, 2)),
+                         ("kernels_cpu", (0, 2))):
+        gaps[pair] = float(np.abs(poses[i] - poses[j]).max())
+        if infos[j] is not None:
+            gaps[pair + "_info"] = float((np.abs(infos[i] - infos[j]).max(axis=(1, 2))
+                                          / np.abs(infos[j]).max(axis=(1, 2))).max())
+    log(f"{config_name(preset, overrides)}: {label}, largest R/t gaps"
+        f"{' and information-matrix gaps' if infos[0] is not None else ''} (not held): {gaps}")
+    return gaps
+
+
+def phase_variants(torch, dev, items, vga_items):
+    """Phases 41-45 (the tracker options and the uncertainty losses); 40 is
+    ``phase_variant_kernels``."""
+    out = {}
+    served = ((("feature_icp", SCALE), SCALE_SERVE_LAUNCHES),
+              (("feature", ("init_pose_type=dense_net",)), SERVE_LAUNCHES),
+              (("feature", ("encoder_name=ConvRGBD",)), SERVE_LAUNCHES),
+              (("DeepIC", ("no_weight_sharing=1",)), DEEPIC_SERVE_LAUNCHES))
+    for (preset, overrides), expected in served:
+        _, served_items = phase_serve(torch, dev, H, W, expected, preset, overrides)
+        out[config_name(preset, overrides)] = phase_agree(
+            torch, dev, served_items, B, preset, PRESET_ATOL, expected, overrides)
+    smooth = smooth_items(B, H, W)
+    # expMultiScale weighs the ICP term up to 400x MultiScale2w's: on the
+    # uniform-noise requests its flipped ICP masks move the pose by ~1e-2
+    for (preset, overrides), expected, batch in (
+            (("feature_icp", ("scaler=expMultiScale",)), SCALE_SERVE_LAUNCHES, smooth),
+            (("feature", ("multi_hypo=average",)), SERVE_LAUNCHES, items),
+            (("feature", ("res_input=1",)), SERVE_LAUNCHES, items)):
+        out[config_name(preset, overrides)] = phase_agree(
+            torch, dev, batch, B, preset, PRESET_ATOL, expected, overrides)
+    out[config_name("feature_icp", SCALE) + " 480x640"] = phase_agree(
+        torch, dev, vga_items, 0, "feature_icp", PRESET_ATOL, SCALE_VGA_LAUNCHES, SCALE)
+    out["expMultiScale uniform-noise gaps"] = noise_gaps(torch, dev, items, "feature_icp",
+                                                         ("scaler=expMultiScale",))
+    out[config_name("feature", UNCER)] = phase_uncer_agree(torch, dev, smooth)
+    out["uncer_prop uniform-noise gaps"] = noise_gaps(torch, dev, items, "feature", UNCER)
+    # the uniform noise that the card test of uncer_prop first took (seed 3)
+    out["uncer_prop uniform-noise gaps, seed 3"] = noise_gaps(
+        torch, dev, request_items(B, H, W, seed=3), "feature", UNCER,
+        "uniform-noise batch of seed 3")
+    out["train_uepe3d"] = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED, TRAIN_LAUNCHES,
+                                      overrides=UNCER, objective="UEPE3D")
+    out["train_scale"] = phase_train(torch, dev, B_TRAIN, H, W, TRAIN_SEED,
+                                     SCALE_TRAIN_LAUNCHES, "feature_icp", SCALE)
+    out["cli_train_urpe"] = phase_cli_uncer(torch, dev)
+    return out
+
+
 def phase_forward(torch, dev, h, w, preset="feature", overrides=()):
     """The B=8 forward of ``preset`` at h x w, with the kernels and with
     their plain versions, and one profiled forward."""
@@ -2789,6 +3046,8 @@ def measure(torch, dev, name, train_steps=True):
             "ufc_forwards": {config_name("feature", o) + f" {h}x{w}": phase_forward(
                 torch, dev, h, w, overrides=o)
                 for o, h, w in ((UFC, H, W), (UFC, H_VGA, W_VGA), (UFC_WIDE, H, W))},
+            "variant_forwards": {config_name(p, o): phase_forward(torch, dev, H, W, p, o)
+                                 for p, o in VARIANT_TIMED},
             "train_steps": {config_name(p, o): phase_step_time(torch, dev, p, o)
                             for p, o in (("feature", ()), ("feature_icp", ()), ("DeepIC", ()),
                                          ("feature", UFC), ("feature", UFC_MEST))
@@ -2853,6 +3112,11 @@ def run(torch, loader, dev, name, smi):
     for k, e in obj_errors.items():
         errors[k] = max(errors[k], e)
     objects = {"kernel_times": obj_kernel_rows, **phase_objects(torch, dev)}
+    for k, e in phase_variant_kernels(torch, dev).items():
+        errors[k] = max(errors[k], e)
+    t0 = time.monotonic()
+    variants = phase_variants(torch, dev, items, vga_items)
+    log(f"phases 40-45 (the tracker options) in {time.monotonic() - t0:.1f} s")
     m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
                       "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
@@ -2861,7 +3125,7 @@ def run(torch, loader, dev, name, smi):
                       "ufc_serve_launches": ufc_launches, "ufc_k4_staged_share": ufc_k4_shares,
                       "preset_agree": presets, "scene_staged_share": scene_shares,
                       "vga_serve_launches": vga_launches, **cli, "objects": objects,
-                      "card": smi}), flush=True)
+                      "variants": variants, "card": smi}), flush=True)
 
     # K1 and K6 as the 120x160 serve path launched them, K2 and K3 as the
     # 120x160 train path did; K4 as the 480x640 serve path, K5 as the 480x640

@@ -125,14 +125,14 @@ class RGBDOdometry(_BaseTracker):
         dp0 = image_pyramid(depth0, pool="max")
         dp1 = image_pyramid(depth1, pool="max")
         pose = _identity(depth0)
+        # the fixed ICP scale: a constant weight map
+        scale_fn = ((lambda icp_res, *_: torch.full_like(icp_res, ICP_SCALE))
+                    if self.term == "hybrid" else None)
         for lvl, iters in self.schedule:
             ones = torch.ones_like(f0[lvl])
-            # the fixed ICP scale: a constant weight map
-            w_icp = (torch.full_like(iv0[lvl], ICP_SCALE) if self.term == "hybrid"
-                     else None)
             pose, _, _ = tr_uic_level(pose, f0[lvl], f1[lvl], iv0[lvl], iv1[lvl],
                                       scale_K(K, lvl), ones, ones, depth0=dp0[lvl],
-                                      depth1=dp1[lvl], w_icp=w_icp, max_iter=iters,
+                                      depth1=dp1[lvl], scale_fn=scale_fn, max_iter=iters,
                                       plain=self.plain)
         return pose
 

@@ -18,20 +18,26 @@ The keys are the file's ``state_dict`` (or the file itself), with
 DataParallel's ``module.`` prefixes stripped.  ``num_batches_tracked`` is
 dropped where the port's module has none.  The original registers each
 learned M-estimator and damping net twice, on the tracker
-(``mEst_func``/``solver_func``) and inside each level's update
-(``tr_update{i}.mEstimator``/``.directSolver``): an alias whose primary key
-is present is dropped, else it loads into the shared module.  Per-level
-instances (``mEst_func{i}``, ``scaler_func{i}``, ``solver_func{i}``) belong
-to ``no_weight_sharing`` (ROADMAP item 3): they are reported as unmapped,
-never loaded into the shared module.  Unmapped keys are printed (fatal
-under ``--strict``); the rest loads into the preset's tracker (a seeded
-init keeps what the file lacks), which is written as the port's weights
-file (``training/checkpoints.py::save_variables``).
+(``mEst_func``/``solver_func``, with ``no_weight_sharing`` one a level:
+``mEst_func{l}``, ``scaler_func{l}``, ``solver_func{l}``) and inside each
+level's update (``tr_update{l}.mEstimator``/``.directSolver``): an alias
+whose primary key is present is dropped, else it loads into its level's
+module, or into the shared one where the tracker shares them.  As in the
+JAX package's converter, a bare ``mEst_func`` is level 0's module of a
+tracker with ``no_weight_sharing``, and a ``mEst_func0`` the shared module
+of one without it.  A file that holds a module of level 1-3 is read as
+``no_weight_sharing``: the preset's tracker is built with a module a
+level, as ``models/from_flax.py`` reads a flax tree with a ``*_1``.
+Unmapped keys are printed (fatal under ``--strict``); the rest loads into
+the preset's tracker (a seeded init keeps what the file lacks), which is
+written as the port's weights file
+(``training/checkpoints.py::save_variables``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import re
 from typing import Dict, List, Tuple
 
@@ -39,7 +45,7 @@ import torch
 
 _ALIAS = re.compile(r"tr_update(\d)\.(mEstimator|directSolver)\.(.+)$")
 _ALIAS_PRIMARY = {"mEstimator": "mEst_func", "directSolver": "solver_func"}
-_PER_LEVEL = re.compile(r"(mEst_func|scaler_func|solver_func)\d\.")
+_LEVEL_NET = re.compile(r"(mEst_func|scaler_func|solver_func)(\d?)\.(.+)$")
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -48,6 +54,22 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     state = ckpt.get("state_dict", ckpt)
     return {k[len("module."):] if k.startswith("module.") else k: v for k, v in state.items()}
+
+
+def has_level_modules(state: Dict[str, torch.Tensor]) -> bool:
+    """Whether ``state`` holds a module of level 1-3 (``mEst_func1.``, ...):
+    the weights of a tracker with ``no_weight_sharing``."""
+    return any(m.group(2) not in ("", "0") for m in map(_LEVEL_NET.match, state) if m)
+
+
+def _level_key(base: str, idx: str, rest: str, per_level: bool) -> str:
+    """The target's key of level ``idx``'s module ``base`` (``""`` for the
+    shared one): ``{base}{l}.`` in a tracker with a module a level, where a
+    bare name is level 0, else ``{base}.``, where level 0 is the shared
+    one."""
+    if per_level:
+        return f"{base}{idx or 0}.{rest}"
+    return f"{base}.{rest}" if idx in ("", "0") else f"{base}{idx}.{rest}"
 
 
 def map_state_dict(state: Dict[str, torch.Tensor],
@@ -62,18 +84,20 @@ def map_state_dict(state: Dict[str, torch.Tensor],
     mapped: Dict[str, torch.Tensor] = {}
     unmapped: Dict[str, str] = {}
     aliases: List[Tuple[str, str]] = []
+    per_level = has_level_modules(target)
     for name, value in state.items():
         m = _ALIAS.match(name)
         if m:
             idx, kind, rest = m.groups()
             base = _ALIAS_PRIMARY[kind]
             if f"{base}.{rest}" not in state and f"{base}{idx}.{rest}" not in state:
-                aliases.append((name, f"{base}.{rest}"))
+                aliases.append((name, _level_key(base, idx if per_level else "", rest,
+                                                 per_level)))
             continue
-        if _PER_LEVEL.match(name):
-            unmapped[name] = "a per-level instance (no_weight_sharing, ROADMAP item 3)"
-        elif name in target:
-            mapped[name] = value
+        m = _LEVEL_NET.match(name)
+        key = _level_key(*m.groups(), per_level) if m else name
+        if key in target:
+            mapped[key] = value
         elif not name.endswith("num_batches_tracked"):
             unmapped[name] = "no such key in the preset's tracker"
     for name, key in aliases:
@@ -104,9 +128,13 @@ def main(argv=None):
     from ..models.tracker import LeastSquareTracking
     from ..training.checkpoints import save_variables
 
-    net = LeastSquareTracking(get_preset(args.preset)).reset_parameters(0)
+    state = read_state_dict(args.torch_checkpoint)
+    cfg = get_preset(args.preset)
+    if has_level_modules(state):
+        cfg = dataclasses.replace(cfg, no_weight_sharing=True)
+    net = LeastSquareTracking(cfg).reset_parameters(0)
     target = net.state_dict()
-    mapped, unmapped = map_state_dict(read_state_dict(args.torch_checkpoint), target)
+    mapped, unmapped = map_state_dict(state, target)
     if unmapped:
         msg = f"[import] {len(unmapped)} unmapped keys: " + ", ".join(
             f"{k} ({unmapped[k]})" for k in sorted(unmapped)[:10])

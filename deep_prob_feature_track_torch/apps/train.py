@@ -27,15 +27,22 @@ loaders are empty, and the first epoch stops with a ``KeyError`` on
 validation reads the test objects (boat, motorbike) from the validation
 split, which holds none.
 
-Not ported, and raising ``NotImplementedError``: ``--loss UEPE3D|URPE``
-(ROADMAP item 4), ``--accum_steps > 1`` (item 5), ``--mesh``,
-``--distributed`` and ``--debug_nan`` (item 8), and the ScanNet and
-VaryLighting datasets (item 6).
+``--loss UEPE3D|URPE`` turns on the tracker's ``uncer_prop``, as the JAX
+CLI does.  Such a tracker's eval forward returns ``((R, t), JtWJ)``, which
+``evaluate_two_view`` cannot take as a pose: validation without
+``--no_val`` stops with a ``ValueError`` at its first batch, as the JAX
+CLI's does (on TUM its empty loaders stop it with the ``KeyError`` above
+first).
+
+Not ported, and raising ``NotImplementedError``: ``--accum_steps > 1``
+(ROADMAP item 5), ``--mesh``, ``--distributed`` and ``--debug_nan`` (item
+8), and the ScanNet and VaryLighting datasets (item 6).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import random
 import time
@@ -83,7 +90,6 @@ def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for an option the port lacks, naming
     the ROADMAP item that ports it."""
     missing = [
-        (args.loss in ("UEPE3D", "URPE"), f"--loss {args.loss}", "4"),
         (args.accum_steps > 1, "--accum_steps > 1", "5"),
         (args.mesh, "--mesh", "8"),
         (args.distributed, "--distributed", "8"),
@@ -114,6 +120,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = apply_overrides(get_preset(args.preset), args.set)
+    if args.loss in ("UEPE3D", "URPE"):
+        cfg = dataclasses.replace(cfg, uncer_prop=True)
     keyframes = [int(k) for k in args.keyframes.split(",")]
 
     run_name = f"{args.dataset}_{config_fingerprint(cfg)}_lr_{args.lr}_batch_{args.batch_size}"

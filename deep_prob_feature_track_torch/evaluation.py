@@ -110,6 +110,11 @@ def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
             masks = {k: dev[k] for k in ("obj_mask0", "obj_mask1")}
         with torch.inference_mode():
             R, t = forward_fn(*(dev[k] for k in KEYS), **masks)
+        if not isinstance(R, torch.Tensor):
+            # an uncer_prop tracker's ((R, t), JtWJ): the JAX loop stops in
+            # np.asarray of the (R, t) pair, with this error
+            raise ValueError("the forward returned a pose and an information matrix, "
+                             "not a pose: an uncer_prop tracker cannot be evaluated")
         if timers:
             timers.toc("forward step")
 

@@ -10,7 +10,9 @@ backward.  Where the JAX package takes its tile kernels
 (``ops/kernels/tiles.py::use_tiles``: large planes such as 480x640), K4
 takes K1's place and K5 takes K2's.  Each kernel takes its plain version on
 CPU tensors (``ops/kernels/``); ``plain=True`` takes the plain versions on
-either device.
+either device.  A plane under 2x2 (no 2x2 cell fits) is sampled in tensor
+ops (:func:`_bilinear_gather_tiny`), as the JAX package routes it away
+from its kernels; the kernels' wrappers refuse such a plane.
 """
 
 from __future__ import annotations
@@ -150,16 +152,44 @@ class BilinearGather(torch.autograd.Function):
         return d_op, g_u.reshape(u.shape), g_v.reshape(v.shape), None
 
 
+def _bilinear_gather_tiny(operand, u, v):
+    """Bilinear sample of a plane under 2x2 ``[B,H,W,C]`` at (u, v) ->
+    ``[B,C,N]`` in tensor ops (differentiable by autograd): the far corner
+    clamps to the last row or column, as in the JAX package."""
+    B, H, W, C = operand.shape
+
+    def clip(x, hi):  # max then min, as jnp.clip: a tie splits its gradient
+        return torch.minimum(torch.maximum(x.reshape(B, -1), x.new_tensor(0.0)),
+                             x.new_tensor(hi))
+
+    uf, vf = clip(u, W - 1.0), clip(v, H - 1.0)
+    u0, v0 = torch.floor(uf), torch.floor(vf)
+    du, dv = (uf - u0)[:, None], (vf - v0)[:, None]
+    # a NaN coordinate samples NaN, from any cell
+    u0i, v0i = u0.nan_to_num().long(), v0.nan_to_num().long()
+    u1i, v1i = (u0i + 1).clamp(max=W - 1), (v0i + 1).clamp(max=H - 1)
+    flat = operand.reshape(B, H * W, C).transpose(1, 2)  # [B,C,HW]
+
+    def g(vi, ui):
+        return torch.gather(flat, 2, (vi * W + ui)[:, None, :].expand(B, C, -1))
+
+    return (g(v0i, u0i) * (1 - du) * (1 - dv) + g(v0i, u1i) * du * (1 - dv)
+            + g(v1i, u0i) * (1 - du) * dv + g(v1i, u1i) * du * dv)
+
+
 def warp_operand(operand, sizes, u, v, plain: bool = False):
     """Sample a prebuilt channels-last operand at (u, v) ``[B,1,h,w]``:
     through :class:`BilinearGather` (K2 or K5, and K3 in the backward) when
     autograd records the operand or the coordinates, else through K1, or K4
-    where :func:`use_tiles` holds.
+    where :func:`use_tiles` holds; a plane under 2x2 through
+    :func:`_bilinear_gather_tiny`.
 
     :return: list of per-map ``[B,Ci,h,w]``
     """
     B = operand.shape[0]
-    if torch.is_grad_enabled() and (operand.requires_grad or u.requires_grad
+    if operand.shape[1] < 2 or operand.shape[2] < 2:
+        out = _bilinear_gather_tiny(operand, u, v)
+    elif torch.is_grad_enabled() and (operand.requires_grad or u.requires_grad
                                     or v.requires_grad):
         out = BilinearGather.apply(operand, u, v, plain)
     else:
@@ -189,9 +219,55 @@ def warp_features(F, u, v, plain: bool = False):
     return warp_multi([F], u, v, plain=plain)[0]
 
 
+def grad_bilinear_interpolation(F, u, v):
+    """Exact derivative of bilinear sampling of ``F [B,C,H,W]`` at (u, v)
+    ``[B,1,h,w]``: within each cell, the x derivative is the v-blended
+    difference of the right and left columns, and the y one likewise.
+
+    :return: ``(gx, gy, invalid)``: ``[B,C,h,w]`` each, and ``[B,1,h,w]``
+        True where (u, v) is not finite or not strictly inside
+        ``(0, size-1)``
+    """
+    B, C, H, W = F.shape
+    h, w = u.shape[2], u.shape[3]
+    uf, vf = u.reshape(B, -1), v.reshape(B, -1)
+    invalid = ~((uf > 0) & (vf > 0) & (uf < W - 1) & (vf < H - 1)
+                & torch.isfinite(uf) & torch.isfinite(vf))
+    uc, vc = uf.clamp(0.0, W - 1.0), vf.clamp(0.0, H - 1.0)
+    u0, v0 = torch.floor(uc), torch.floor(vc)
+    du, dv = (uc - u0)[:, None], (vc - v0)[:, None]
+    # a NaN coordinate samples NaN, from any cell
+    u0i, v0i = u0.nan_to_num().long(), v0.nan_to_num().long()
+    u1i, v1i = (u0i + 1).clamp(max=W - 1), (v0i + 1).clamp(max=H - 1)
+    flat = F.reshape(B, C, H * W)
+
+    def g(vi, ui):
+        return torch.gather(flat, 2, (vi * W + ui)[:, None, :].expand(B, C, -1))
+
+    f00, f01, f10, f11 = g(v0i, u0i), g(v0i, u1i), g(v1i, u0i), g(v1i, u1i)
+    gx = (f01 - f00) * (1 - dv) + (f11 - f10) * dv
+    gy = (f10 - f00) * (1 - du) + (f11 - f01) * du
+    return gx.reshape(B, C, h, w), gy.reshape(B, C, h, w), invalid.reshape(B, 1, h, w)
+
+
 def compute_vertex(depth, px, py):
     """Depth map ``[B,1,H,W]`` -> vertex map ``[px*d, py*d, d]`` ``[B,3,H,W]``."""
     return torch.cat([px * depth, py * depth, depth], dim=1)
+
+
+def transform_xyz_jacobian(xyz, R):
+    """Jacobian of ``R p + t`` in the ``[rot, trs]`` twist of the
+    uncertainty-propagating EPE loss: ``[skew(R p) | -I]``.
+
+    :param xyz: point-cloud map ``[B,3,H,W]``
+    :return: ``[B,H*W,3,6]``
+    """
+    from .lie import skew
+
+    B, _, H, W = xyz.shape
+    rotated = (R @ xyz.reshape(B, 3, H * W)).transpose(1, 2)  # [B,HW,3]
+    J_t = -torch.eye(3, dtype=xyz.dtype, device=xyz.device).expand(B, H * W, 3, 3)
+    return torch.cat([skew(rotated), J_t], dim=-1)
 
 
 def batch_project(xyz, K):
@@ -227,3 +303,12 @@ def batch_transform_xyz(xyz: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> 
     B, _, H, W = xyz.shape
     out = R @ xyz.reshape(B, 3, H * W) + t.reshape(B, 3, 1)
     return out.reshape(B, 3, H, W)
+
+
+def batch_warp_affine(pu, pv, affine):
+    """2D affine warp of a pixel grid ``[B,1,H,W]`` each by ``affine``
+    ``[B,2,3]`` (or ``[B,3,3]``, whose last row is ignored)."""
+    B, _, H, W = pu.shape
+    uv1 = torch.cat([pu, pv, torch.ones_like(pu)], dim=1).reshape(B, 3, H * W)
+    out = affine[:, :2, :] @ uv1
+    return out[:, 0].reshape(B, 1, H, W), out[:, 1].reshape(B, 1, H, W)

@@ -62,10 +62,10 @@ class ConvBlock(nn.Sequential):
     """Conv2d + BatchNorm2d(eps 1e-5) + ELU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 dilation: int = 1):
+                 dilation: int = 1, stride: int = 1):
         pad = (kernel_size - 1) // 2 + dilation - 1
         super().__init__(
-            nn.Conv2d(in_channels, out_channels, kernel_size, padding=pad,
+            nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride, padding=pad,
                       dilation=dilation, bias=False),
             BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
             nn.ELU(),

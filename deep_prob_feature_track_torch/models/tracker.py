@@ -1,22 +1,23 @@
 """LeastSquareTracking: encoder + coarse-to-fine trust-region solve.
 
-Counterpart of ``deep_prob_feature_track_tpu/models/tracker.py`` for the
-eval and training forwards of the presets ``feature`` and ``feature_icp``
-(ConvRGBD2 encoder, laplacian sigma, U_IC, SFMPoseNet initial pose, with
-the fused ICP term in ``feature_icp``), ``DeepIC`` (ConvRGBD2 encoder with
-the ``average`` head and no sigma, IC with the learned ``MultiScale2w``
-M-estimator and the ``Direct-ResVol`` damping, from the identity pose) and
-the classical presets ``RGB`` (grayscale IC), ``ICP`` (point-to-plane ICP)
-and ``RGB+ICP`` (grayscale U_IC with the fused ICP term), which start from
-the identity pose; and of their variants over the forward-compositional
-U_FC track (``direction="forward"`` with a sigma), every feature head and
-every sigma type of the encoder.  Every preset takes object masks (the
-relative motion of an object between two frames, given its masks in both):
-the forward, ``compute_residual`` (each track's average residual at a given
-pose and level) and ``track_diagnostics`` (the per-level maps that the
-evaluate CLI's ``--save_img`` draws).  The one-view ``ConvRGBD`` encoder,
-the ``dense_net`` pose initializer, the learned ``ScaleNet`` types, weights
-per level and uncertainty propagation raise ``NotImplementedError``.
+Counterpart of ``deep_prob_feature_track_tpu/models/tracker.py``: every
+``TrackerConfig`` value the JAX package accepts.  The encoders: the
+two-view ``ConvRGBD2`` (both view orders in one stacked pass in eval), the
+one-view ``ConvRGBD`` (two passes, one a frame) and the grayscale ``RGB`` /
+``ICP`` pyramids, with every feature head and sigma type.  The tracks: U_IC
+(with the fused ICP term of ``combine_icp``, weighted by a constant or a
+learned ``ScaleNet``), IC (with the ``None``, ``Huber`` or learned
+M-estimator and the ``Direct-Nodamping`` or ``Direct-ResVol`` solve), U_FC
+and the stand-alone point-to-plane ICP.  The initial pose: the identity,
+``SFMPoseNet`` (``multi_hypo`` ``prob_fuse``, ``average`` or ``None``, with
+or without ``res_input``) or the ``dense_net`` ``PoseNet``, over any
+encoder.  With ``no_weight_sharing`` each level has its own M-estimator,
+scale net and damping regressor; with ``uncer_prop`` the forward also
+returns the levels' 6x6 information matrices.  Every configuration takes
+object masks (the relative motion of an object between two frames, given
+its masks in both): the forward, ``compute_residual`` (each track's average
+residual at a given pose and level) and ``track_diagnostics`` (the
+per-level maps that the evaluate CLI's ``--save_img`` draws).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from ..solvers.trust_region import (
 )
 from .encoder import FeaturePyramid
 from .layers import color_normalize_nchw, seeded_init_
-from .nets import DampingRegressor, DeepRobustEstimator, ScaleNet, SFMPoseNet
+from .nets import DampingRegressor, DeepRobustEstimator, PoseNet, ScaleNet, SFMPoseNet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,31 +97,10 @@ class TrackerConfig:
         return self.init_pose_type != "identity"
 
 
-_PORTED = {
-    "encoder_name": ("ConvRGBD2", "RGB", "ICP"),
-    "track_type": ("U_IC", "IC", "U_FC", "ICP"),
-    "mest_type": ("None", "Huber", "MultiScale2w"),
-    "solver_type": ("Direct-Nodamping", "Direct-ResVol"),
-    "init_pose_type": ("sfm_net", "identity"),
-    "uncer_prop": (False,),
-    "no_weight_sharing": (False,),
-}
-
-
-# the ROADMAP item that ports each config field's other values (3 by default)
-_ITEM = {"uncer_prop": 4}
-
-
-def _check_ported(cfg: TrackerConfig) -> None:
-    for key, values in _PORTED.items():
-        if getattr(cfg, key) not in values:
-            raise NotImplementedError(
-                f"TrackerConfig.{key}={getattr(cfg, key)!r} is not ported "
-                f"(ported: {', '.join(map(repr, values))}; ROADMAP item {_ITEM.get(key, 3)})")
-    if cfg.encoder_name != "ConvRGBD2" and cfg.predicts_init_pose:
-        raise NotImplementedError(
-            f"a predicted initial pose over the {cfg.encoder_name} encoder is not ported "
-            "(ROADMAP item 3)")
+_ENCODERS = ("RGB", "ConvRGBD", "ConvRGBD2", "ICP")
+_INIT_POSES = ("identity", "sfm_net", "dense_net")
+# the raw level-3 features that the pose initializer reads, per frame
+_RAW_CHANNELS = {"ConvRGBD": 128, "ConvRGBD2": 128, "RGB": 1, "ICP": 1}
 
 
 # sigma types whose channels are copies of channel 0: the encoder repeats a
@@ -144,34 +124,57 @@ class LeastSquareTracking(nn.Module):
 
     def __init__(self, cfg: TrackerConfig = TrackerConfig(), plain_kernels: bool = False):
         super().__init__()
-        _check_ported(cfg)
+        cfg.track_type  # raises on an unsupported (uncertainty, direction) pair
+        if cfg.encoder_name not in _ENCODERS:
+            raise ValueError(f"unknown encoder_name {cfg.encoder_name!r}")
+        if cfg.init_pose_type not in _INIT_POSES:
+            raise ValueError(f"unknown init_pose_type {cfg.init_pose_type!r}")
         self.cfg = cfg
         self.plain_kernels = plain_kernels
         self.encoder = None
-        if cfg.encoder_name == "ConvRGBD2":
+        if cfg.encoder_name in ("ConvRGBD", "ConvRGBD2"):
             self.encoder = FeaturePyramid(
-                in_channels=8,
+                in_channels=8 if cfg.encoder_name == "ConvRGBD2" else 4,
                 feature_channel=cfg.feature_channel,
                 uncertainty_channel=cfg.uncertainty_channel,
                 feature_extract=cfg.feature_extract,
                 uncertainty_type=cfg.uncertainty_type,
             )
-        # the reference's module names: mEst_func.net.{i}, solver_func.net.{i}.0
-        self.mEst_func = DeepRobustEstimator(cfg.mest_type, feature_channel=cfg.feature_channel)
-        self.solver_func = None
+        # the reference's module names: mEst_func.net.{i}, scaler_func.net.{i},
+        # solver_func.net.{i}.0; with no_weight_sharing one of each a level,
+        # mEst_func{l}, scaler_func{l}, solver_func{l}
+        scale = cfg.scale_scaler if cfg.scale_scaler is not None else 0.01
+        makers = {"mEst_func": lambda: DeepRobustEstimator(cfg.mest_type,
+                                                           feature_channel=cfg.feature_channel),
+                  "scaler_func": lambda: ScaleNet(cfg.scaler, scale=scale)}
         if cfg.solver_type == "Direct-ResVol":
-            self.solver_func = DampingRegressor(36 + 6 * cfg.tr_samples)
-        self.scaler_func = ScaleNet(
-            cfg.scaler, scale=cfg.scale_scaler if cfg.scale_scaler is not None else 0.01)
+            makers["solver_func"] = lambda: DampingRegressor(36 + 6 * cfg.tr_samples)
+        else:
+            self.solver_func = None
+        for name, make in makers.items():
+            if cfg.no_weight_sharing:
+                for level in range(4):
+                    setattr(self, f"{name}{level}", make())
+            else:
+                setattr(self, name, make())
         self.pose_predictor = None
-        if cfg.predicts_init_pose:
+        raw_c = _RAW_CHANNELS[cfg.encoder_name]
+        if cfg.init_pose_type == "sfm_net":
             self.pose_predictor = SFMPoseNet(
-                in_channels=2 * 128,
+                in_channels=(3 if cfg.res_input else 2) * raw_c,
                 scale_motion=cfg.scale_init_pose,
                 multi_hypo=cfg.multi_hypo,
                 res_input=cfg.res_input,
             )
+        elif cfg.init_pose_type == "dense_net":
+            self.pose_predictor = PoseNet(raw_c, scale_motion=cfg.scale_init_pose)
         self.eval()  # eval by default; .train() selects the training forward
+
+    def _instance(self, name: str, level: int):
+        """The level's M-estimator, scale net or damping regressor (``name``
+        ``mEst_func``, ``scaler_func`` or ``solver_func``): one a level
+        with ``no_weight_sharing``, else the shared one."""
+        return getattr(self, f"{name}{level}" if self.cfg.no_weight_sharing else name)
 
     def reset_parameters(self, seed: int = 0) -> "LeastSquareTracking":
         """Seeded init of every weight, drawn on the CPU so that the same
@@ -226,6 +229,11 @@ class LeastSquareTracking(nn.Module):
         if self.encoder is None:
             x0, sigma0 = self._encode_gray(I0)
             x1, sigma1 = self._encode_gray(I1)
+            raw0, raw1 = x0, x1
+        elif cfg.encoder_name == "ConvRGBD":
+            # one view a pass, in eval as in training
+            x0, sigma0, raw0 = self.encoder(torch.cat([I0, invD0], dim=1))
+            x1, sigma1, raw1 = self.encoder(torch.cat([I1, invD1], dim=1))
         else:
             m0 = torch.cat([I0, invD0, I1, invD1], dim=1)
             m1 = torch.cat([I1, invD1, I0, invD0], dim=1)
@@ -263,56 +271,71 @@ class LeastSquareTracking(nn.Module):
         return (x0, x1, self._slim_sigma(sigma0), self._slim_sigma(sigma1), inv_d0, inv_d1,
                 dpt0, dpt1, m0, m1, pose)
 
-    def _mest(self, residual, x0, x1, w_prior):
-        """The M-estimator weights of one IC level."""
-        return self.mEst_func(residual, x0, x1, w_prior, plain=self.plain_kernels)
+    def _mest_at(self, level: int):
+        """The M-estimator weights of one IC or U_FC level, as a function
+        ``(residual, x0, x1, w_prior) -> weights``."""
+        mest = self._instance("mEst_func", level)
 
-    def _solver(self) -> DirectSolver:
+        def fn(residual, x0, x1, w_prior):
+            return mest(residual, x0, x1, w_prior, plain=self.plain_kernels)
+
+        return fn
+
+    def _scale_fn(self, level: int):
+        """The level's ICP weights as a function of the ICP and feature
+        residuals and the prior weights (``ScaleNet``), or None without the
+        fused ICP term."""
+        if not self.cfg.combine_icp:
+            return None
+        scaler = self._instance("scaler_func", level)
+
+        def scale_fn(icp_res, feat_res, w_prior):
+            return scaler(icp_res, feat_res, w_prior, plain=self.plain_kernels)
+
+        return scale_fn
+
+    def _solver(self, level: int) -> DirectSolver:
         """The IC track's solve, as the JAX ``_solver``."""
         cfg = self.cfg
-        if self.solver_func is None:
+        if cfg.solver_type != "Direct-ResVol":
             return DirectSolver("nodamping", cfg.direction)
-        return DirectSolver("resvol", cfg.direction, cfg.tr_samples, self.solver_func)
+        return DirectSolver("resvol", cfg.direction, cfg.tr_samples,
+                            self._instance("solver_func", level))
 
-    def _level_update(self, pose, x0, x1, sigma0, sigma1, invD0, invD1, dpt0, dpt1, K,
+    def _level_update(self, level, pose, x0, x1, sigma0, sigma1, invD0, invD1, dpt0, dpt1, K,
                       w_prior, m0=None, m1=None):
         """One pyramid level of the configured track, with the level's
-        object masks ``m0``/``m1`` where given: ``(pose, weights)``."""
+        object masks ``m0``/``m1`` where given: ``(pose, weights, JtWJ)``."""
         cfg = self.cfg
         track = cfg.track_type
         if track == "U_IC":
-            # ScaleNet("None") reads only the shape of the ICP residual at
-            # the incoming pose, [B,1,H,W] like invD0: the residual is not
-            # computed
-            w_icp = self.scaler_func(invD0, None, w_prior) if cfg.combine_icp else None
-            pose, weights, _ = tr_uic_level(
+            return tr_uic_level(
                 pose, x0, x1, invD0, invD1, K, sigma0, sigma1,
-                depth0=dpt0, depth1=dpt1, w_icp=w_icp, obj_mask0=m0, obj_mask1=m1,
+                depth0=dpt0, depth1=dpt1, obj_mask0=m0, obj_mask1=m1,
                 max_iter=cfg.max_iter_per_pyr, remove_tru_sigma=cfg.remove_tru_sigma,
+                plain=self.plain_kernels, scale_fn=self._scale_fn(level), w_prior=w_prior,
+            )
+        if track == "IC":
+            return tr_ic_level(
+                pose, x0, x1, invD0, invD1, K, self._mest_at(level), self._solver(level),
+                w_prior=w_prior, obj_mask0=m0, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
                 plain=self.plain_kernels,
             )
-        elif track == "IC":
-            pose, weights, _ = tr_ic_level(
-                pose, x0, x1, invD0, invD1, K, self._mest, self._solver(), w_prior=w_prior,
-                obj_mask0=m0, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
-                plain=self.plain_kernels,
-            )
-        elif track == "U_FC":
+        if track == "U_FC":
             # in training the estimator runs once more, at the zero
             # residual: a learned one's BatchNorm statistics then move
             # 1 + max_iter times a level, as in the JAX package
-            pose, weights, _ = tr_ufc_level(
-                pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, self._mest, self._solver(),
-                w_prior=w_prior, obj_mask0=m0, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
-                train=self.training, plain=self.plain_kernels,
+            return tr_ufc_level(
+                pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, self._mest_at(level),
+                self._solver(level), w_prior=w_prior, obj_mask0=m0, obj_mask1=m1,
+                max_iter=cfg.max_iter_per_pyr, train=self.training, plain=self.plain_kernels,
             )
-        else:  # ICP
-            pose, weights, _ = tr_icp_level(
-                pose, dpt0, dpt1, K, w_prior=w_prior, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
-                direction=cfg.direction, sigma_model=ICPSigmaModel(baseline=1.0),
-                plain=self.plain_kernels,
-            )
-        return pose, weights
+        # ICP
+        return tr_icp_level(
+            pose, dpt0, dpt1, K, w_prior=w_prior, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
+            direction=cfg.direction, sigma_model=ICPSigmaModel(baseline=1.0),
+            plain=self.plain_kernels,
+        )
 
     def forward(self, img0, img1, depth0, depth1, K, pose_init=None, obj_mask0=None,
                 obj_mask1=None):
@@ -323,21 +346,33 @@ class LeastSquareTracking(nn.Module):
             the predicted initial pose or the identity
         :param obj_mask0/obj_mask1: [B,1,H,W] bool object masks of the two
             frames: the pose is then the object's relative motion
-        :return: eval: final pose (R, t); training: (pyr_R, pyr_t)
+        :return: eval: the final pose ``(R, t)``, with ``uncer_prop``
+            ``((R, t), JtWJ [B,6,6])``, level 0's information matrix;
+            training: ``(pyr_R, pyr_t)``, with ``uncer_prop`` ``(pyr_R,
+            pyr_t, sigma_ksi [B,N,6,6])``, each level's JtWJ (after an
+            identity for the predicted initial pose with ``train_init_pose``)
         """
+        cfg = self.cfg
         x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, m0, m1, pose = self._preprocess(
             img0, img1, depth0, depth1, pose_init, obj_mask0, obj_mask1)
-        poses = [pose] if self.cfg.predicts_init_pose and self.cfg.train_init_pose else []
+        poses, infos = [], []
+        if cfg.predicts_init_pose and cfg.train_init_pose:
+            poses.append(pose)
+            B = inv_d0[0].shape[0]
+            infos.append(torch.eye(6, dtype=inv_d0[0].dtype, device=inv_d0[0].device)
+                         .expand(B, 6, 6))
         w_prior = torch.ones_like(inv_d0[3]) * 0.001
         for level in (3, 2, 1, 0):
-            pose, w_prior = self._level_update(
-                pose, x0[level], x1[level], sigma0[level], sigma1[level], inv_d0[level],
+            pose, w_prior, JtWJ = self._level_update(
+                level, pose, x0[level], x1[level], sigma0[level], sigma1[level], inv_d0[level],
                 inv_d1[level], dpt0[level], dpt1[level], W.scale_K(K, level), w_prior,
                 m0[level], m1[level])
             poses.append(pose)
+            infos.append(JtWJ)
         if self.training:
-            return torch.stack([R for R, _ in poses], 1), torch.stack([t for _, t in poses], 1)
-        return pose
+            pyr = (torch.stack([R for R, _ in poses], 1), torch.stack([t for _, t in poses], 1))
+            return (*pyr, torch.stack(infos, 1)) if cfg.uncer_prop else pyr
+        return (pose, JtWJ) if cfg.uncer_prop else pose
 
     def compute_residual(self, img0, img1, depth0, depth1, K, pose_init=None, level: int = 0,
                          obj_mask0=None, obj_mask1=None):
@@ -357,15 +392,13 @@ class LeastSquareTracking(nn.Module):
         K_i = W.scale_K(K, i)
         track = cfg.track_type
         if track == "U_IC":
-            w_prior = torch.ones_like(inv_d0[i]) * 0.01
-            # ScaleNet("None") reads only the ICP residual's shape
-            w_icp = self.scaler_func(inv_d0[i], None, w_prior) if cfg.combine_icp else None
             loss = tr_uic_residual(
                 pose, x0[i], x1[i], inv_d0[i], inv_d1[i], K_i, sigma0[i], sigma1[i],
-                depth0=dpt0[i], depth1=dpt1[i], w_icp=w_icp, obj_mask0=m0[i], obj_mask1=m1[i],
-                remove_tru_sigma=cfg.remove_tru_sigma, plain=self.plain_kernels)
+                depth0=dpt0[i], depth1=dpt1[i], obj_mask0=m0[i], obj_mask1=m1[i],
+                remove_tru_sigma=cfg.remove_tru_sigma, plain=self.plain_kernels,
+                scale_fn=self._scale_fn(i), w_prior=torch.ones_like(inv_d0[i]) * 0.01)
         elif track == "IC":
-            loss = tr_ic_residual(pose, x0[i], x1[i], inv_d0[i], inv_d1[i], K_i, self._mest,
+            loss = tr_ic_residual(pose, x0[i], x1[i], inv_d0[i], inv_d1[i], K_i, self._mest_at(i),
                                   w_prior=torch.ones_like(inv_d0[i]), obj_mask0=m0[i],
                                   obj_mask1=m1[i], plain=self.plain_kernels)
         elif track == "U_FC":
@@ -407,8 +440,8 @@ class LeastSquareTracking(nn.Module):
         w_prior = torch.ones_like(inv_d0[3]) * 0.001
         for level in (3, 2, 1, 0):
             K_l = W.scale_K(K, level)
-            pose, w_prior = self._level_update(
-                pose, x0[level], x1[level], sigma0[level], sigma1[level], inv_d0[level],
+            pose, w_prior, _ = self._level_update(
+                level, pose, x0[level], x1[level], sigma0[level], sigma1[level], inv_d0[level],
                 inv_d1[level], dpt0[level], dpt1[level], K_l, w_prior, m0[level], m1[level])
             B, _, H, W_ = inv_d0[level].shape
             track = cfg.track_type

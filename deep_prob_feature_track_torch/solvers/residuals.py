@@ -36,6 +36,25 @@ def merge_object_masks(occ, u, v, obj_mask0=None, obj_mask1=None, plain: bool = 
     return occ
 
 
+def compose_residuals(u, v, invalid, f0, f1, sigma0, sigma1, eps: float = 1e-6,
+                      remove_tru_sigma: bool = False, plain: bool = False) -> ResidualOutput:
+    """Uncertainty-normalized residual at warped coordinates (u, v):
+    ``res = f1(u, v) - f0`` over ``sigma = sqrt(sigma1(u, v)^2 + sigma0^2)``,
+    ``eps`` where ``invalid``; ``remove_tru_sigma`` also invalidates pixels
+    where either sigma map is at its batch-global min or max.  ``f1`` and
+    ``sigma1`` warp in one gather of their stacked operand (the JAX function
+    warps them one by one, to the same values)."""
+    f_r, sigma_r = W.warp_multi([f1, sigma1], u, v, plain=plain)
+    res = f_r - f0
+    sigma = torch.sqrt(sigma_r * sigma_r + sigma0 * sigma0)
+    weighted = res / sigma
+    if remove_tru_sigma:
+        sigma_tru = ((sigma_r == sigma_r.amin()) | (sigma_r == sigma_r.amax())
+                     | (sigma0 == sigma0.amin()) | (sigma0 == sigma0.amax()))
+        invalid = invalid | sigma_tru[:, 0:1]
+    return ResidualOutput(weighted.masked_fill(invalid, eps), res, sigma, invalid)
+
+
 def compute_inverse_residuals(
     pose10, invD0, x0, sigma0, px, py, K, warp_op, obj_mask0=None,
     remove_tru_sigma: bool = False, plain: bool = False,
@@ -148,3 +167,16 @@ def compute_avg_res(x, invalid) -> torch.Tensor:
     valid_num = B * H * W_ - invalid.sum()
     return torch.linalg.vector_norm(x.masked_fill(invalid, 0.0).reshape(-1)) / torch.clamp(
         valid_num, min=1)
+
+
+def warp_images(invD0, pose10, img1, invD1, K, plain: bool = False):
+    """Warp an image ``[B,C,H,W]`` and its inverse depth into the frame of
+    ``invD0`` under ``pose10``, in one gather of their stacked operand.
+
+    :return: ``(img1_r, invD1_r)``
+    """
+    B, _, H, W_ = img1.shape
+    px, py = W.generate_xy_grid(B, H, W_, K)
+    u, v, _ = W.batch_warp_inverse_depth(px, py, invD0, pose10, K)
+    img1_r, invD1_r = W.warp_multi([img1, invD1], u, v, plain=plain)
+    return img1_r, invD1_r

@@ -8,7 +8,8 @@ Counterpart of ``deep_prob_feature_track_tpu/solvers/trust_region.py``:
 updates and ``direct_solve`` for ``kind="nodamping"`` and ``"resvol"`` (the
 learned damping of ``Direct-ResVol``).  A U_IC iteration runs kernel K1
 once for its feature warp, once more for the ICP warp with the fused ICP
-term, and K6 once; an IC residual runs K1 twice (the feature and the
+term, and K6 once (a learned ICP scale reads iteration 0's residuals and
+launches nothing of its own); an IC residual runs K1 twice (the feature and the
 occlusion depth, as the JAX package warps them), and a ``resvol`` solve
 twice more for the residuals of all its damping samples at once; a U_FC
 iteration runs K1 once, on one operand of the target depth, features,
@@ -151,52 +152,62 @@ def direct_solve(solver: DirectSolver, JtWJ, JtR, pose, residual_fn=None, jtr_fn
 
 def tr_uic_level(
     pose, x0, x1, invD0, invD1, K, sigma0, sigma1,
-    depth0=None, depth1=None, w_icp=None, obj_mask0=None, obj_mask1=None,
+    depth0=None, depth1=None, obj_mask0=None, obj_mask1=None,
     max_iter: int = 3, remove_tru_sigma: bool = False,
     icp_sigma: icp_mod.ICPSigmaModel = icp_mod.ICPSigmaModel(), plain: bool = False,
+    scale_fn=None, w_prior=None,
 ):
     """One pyramid level of the U_IC solver, ``max_iter`` GN iterations.
 
-    Given ICP weights ``w_icp`` [B,1,H,W] (the JAX function's
-    ``combine_icp``), the inverse point-to-plane ICP system of the depth
-    maps ``depth0/1``, weighted by them, is added to the feature system
-    every iteration.  The caller makes ``w_icp``: the JAX function has
-    ``scale_fn`` compute it from the residuals at the incoming pose, and the
-    one ported scale, ``ScaleNet("None")``, reads only their shape (under
-    ``jit`` XLA drops those residuals too).  The object masks
-    ``obj_mask0/1`` [B,1,H,W] (bool) go to every feature residual and to
-    every ICP residual: the frame-1 mask rides in each operand as one more
-    channel (C=11 for the feature operand of ``feature``, 7 for the ICP
-    one), so the launches stay one gather per warp.
+    With a ``scale_fn`` (the JAX function's ``combine_icp``), the inverse
+    point-to-plane ICP system of the depth maps ``depth0/1`` is added to
+    the feature system every iteration, weighted by ``scale_fn(icp_res,
+    feature_res, w_prior)`` [B,1,H,W] (a ``ScaleNet``) of the first
+    iteration's residuals at the incoming pose: the weighted feature
+    residual and the ICP residual that iteration 0 solves with, computed
+    once, so the scale costs no gather of its own.  The weights are reused for all
+    ``max_iter`` iterations and returned as the chained prior weights.  The object masks ``obj_mask0/1``
+    [B,1,H,W] (bool) go to every feature residual and to every ICP
+    residual: the frame-1 mask rides in each operand as one more channel
+    (C=11 for the feature operand of ``feature``, 7 for the ICP one), so
+    the launches stay one gather per warp.
 
     :param plain: use the kernels' plain versions on any device
-    :return: ``(pose, weights, JtWJ)``: the weights are ``w_icp``, or
-        ones without it; JtWJ is the last iteration's system
+    :return: ``(pose, weights, JtWJ)``: the weights are the ICP weights,
+        or ones without them; JtWJ is the last iteration's system
     """
     B, _, H, W_ = x0.shape
     px, py = W.generate_xy_grid(B, H, W_, K)
     pre = precompute_uic(invD0, x0, sigma0, px, py, K)
     warp_op = build_inverse_warp_operand(invD1, x1, sigma1, obj_mask1)
 
-    combine_icp = w_icp is not None
+    def feature_residual(p):
+        return compute_inverse_residuals(
+            p, invD0, x0, sigma0, px, py, K, warp_op, obj_mask0=obj_mask0,
+            remove_tru_sigma=remove_tru_sigma, plain=plain)[0]
+
+    combine_icp = scale_fn is not None
     if combine_icp:
         vertex0 = W.compute_vertex(depth0, px, py)
         vertex1 = W.compute_vertex(depth1, px, py)
         normal1 = compute_normal(vertex1)
         icp_op = icp_mod.icp_operand(vertex1, normal1, obj_mask1)  # loop-invariant
 
+        def icp_residual(p):
+            return icp_mod.icp_residuals_inverse(
+                vertex0, vertex1, normal1, p, K, obj_mask0, obj_mask1, sigma_model=icp_sigma,
+                warp_op=icp_op, plain=plain)
+
+        first = (feature_residual(pose), icp_residual(pose))
+        w_icp = scale_fn(first[1][0], first[0].weighted_res, w_prior)
+
     JtWJ = torch.zeros((B, 6, 6), dtype=x0.dtype, device=x0.device)
-    for _ in range(max_iter):
-        out, _, _ = compute_inverse_residuals(
-            pose, invD0, x0, sigma0, px, py, K, warp_op, obj_mask0=obj_mask0,
-            remove_tru_sigma=remove_tru_sigma, plain=plain,
-        )
+    for i in range(max_iter):
+        out = first[0] if i == 0 and combine_icp else feature_residual(pose)
         fac = uic_factors(pre, out.res, out.sigma, sigma0)
         JtWJ, JtR = jtj_jtr(fac, out.weighted_res, plain=plain)
         if combine_icp:
-            icp_res, icp_J, _ = icp_mod.icp_residuals_inverse(
-                vertex0, vertex1, normal1, pose, K, obj_mask0, obj_mask1, sigma_model=icp_sigma,
-                warp_op=icp_op, plain=plain)
+            icp_res, icp_J, _ = first[1] if i == 0 else icp_residual(pose)
             icp_JtJ, icp_JtR = icp_mod.icp_jtj_jtr(w_icp.reshape(B, H * W_, 1) * icp_J,
                                                    w_icp * icp_res)
             JtWJ = JtWJ + icp_JtJ
@@ -206,10 +217,11 @@ def tr_uic_level(
 
 
 def tr_uic_residual(pose, x0, x1, invD0, invD1, K, sigma0, sigma1, depth0=None, depth1=None,
-                    w_icp=None, obj_mask0=None, obj_mask1=None, remove_tru_sigma: bool = False,
-                    plain: bool = False):
-    """The U_IC track's average residual at ``pose`` [B]; with ICP
-    weights ``w_icp`` the weighted inverse point-to-plane residual of
+                    obj_mask0=None, obj_mask1=None, remove_tru_sigma: bool = False,
+                    plain: bool = False, scale_fn=None, w_prior=None):
+    """The U_IC track's average residual at ``pose`` [B]; with ICP weights
+    (``scale_fn(icp_res, feature_res, w_prior)`` of the two residuals at
+    ``pose``) the weighted inverse point-to-plane residual of
     ``depth0/1`` (default ICP sigma model) joins it, over the pixels valid
     in both.  The object masks reach the feature residual alone: the ICP
     term takes none, as in the JAX function."""
@@ -219,13 +231,14 @@ def tr_uic_residual(pose, x0, x1, invD0, invD1, K, sigma0, sigma1, depth0=None, 
         pose, invD0, x0, sigma0, px, py, K,
         build_inverse_warp_operand(invD1, x1, sigma1, obj_mask1), obj_mask0=obj_mask0,
         remove_tru_sigma=remove_tru_sigma, plain=plain)
-    if w_icp is None:
+    if scale_fn is None:
         return compute_avg_loss([out.weighted_res], out.invalid)
     vertex0 = W.compute_vertex(depth0, px, py)
     vertex1 = W.compute_vertex(depth1, px, py)
     icp_res, _, icp_occ = icp_mod.icp_residuals_inverse(
         vertex0, vertex1, compute_normal(vertex1), pose, K, sigma_model=icp_mod.ICPSigmaModel(),
         plain=plain)
+    w_icp = scale_fn(icp_res, out.weighted_res, w_prior)
     return compute_avg_loss([out.weighted_res, w_icp * icp_res], out.invalid | icp_occ)
 
 

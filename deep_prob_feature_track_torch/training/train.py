@@ -1,5 +1,5 @@
-"""Training of the ``feature``, ``feature_icp`` and ``DeepIC`` presets: the
-EPE3D or RPE loss, clip -> L2 -> Adam (or SGD with momentum), the epoch loop.
+"""Training of the tracker: the EPE3D, RPE, URPE or UEPE3D loss, clip -> L2
+-> Adam (or SGD with momentum), the epoch loop.
 
 Counterpart of ``TrainConfig``, ``make_lr_schedule``, ``make_optimizer``,
 ``compute_loss``, ``create_train_state``, ``make_train_step`` and
@@ -22,9 +22,15 @@ A batch with object masks (``obj_mask0/1``, MovingObjects3D) trains the
 object's relative motion: the masks go to the tracker, and the EPE3D loss
 counts only the frame-0 object's pixels.
 
-Not ported, and raising ``NotImplementedError``: the URPE / UEPE3D losses
-(ROADMAP item 4), gradient accumulation (``accum_steps > 1``) and the
-non-finite guard (item 5), and the device mesh (item 8).  Checkpoints are
+The uncertainty losses need a tracker with ``uncer_prop``, whose training
+forward returns each level's 6x6 information matrix JtWJ: URPE weighs the
+twist error with it, UEPE3D inverts ``lev_mar_damp`` of it into the pose
+covariance it pushes through the flow Jacobian (in the U_IC track the
+gradient then reaches K6's JtJ output).
+
+Not ported, and raising ``NotImplementedError``: gradient accumulation
+(``accum_steps > 1``) and the non-finite guard (ROADMAP item 5), and the
+device mesh (item 8).  Checkpoints are
 in ``training/checkpoints.py``.
 """
 
@@ -41,11 +47,12 @@ from .. import losses
 from ..data.pipeline import to_device
 from ..device import resolve_device, set_float32_policy
 from ..models.tracker import LeastSquareTracking
+from ..ops.solver6 import lev_mar_damp
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    loss: str = "EPE3D"  # EPE3D | RPE (URPE and UEPE3D are not ported)
+    loss: str = "EPE3D"  # EPE3D | RPE | URPE | UEPE3D (the last two need uncer_prop)
     lr: float = 5e-4
     lr_decay_ratio: float = 0.5
     lr_decay_epochs: Tuple[int, ...] = (5, 10, 20)
@@ -104,27 +111,44 @@ def compute_loss(net: LeastSquareTracking, train_cfg: TrainConfig,
     are left out of the loss, and the loss is
     ``1e2`` times the EPE3D summed over the pose pyramid, averaged over the
     samples that ``pad_mask`` keeps.  RPE: over the pose pyramid, the sum of
-    the batch norms of the angle and translation errors.
+    the batch norms of the angle and translation errors.  URPE: the batch
+    total of :func:`losses.compute_rpe_uncertainty_loss` under the levels'
+    information matrices, spread evenly over the samples.  UEPE3D: the
+    negative log-likelihood of
+    :func:`losses.compute_rt_epe_uncertainty_loss` with each level's
+    covariance ``lev_mar_damp(JtWJ)^-1``, over EPE3D's valid pixels.  URPE
+    and UEPE3D need a tracker with ``uncer_prop``.
     """
-    if train_cfg.loss not in ("EPE3D", "RPE"):
-        raise NotImplementedError(
-            f"loss {train_cfg.loss!r} is not ported (EPE3D and RPE are; ROADMAP item 4)")
+    if train_cfg.loss not in ("EPE3D", "RPE", "URPE", "UEPE3D"):
+        raise ValueError(f"unknown loss {train_cfg.loss!r}")
     if not net.training:
         raise ValueError("compute_loss needs the tracker in training mode (net.train())")
+    if train_cfg.loss in ("URPE", "UEPE3D") and not net.cfg.uncer_prop:
+        raise ValueError(f"the {train_cfg.loss} loss needs a tracker with uncer_prop")
     masks = {k: batch[k] for k in ("obj_mask0", "obj_mask1") if k in batch}
-    pyr_R, pyr_t = net(batch["color0"], batch["color1"], batch["depth0"], batch["depth1"],
-                       batch["calib"], **masks)
+    out = net(batch["color0"], batch["color1"], batch["depth0"], batch["depth1"],
+              batch["calib"], **masks)
+    pyr_R, pyr_t = out[:2]
     T = batch["transform"]
+    R_gt, t_gt = T[:, :3, :3], T[:, :3, 3]
+    depth0 = batch["depth0"]
+    invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
+    if "obj_mask0" in batch:
+        invalid = ~batch["obj_mask0"].bool() | invalid  # the loss on the object alone
     if train_cfg.loss == "RPE":
-        ang, trs = losses.compute_rpe_loss(pyr_R, pyr_t, T[:, :3, :3], T[:, :3, 3])
+        ang, trs = losses.compute_rpe_loss(pyr_R, pyr_t, R_gt, t_gt)
         per_sample = (ang + trs).expand(pyr_R.shape[0])
+    elif train_cfg.loss == "URPE":
+        total = losses.compute_rpe_uncertainty_loss(pyr_R, pyr_t, R_gt, t_gt, out[2])
+        per_sample = (total / pyr_R.shape[0]).expand(pyr_R.shape[0])
+    elif train_cfg.loss == "UEPE3D":
+        info = out[2]
+        sigma = torch.linalg.inv(lev_mar_damp(info.reshape(-1, 6, 6))).reshape(info.shape)
+        per_sample, _ = losses.compute_rt_epe_uncertainty_loss(
+            pyr_R, pyr_t, R_gt, t_gt, depth0, batch["calib"], sigma, invalid=invalid)
     else:
-        depth0 = batch["depth0"]
-        invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
-        if "obj_mask0" in batch:
-            invalid = ~batch["obj_mask0"].bool() | invalid  # the loss on the object alone
         per_sample = 1e2 * losses.compute_rt_epe_loss(
-            pyr_R, pyr_t, T[:, :3, :3], T[:, :3, 3], depth0, batch["calib"], invalid=invalid)
+            pyr_R, pyr_t, R_gt, t_gt, depth0, batch["calib"], invalid=invalid)
     mask = batch.get("pad_mask")
     if mask is None:
         return per_sample.mean()

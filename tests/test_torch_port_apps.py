@@ -322,8 +322,10 @@ def test_import_checkpoint_matches_jax(tmp_path, preset, jitted_jax_init):
 
 def test_import_checkpoint_reports_unmapped_keys(tmp_path, capsys):
     """An extra key fails ``--strict`` in both tools; without it, the port's
-    tool reports it, and a per-level M-estimator (``no_weight_sharing``)
-    is reported and not loaded into the shared one."""
+    tool reports it.  A per-level M-estimator (``no_weight_sharing``) is
+    never loaded into the shared one: ``map_state_dict`` reports it against
+    a tracker that shares it, and the CLI, seeing a module of level 1, builds
+    the preset with a module a level (the bare name is level 0)."""
     src = str(tmp_path / "ref.pth.tar")
     _reference_file(src, "feature", {"bogus.weight": torch.zeros(3)})
     for tool in (pic, jic):
@@ -333,14 +335,18 @@ def test_import_checkpoint_reports_unmapped_keys(tmp_path, capsys):
     assert pic.main(["--torch_checkpoint", src, "--output", str(tmp_path / "x.pt")]) == 0
     assert "bogus.weight" in capsys.readouterr().out
     src = str(tmp_path / "levels.pth.tar")
-    source = _reference_file(src, "DeepIC", {"mEst_func1.net.0.0.weight": torch.zeros(16, 25,
-                                                                                       3, 3)})
-    assert pic.main(["--torch_checkpoint", src, "--preset", "DeepIC",
+    level1 = {"mEst_func1.net.0.0.weight": torch.zeros(16, 4, 3, 3)}
+    source = _reference_file(src, "DeepIC", level1)
+    _, unmapped = pic.map_state_dict({**source.state_dict(), **level1}, source.state_dict())
+    assert unmapped == {"mEst_func1.net.0.0.weight": "no such key in the preset's tracker"}
+    assert pic.main(["--torch_checkpoint", src, "--preset", "DeepIC", "--strict",
                      "--output", str(tmp_path / "y.pt")]) == 0
-    assert "mEst_func1.net.0.0.weight (a per-level instance" in capsys.readouterr().out
+    assert "unmapped" not in capsys.readouterr().out
     got = checkpoints.restore_variables(str(tmp_path / "y.pt"))
-    torch.testing.assert_close(got["mEst_func.net.0.0.weight"],
+    assert "mEst_func.net.0.0.weight" not in got
+    torch.testing.assert_close(got["mEst_func0.net.0.0.weight"],
                                source.state_dict()["mEst_func.net.0.0.weight"])
+    assert torch.equal(got["mEst_func1.net.0.0.weight"], level1["mEst_func1.net.0.0.weight"])
     # an alias without its primary loads into the shared module
     state = {k: v for k, v in source.state_dict().items() if not k.startswith("solver_func.")}
     state.update({f"tr_update{i}.directSolver.{k[len('solver_func.'):]}": v

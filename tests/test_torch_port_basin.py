@@ -109,10 +109,11 @@ def test_tr_uic_residual_matches_jax(scene, combine_icp):
                               depth0=jnp.asarray(s["d0"]), depth1=jnp.asarray(s["d1"]),
                               scale_fn=scale_fn, remove_tru_sigma=True,
                               combine_icp=combine_icp)
-    w_icp = torch.full((B, 1, H, W), scale) if combine_icp else None
+    w_icp = torch.full((B, 1, H, W), scale)
     got = ttr.tr_uic_residual(tuple(_t(s["R"], s["t"])), *_t(*(s[k] for k in args)),
                               depth0=torch.from_numpy(s["d0"]), depth1=torch.from_numpy(s["d1"]),
-                              w_icp=w_icp, remove_tru_sigma=True)
+                              scale_fn=(lambda *_: w_icp) if combine_icp else None,
+                              remove_tru_sigma=True)
     _close(got, ref)
 
 

@@ -16,7 +16,9 @@ another order than the plain version, rtol 1e-5 with atol 1e-5 of the
 largest entry, against the plain version in float32 and in float64 (at
 307200 pixels the float64 one alone: the float32 one's own sums stray
 past that limit); the forward atol 1e-4 on R and t (1e-5 for the presets
-``DeepIC``, ``feature_icp``, ``RGB`` and ``ICP``: ``PRESET_ATOL``); one training step through
+``DeepIC``, ``feature_icp``, ``RGB`` and ``ICP``: ``PRESET_ATOL``, and for the tracker
+options, whose ``uncer_prop`` information matrix is held within 1e-4 of its
+largest entry); one training step through
 the kernels vs through the plain versions: the loss within 1e-5 relative,
 each gradient leaf within 5e-3 of its largest entry (the envelope of 12
 chained Gauss-Newton solves, ``tests/test_torch_port_train.py``).  The
@@ -1057,3 +1059,154 @@ def test_compute_residual_on_card(cuda):
             _, cost_p = plain.compute_residual(*batch, pose_init=pose, level=level)
             torch.testing.assert_close(cost, cost_p, rtol=1e-6, atol=0)
             assert torch.isfinite(cost).all() and (cost > 0).all()
+
+
+# the tracker options: a learned ICP scale reads the first iteration's
+# residuals and upsamples the prior weights at levels 2-0 (3 more K1); the
+# other options launch as their preset
+VARIANT_LAUNCHES = {
+    ("feature_icp", ("scaler=MultiScale2w",)): {"gather_twohot": 27, "fused_jtj_jtr": 12},
+    ("feature", ("init_pose_type=dense_net",)): {"gather_twohot": 12, "fused_jtj_jtr": 12},
+    ("feature", ("multi_hypo=average",)): {"gather_twohot": 12, "fused_jtj_jtr": 12},
+    ("feature", ("multi_hypo=None", "res_input=1")): {"gather_twohot": 12, "fused_jtj_jtr": 12},
+    ("feature", ("encoder_name=ConvRGBD",)): {"gather_twohot": 12, "fused_jtj_jtr": 12},
+    ("DeepIC", ("no_weight_sharing=1",)): {"gather_twohot": 51},
+    ("RGB", ("init_pose_type=sfm_net",)): {"gather_twohot": 24},
+}
+
+
+@pytest.mark.parametrize("preset,overrides", sorted(VARIANT_LAUNCHES))
+def test_variant_forward_kernels_match_plain_on_card(cuda, preset, overrides):
+    """Each tracker option's forward at 120x160 B=8: kernels against plain
+    within 1e-5 on R and t, the launch counts of ``VARIANT_LAUNCHES``."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
+
+    batch = example_batch(8, 120, 160, seed=3, device=cuda)
+    kern = build_tracker(preset, device=cuda, overrides=overrides)
+    plain = build_tracker(preset, device=cuda, plain_kernels=True, overrides=overrides)
+    tk.reset_launches()
+    with torch.inference_mode():
+        R, t = kern(*batch)
+        assert tk.LAUNCHES == _launches(**VARIANT_LAUNCHES[(preset, overrides)])
+        Rp, tp = plain(*batch)
+    torch.testing.assert_close(R, Rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(t, tp, rtol=0, atol=1e-5)
+    assert np.isfinite(t.cpu().numpy()).all()
+
+
+def _smooth_batch(cuda):
+    from deep_prob_feature_track_torch.training import train as tt
+
+    batch = tt.synthetic_batch(8, 120, 160, seed=2, device=cuda)
+    return [batch[k] for k in ("color0", "color1", "depth0", "depth1", "calib")]
+
+
+def test_exp_scale_forward_kernels_match_plain_on_card(cuda):
+    """``feature_icp`` with ``scaler=expMultiScale`` on smooth scenes: it
+    weighs the ICP term up to 400x ``MultiScale2w``'s, and on uniform-noise
+    depth its flipped ICP masks move the pose ~1e-2 between two roundings
+    of K6's sums; here within 1e-5, K1 27 and K6 12."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+
+    batch = _smooth_batch(cuda)
+    outs = []
+    for plain in (False, True):
+        net = build_tracker("feature_icp", device=cuda, plain_kernels=plain,
+                            overrides=["scaler=expMultiScale"])
+        tk.reset_launches()
+        with torch.inference_mode():
+            outs.append(net(*batch))
+        if not plain:
+            assert tk.LAUNCHES == _launches(gather_twohot=27, fused_jtj_jtr=12)
+    (R, t), (Rp, tp) = outs
+    torch.testing.assert_close(R, Rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(t, tp, rtol=0, atol=1e-5)
+
+
+def test_uncer_prop_forward_kernels_match_plain_on_card(cuda):
+    """``feature`` with ``uncer_prop`` on smooth scenes: the pose within
+    1e-5 and level 0's information matrix within 1e-4 of its largest entry,
+    K1 12 and K6 12 (on uniform-noise images a flipped occlusion or
+    sigma-extreme pixel moves the matrix by its own share)."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+
+    batch = _smooth_batch(cuda)
+    outs = []
+    for plain in (False, True):
+        net = build_tracker("feature", device=cuda, plain_kernels=plain,
+                            overrides=["uncer_prop=1"])
+        tk.reset_launches()
+        with torch.inference_mode():
+            outs.append(net(*batch))
+        if not plain:
+            assert tk.LAUNCHES == _launches(gather_twohot=12, fused_jtj_jtr=12)
+    ((R, t), info), ((Rp, tp), info_p) = outs
+    torch.testing.assert_close(R, Rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(t, tp, rtol=0, atol=1e-5)
+    scale = info_p.abs().amax(dim=(1, 2), keepdim=True)
+    assert ((info - info_p).abs() <= 1e-4 * scale).all()
+
+
+@pytest.mark.parametrize("HW", [300, 19200])
+def test_fused_jtj_backward_with_a_jtj_cotangent_on_card(cuda, HW):
+    """``FusedJtJ`` with a nonzero JtJ cotangent (the uncertainty losses'
+    path): its forward through K6 against the float64 plain version (rtol
+    1e-5, 1e-5 of the largest entry), its backward bit for bit with the
+    plain run's."""
+    g = torch.Generator().manual_seed(HW)
+    inputs = [torch.randn(*s, generator=g).to(cuda) for s in ((8, 8, HW),) * 3 + ((8, HW, 6),) * 2]
+    G = torch.randn(8, 6, 6, generator=g)
+    cot = [(G + G.transpose(1, 2)).to(cuda), torch.randn(8, 6, 1, generator=g).to(cuda)]
+
+    def run(plain, dtype):
+        xs = [a.to(dtype).clone().requires_grad_() for a in inputs]
+        outs = tk.FusedJtJ.apply(*xs, -1.0, plain)
+        torch.autograd.backward(outs, [c.to(dtype) for c in cot])
+        return [o.detach() for o in outs] + [x.grad for x in xs]
+
+    tk.reset_launches()
+    got = run(False, torch.float32)
+    assert tk.LAUNCHES == _launches(fused_jtj_jtr=1)
+    plain = run(True, torch.float32)
+    ref = [t.float() for t in run(True, torch.float64)]
+    for x, r in zip(got, ref):
+        torch.testing.assert_close(x, r, rtol=1e-5, atol=1e-5 * r.abs().max().item())
+    for x, r in zip(got[2:], plain[2:]):
+        assert torch.equal(x, r)
+
+
+@pytest.mark.parametrize("preset,overrides,loss,launches", [
+    ("feature", ("uncer_prop=1",), "UEPE3D",
+     dict(gather_twohot_grads=12, splat_twohot=12, fused_jtj_jtr=12)),
+    ("feature", ("uncer_prop=1",), "URPE",
+     dict(gather_twohot_grads=12, splat_twohot=12, fused_jtj_jtr=12)),
+    ("feature_icp", ("scaler=MultiScale2w",), "EPE3D",
+     dict(gather_twohot_grads=27, splat_twohot=15, fused_jtj_jtr=12)),
+])
+def test_variant_train_step_on_card(cuda, preset, overrides, loss, launches):
+    """One loss and backward at 60x80 B=4 through the kernels and through
+    their plain versions: the launch counts, the loss within 1e-5 relative,
+    each gradient leaf within 5e-3 of its largest entry."""
+    from deep_prob_feature_track_torch.models.presets import apply_overrides, get_preset
+    from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
+    from deep_prob_feature_track_torch.training import train as tt
+
+    batch = tt.synthetic_batch(4, 60, 80, seed=3, device=cuda)
+    cfg = tt.TrainConfig(loss=loss)
+    results = []
+    for plain in (False, True):
+        net = LeastSquareTracking(apply_overrides(get_preset(preset), overrides),
+                                  plain_kernels=plain)
+        state = tt.create_train_state(net, cfg, seed=1, device=cuda)
+        tk.reset_launches()
+        value = tt.compute_loss(state.net, cfg, batch)
+        value.backward()
+        torch.cuda.synchronize()
+        if not plain:
+            assert tk.LAUNCHES == _launches(**launches)
+        results.append((value.item(), {k: p.grad for k, p in net.named_parameters()}))
+    (value, grads), (value_p, grads_p) = results
+    assert np.isfinite(value) and abs(value - value_p) <= 1e-5 * abs(value_p)
+    for key, ref in grads_p.items():
+        torch.testing.assert_close(grads[key], ref, rtol=0,
+                                   atol=5e-3 * ref.abs().max().item(), msg=key)

@@ -316,7 +316,7 @@ def test_tr_ic_level_with_learned_modules_matches_jax(models, scene):
     (Rj, tj), wj, Hj = level(_j(s["R"], s["t"]), jnp.asarray(s["w_prior"]), *_j(*args))
     with torch.no_grad():
         (R, t), w, JtWJ = ttr.tr_ic_level(
-            _t(s["R"], s["t"]), *_t(*args), port._mest,
+            _t(s["R"], s["t"]), *_t(*args), port._mest_at(0),
             ttr.DirectSolver("resvol", "inverse", S, port.solver_func),
             w_prior=torch.from_numpy(s["w_prior"]), max_iter=3)
     _close(R, Rj)

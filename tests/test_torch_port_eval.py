@@ -228,8 +228,8 @@ def test_evaluate_cli_on_cpu(evaluated, sequence, tmp_path, monkeypatch, capsys)
 
 
 EVAL_FLAGS = [["--mesh"], ["--dataset", "ScanNet"], ["--dataset", "VaryLighting"]]
-TRAIN_FLAGS = [["--loss", "UEPE3D"], ["--loss", "URPE"], ["--accum_steps", "2"], ["--mesh"],
-               ["--distributed"], ["--debug_nan"], ["--dataset", "ScanNet"]]
+TRAIN_FLAGS = [["--accum_steps", "2"], ["--mesh"], ["--distributed"], ["--debug_nan"],
+               ["--dataset", "ScanNet"]]
 
 
 @pytest.mark.parametrize("cli,flags", [(pev, f) for f in EVAL_FLAGS]

@@ -9,8 +9,6 @@ residual, Jacobian and pose; the 6x6 systems, whose entries reach 1e6 here,
 within 1e-5 of their largest entry.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +17,6 @@ import torch
 
 from deep_prob_feature_track_torch.geometry import warp as tw
 from deep_prob_feature_track_torch.models.nets import DeepRobustEstimator, ScaleNet
-from deep_prob_feature_track_torch.models.presets import get_preset
-from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
 from deep_prob_feature_track_torch.ops.image import compute_normal
 from deep_prob_feature_track_torch.solvers import icp as ticp
 from deep_prob_feature_track_torch.solvers import jacobians as tjac
@@ -251,9 +247,6 @@ def test_tr_ic_level_matches_jax(scene):
                           ttr.DirectSolver("nodamping"), max_iter=3)
     _level_close(got, ref, moved_from=s["R"])
     _close(got[1], ref[1])
-    # the IC track with an M-estimator per level is not ported
-    with pytest.raises(NotImplementedError, match="no_weight_sharing"):
-        LeastSquareTracking(dataclasses.replace(get_preset("RGB"), no_weight_sharing=True))
 
 
 @pytest.mark.parametrize("direction", ["inverse", "forward"])
@@ -282,10 +275,9 @@ def test_tr_icp_point_level_matches_jax(scene):
 @pytest.mark.parametrize("scale", ["per_pixel", "constant"])
 def test_tr_uic_level_with_icp_matches_jax(scene, scale):
     """U_IC with the fused ICP term, feature-like operands (C=8, one sigma
-    channel).  The port takes the ICP weights ``w_icp`` that the JAX
-    function's ``scale_fn`` returns: ``per_pixel``, a map that varies over
-    the pixels; ``constant``, the port's ``ScaleNet("None")`` at the shape
-    of the ICP residual."""
+    channel).  Both take the ICP weights from a ``scale_fn``: ``per_pixel``,
+    a map that varies over the pixels; ``constant``, the port's
+    ``ScaleNet("None")`` at the shape of the ICP residual."""
     s = scene
     rng = np.random.RandomState(3)
     x0 = rng.randn(B, 8, H, W).astype(np.float32)
@@ -303,13 +295,11 @@ def test_tr_uic_level_with_icp_matches_jax(scene, scale):
         p, *a[:7], w_prior=a[7], depth0=a[8], depth1=a[9], scale_fn=jax_scale,
         max_iter=3, remove_tru_sigma=True, combine_icp=True))
     ref = level(_j(s["R"], s["t"]), *_j(*args, w_prior, s["d0"], s["d1"]))
-    if scale == "per_pixel":
-        w_icp = torch.from_numpy(w_map)
-    else:
-        w_icp = ScaleNet("None", scale=0.01)(torch.from_numpy(s["invD0"]), None,
-                                             torch.from_numpy(w_prior))
+    scale_fn = ((lambda *_: torch.from_numpy(w_map)) if scale == "per_pixel"
+                else ScaleNet("None", scale=0.01))
     got = ttr.tr_uic_level(_t(s["R"], s["t"]), *_t(*args), depth0=torch.from_numpy(s["d0"]),
-                           depth1=torch.from_numpy(s["d1"]), w_icp=w_icp, max_iter=3,
+                           depth1=torch.from_numpy(s["d1"]), scale_fn=scale_fn,
+                           w_prior=torch.from_numpy(w_prior), max_iter=3,
                            remove_tru_sigma=True)
     _level_close(got, ref, moved_from=s["R"])
     _close(got[1], ref[1])

@@ -167,25 +167,32 @@ def test_seeded_init_is_deterministic():
     assert torch.equal(a["encoder.net0.0.1.running_var"], torch.ones(16))
 
 
-# a preset with one option that is still unported: DeepIC with an
-# M-estimator and a damping net per level, and feature with the dense_net
-# (PoseNet) initial pose
-UNPORTED = {"DeepIC": {"no_weight_sharing": True}, "feature": {"init_pose_type": "dense_net"}}
+# a preset with an option that was ported last (DeepIC with an M-estimator
+# and a damping net per level, feature with the dense_net PoseNet initial
+# pose), and with a value that no package knows
+UNPORTED = {"DeepIC": ({"no_weight_sharing": True}, {"mest_type": "Tukey"}),
+            "feature": ({"init_pose_type": "dense_net"}, {"init_pose_type": "flow_net"})}
 
 
 @pytest.mark.parametrize("preset", sorted(UNPORTED))
 def test_unported_presets_raise(preset):
-    with pytest.raises(NotImplementedError):
-        LeastSquareTracking(dataclasses.replace(get_preset(preset), **UNPORTED[preset]))
+    ported, unknown = UNPORTED[preset]
+    LeastSquareTracking(dataclasses.replace(get_preset(preset), **ported))
+    with pytest.raises(ValueError):
+        LeastSquareTracking(dataclasses.replace(get_preset(preset), **unknown))
 
 
 def test_unported_encoder_heads_raise():
     """Every feature head and sigma type of the JAX encoder is ported
-    (tests/test_torch_port_heads.py) and an unknown one is refused; the
-    one-view ConvRGBD encoder is not ported."""
+    (tests/test_torch_port_heads.py) and an unknown one is refused; so is
+    the one-view ConvRGBD encoder (4 input channels), and an unknown
+    encoder is refused."""
     with pytest.raises(ValueError):
         FeaturePyramid(feature_extract="prob_fuse2")
     with pytest.raises(ValueError):
         FeaturePyramid(uncertainty_type="ICP")
-    with pytest.raises(NotImplementedError):
-        LeastSquareTracking(dataclasses.replace(get_preset("feature"), encoder_name="ConvRGBD"))
+    one_view = LeastSquareTracking(dataclasses.replace(get_preset("feature"),
+                                                       encoder_name="ConvRGBD"))
+    assert one_view.encoder.net0[0][0].in_channels == 4
+    with pytest.raises(ValueError):
+        LeastSquareTracking(dataclasses.replace(get_preset("feature"), encoder_name="ConvRGBD3"))

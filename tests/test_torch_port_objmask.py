@@ -215,7 +215,8 @@ def test_tr_uic_level_with_masks(scene, combine_icp):
         remove_tru_sigma=True, combine_icp=combine_icp))
     ref = level(_j(s["R"], s["t"]), *_j(*args, s["d0"], s["d1"], s["m0"], s["m1"]))
     got = ttr.tr_uic_level(_t(s["R"], s["t"]), *_t(*args), *_t(s["d0"], s["d1"]),
-                           w_icp=torch.from_numpy(w_map) if combine_icp else None,
+                           scale_fn=(lambda *_: torch.from_numpy(w_map)) if combine_icp
+                           else None,
                            obj_mask0=_t(s["m0"])[0], obj_mask1=_t(s["m1"])[0], max_iter=3,
                            remove_tru_sigma=True)
     _level_close(got, ref, moved_from=s["R"])
@@ -234,7 +235,8 @@ def test_tr_uic_residual_with_masks(scene, combine_icp):
                               scale_fn=lambda icp_res, feat_res, wp: jnp.asarray(w_map),
                               remove_tru_sigma=True, combine_icp=combine_icp)
     got = ttr.tr_uic_residual(_t(s["R"], s["t"]), *_t(*args), *_t(s["d0"], s["d1"]),
-                              w_icp=torch.from_numpy(w_map) if combine_icp else None,
+                              scale_fn=(lambda *_: torch.from_numpy(w_map)) if combine_icp
+                              else None,
                               obj_mask0=_t(s["m0"])[0], obj_mask1=_t(s["m1"])[0],
                               remove_tru_sigma=True)
     _close(got, ref)

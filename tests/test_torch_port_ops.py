@@ -62,8 +62,9 @@ def test_euler_and_pose_vec(rng):
     Rj, tj = jl.pose_vec_to_Rt(jnp.asarray(a))
     close(R, Rj)
     close(t, tj)
-    with pytest.raises(NotImplementedError):
-        tl.euler_to_matrix(*torch.from_numpy(a[:, :3]).T, axes="rzyx")
+    # every convention is ported (tests/test_torch_port_lie.py)
+    close(tl.euler_to_matrix(*torch.from_numpy(a[:, :3]).T, axes="rzyx"),
+          jl.euler_to_matrix(*jnp.asarray(a[:, :3]).T, axes="rzyx"))
 
 
 @pytest.mark.parametrize("normalize", [True, False])

@@ -81,8 +81,9 @@ def test_forward_matches_golden(preset):
 
 def test_from_flax_takes_the_empty_variables():
     """The classical presets have an empty variable tree and no weights;
-    ``DeepIC`` with an M-estimator and a damping net per level, and a
-    predicted initial pose over the grayscale encoder, are not ported."""
+    ``DeepIC`` with an M-estimator and a damping net per level has one of
+    each a level, and a predicted initial pose over the grayscale encoder
+    reads the 1-channel pyramid of both frames."""
     sds = [jax.ShapeDtypeStruct(a.shape, a.dtype) for a in _golden_inputs()]
     for preset in PRESETS:
         net = JaxTracker(cfg=jp.get_preset(preset))
@@ -94,10 +95,11 @@ def test_from_flax_takes_the_empty_variables():
         port.load_state_dict(from_flax(jax.tree.map(np.asarray, dict(v))), strict=True)
         assert port.state_dict() == {}
         assert port.reset_parameters(3) is port  # nothing to seed
-    with pytest.raises(NotImplementedError, match="no_weight_sharing"):
-        LeastSquareTracking(dataclasses.replace(get_preset("DeepIC"), no_weight_sharing=True))
-    with pytest.raises(NotImplementedError, match="initial pose"):
-        LeastSquareTracking(dataclasses.replace(get_preset("RGB"), init_pose_type="sfm_net"))
+    levels = LeastSquareTracking(dataclasses.replace(get_preset("DeepIC"), no_weight_sharing=True))
+    assert {k.split(".")[0] for k in levels.state_dict() if "_func" in k} == {
+        f"{name}{i}" for name in ("mEst_func", "solver_func") for i in range(4)}
+    gray = LeastSquareTracking(dataclasses.replace(get_preset("RGB"), init_pose_type="sfm_net"))
+    assert gray.pose_predictor.net[0][0].in_channels == 2
 
 
 @pytest.mark.parametrize("preset", PRESETS)

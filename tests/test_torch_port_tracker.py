@@ -154,13 +154,17 @@ def test_build_tracker_loads_checkpoint(models, tmp_path):
 def test_training_forward_is_not_ported(models):
     """``.train()`` selects the training forward, which is ported for the
     feature preset (``tests/test_torch_port_train.py``) and returns the
-    5-pose pyramid; its uncertainty-propagating variant is not ported."""
+    5-pose pyramid; its uncertainty-propagating variant adds the levels'
+    information matrices (``tests/test_torch_port_uncer.py``)."""
     net = copy.deepcopy(models[2]).train()
     pyr_R, pyr_t = net(*map(torch.from_numpy, _golden_inputs()))
     assert pyr_R.shape == (B, 5, 3, 3) and pyr_t.shape == (B, 5, 3)
     assert pyr_R.grad_fn is not None
-    with pytest.raises(NotImplementedError):
-        LeastSquareTracking(dataclasses.replace(get_preset("feature"), uncer_prop=True))
+    uncer = LeastSquareTracking(dataclasses.replace(get_preset("feature"), uncer_prop=True))
+    uncer.load_state_dict(net.state_dict())
+    pyr_R2, pyr_t2, sigma_ksi = uncer.train()(*map(torch.from_numpy, _golden_inputs()))
+    assert sigma_ksi.shape == (B, 5, 6, 6)
+    torch.testing.assert_close(pyr_t2, pyr_t, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------- service

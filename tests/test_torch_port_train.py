@@ -421,7 +421,7 @@ def test_train_step_runs_and_refuses_what_is_not_ported():
         tt.make_train_step(tt.TrainConfig(accum_steps=2), 10)
     with pytest.raises(NotImplementedError):
         tt.make_train_step(cfg, 10, guard_nonfinite=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="uncer_prop"):
         tt.compute_loss(state.net, tt.TrainConfig(loss="URPE"), batch)
     with pytest.raises(ValueError, match="training mode"):
         tt.compute_loss(copy.deepcopy(state.net).eval(), cfg, batch)

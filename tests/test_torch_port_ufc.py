@@ -207,12 +207,13 @@ def test_tr_ufc_level_matches_jax(variables, scene, mest):
     s = scene
     args = [s[k] for k in ("x0", "x1", "d0", "d1", "K", "s0", "s1")]
     if mest == "None":
-        port_mest = LeastSquareTracking(tp.apply_overrides(tp.get_preset("feature"), UFC))._mest
+        port_mest = LeastSquareTracking(
+            tp.apply_overrides(tp.get_preset("feature"), UFC))._mest_at(0)
 
         def jax_mest(r, f0, f1, w):
             return jnets.DeepRobustEstimator("None").apply({}, r, f0, f1, w)
     else:
-        port_mest = _models(variables, UFC_MEST)[2]._mest
+        port_mest = _models(variables, UFC_MEST)[2]._mest_at(0)
         mvars = {c: variables[c]["mests_0"] for c in ("params", "batch_stats")}
 
         def jax_mest(r, f0, f1, w):
@@ -241,7 +242,7 @@ def test_tr_ufc_level_takes_only_the_direction_of_the_solver(scene):
     solve's bit for bit, and the net is never called."""
     s = scene
     args = _t(*[s[k] for k in ("x0", "x1", "d0", "d1", "K", "s0", "s1")])
-    mest = LeastSquareTracking(tp.apply_overrides(tp.get_preset("feature"), UFC))._mest
+    mest = LeastSquareTracking(tp.apply_overrides(tp.get_preset("feature"), UFC))._mest_at(0)
 
     def never(x):
         raise AssertionError("the damping net ran")

@@ -78,10 +78,15 @@ def test_warp_operand(rng, h, w):
 
 
 def test_warp_operand_rejects_degenerate_plane(rng):
-    op = torch.zeros(B, 1, W, 3)
-    u = torch.zeros(B, 1, 2, 2)
+    """A plane under 2x2 is sampled in tensor ops, as the JAX package
+    samples it away from its kernels (``tests/test_torch_port_lie.py``);
+    the kernels' wrappers refuse it."""
+    op = torch.from_numpy(rng.randn(B, 1, W, 3).astype(np.float32))
+    u = torch.full((B, 1, 2, 2), 2.5)
+    out = tw.warp_operand(op, [3], u, torch.zeros_like(u))[0]
+    torch.testing.assert_close(out[..., 0, 0], 0.5 * (op[:, 0, 2] + op[:, 0, 3]))
     with pytest.raises(ValueError, match="2x2"):
-        tw.warp_operand(op, [3], u, u)
+        tw.gather_twohot(op, *tw._corner_weights(op.shape, u, u))
 
 
 def test_check_occ_prewarped(rng):
