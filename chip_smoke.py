@@ -264,6 +264,33 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    120x160 B=64: K2, K3, K6 12 times a step, finite losses; the JSON record
    gets ``variants``.
 
+46. on a freshly written 24-frame sequence: ``parallel.ba.refine_pose_graph``
+   on its ground truth perturbed by 0.02, ``ba_refine``'s 66 window edges
+   (window 3) with JtWJ-like information matrices, 10 iterations: float64
+   on the card against the CPU within 1e-9, float32 against float64 within
+   ``BA_F32_ATOL``, two card calls bit for bit, the time of a call;
+47. ``parallel.dense_ba.refine_dense_window`` on the seeded ``feature``
+   tracker's encoding of the first 6 frames at 640x480, at level 1 (240x320,
+   C=10: K1) and level 0 (480x640: K4), 12 edges, 3 iterations: one gather
+   and one K6 a iteration, pinned; the poses through the kernels, through
+   the plain versions on the card and on the CPU within ``DENSE_ATOL``; two
+   calls bit for bit; one iteration's events, device busy time and idle
+   share (``torch.profiler``);
+48. ``apps.ba_refine.main --dense`` with a checkpoint the phase writes, at
+   120x160 and 640x480: 9 batches of tracking (K1 12 / K6 12 a batch, or
+   K4 3 / K1 9 / K6 12) and 5 dense iterations (K1 and K6 once each);
+   the trajectory file against the CPU run of the CLI within
+   ``BA_CLI_ATOL``, poses relative to frame 0's (the pose graph's gauge is
+   weakly pinned: see ``BA_CLI_ATOL``; at 640x480 on the first 4 frames);
+   ATE before and after and the wall time;
+49. ``apps.run_example.main`` on the sequence's ``rgb/`` and ``depth/``: K1
+   14 (two colour resizes, C=3) and K6 12 a pair; the printed poses finite
+   and within 1e-4 of the CPU run's;
+50. the frames laid out as a VaryLighting scene and ``apps.evaluate.main
+   --dataset VaryLighting``: launches as served a batch, "no ground truth;
+   23 poses estimated", a summary row of empty (NaN) metrics and 23
+   frames; the JSON record gets ``ba``.
+
 Phase 16 also records K4's staged share on the U_FC forwards (480x640 and
 120x160, on the synthetic scene and on the served requests), 17 times K4
 (C=28, beside K1 and ``grid_sample``), K1 (C=28 and 49), K2 and K3 (C=28)
@@ -2936,6 +2963,391 @@ def phase_time_channels(torch, dev, name):
     return rows
 
 
+# windowed BA (phases 46-50): ``ba_refine``'s default window of 3 over the
+# 24 written frames gives 66 edges, tracked in 9 batches of 8
+BA_WINDOW, BA_ITERATIONS, BA_DENSE_ITERATIONS = 3, 10, 5
+BA_BATCHES = -(-(TUM_FRAMES * BA_WINDOW - BA_WINDOW * (BA_WINDOW + 1) // 2) // B)
+BA_F32_ATOL = 1e-5  # the pose graph's float32 poses against float64 (phase 46)
+BA_LONG_FRAMES = 800  # phase 46's second graph: a real sequence's length, 2,394 edges
+DENSE_FRAMES, DENSE_ITERATIONS = 6, 3  # phase 47's window: 12 edges
+DENSE_ATOL = 1e-4  # phase 47's poses: kernels, plain on the card and the CPU
+# ba_refine's trajectory, card against CPU, each pose taken relative to
+# frame 0's.  The seeded tracker's information matrices (up to 1.0e9 at
+# 120x160, 3.5e11 at 640x480; smallest eigenvalues 3.6e6, 5.6e8) dwarf the
+# pose graph's 1e6 anchor on pose 0, so its gauge (one rigid motion of
+# every pose) is weakly pinned: on the CPU float32 moves the whole
+# trajectory by 6.4e-5 and 5.7e-4 against float64 while the poses relative
+# to frame 0 stay within 3.4e-7 and 2.3e-7 (scripts/torch_ba_gauge.py)
+BA_CLI_ATOL = 1e-4
+BA_CPU_VGA_FRAMES = 4  # the 640x480 CPU comparison: 6 edges, one batch
+RUN_EXAMPLE_ATOL = 1e-4
+
+
+def _window_pose_graph(torch, gt, seed=0):
+    """Phase 46's problem: the poses ``gt`` [N,4,4] taken relative to the
+    first, ``ba_refine``'s window edges with exact measurements, JtWJ-like
+    information matrices (``1e3 (A A^T + I)``, A standard normal) and the
+    poses 2..N perturbed by 0.02 (twist units), all from a seed."""
+    from deep_prob_feature_track_torch.apps.ba_refine import window_pairs
+    from deep_prob_feature_track_torch.geometry.lie import exp_se3
+
+    poses = np.linalg.inv(gt[0])[None] @ gt
+    n = len(poses)
+    pairs = window_pairs(n, BA_WINDOW)
+    rel = [np.linalg.inv(poses[j]) @ poses[i] for i, j in pairs]
+    rng = np.random.RandomState(seed)
+    A = rng.randn(len(pairs), 6, 6)
+    infos = list(1e3 * (A @ A.transpose(0, 2, 1) + np.eye(6)))
+    dR, dt = (x.numpy() for x in exp_se3(torch.from_numpy(rng.randn(n - 1, 6) * 0.02)))
+    init = poses.copy()
+    init[1:, :3, :3] = poses[1:, :3, :3] @ dR
+    init[1:, :3, 3] += np.einsum("nij,nj->ni", poses[1:, :3, :3], dt)
+    return poses, init, pairs, [(T[:3, :3], T[:3, 3]) for T in rel], infos
+
+
+def _random_walk(torch, n, seed=1):
+    """``n`` camera poses [n,4,4], each step a twist of 0.02 standard
+    normal (rotation and translation), from a seed."""
+    from deep_prob_feature_track_torch.geometry.lie import exp_se3
+
+    dR, dt = (x.numpy() for x in exp_se3(
+        torch.from_numpy(np.random.RandomState(seed).randn(n - 1, 6) * 0.02)))
+    poses = [np.eye(4)]
+    for R, t in zip(dR, dt):
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        poses.append(poses[-1] @ T)
+    return np.stack(poses)
+
+
+def _graph_poses(g):
+    """A refined graph's poses as rows of R (9) and t (3), in float64."""
+    return np.concatenate([g.R.double().cpu().numpy().reshape(-1, 9),
+                           g.t.double().cpu().numpy()], axis=1)
+
+
+def phase_pose_graph(torch, dev, gt_poses):
+    """Phase 46: ``refine_pose_graph`` on the card over the written
+    sequence's 24 poses: float64 against the CPU (1e-9), float32 against
+    float64 (``BA_F32_ATOL``), two card calls bit for bit, the time of one
+    call; then the same over ``BA_LONG_FRAMES`` poses of a random walk (a
+    real sequence's length: a 4,800-wide solve, 2,394 edges), without the
+    CPU run.  Both hold the float64 poses to the ground truth (1e-6)."""
+    from deep_prob_feature_track_torch.parallel import ba
+
+    out = {}
+    for poses, cpu in ((gt_poses, True), (_random_walk(torch, BA_LONG_FRAMES), False)):
+        gt, init, pairs, meas, infos = _window_pose_graph(torch, poses)
+        label = f"{len(gt)} poses"
+        runs = [("card64", dev, torch.float64), ("card32", dev, torch.float32)]
+        if cpu:
+            runs.append(("cpu64", "cpu", torch.float64))
+        res, graphs = {}, {}
+        for key, device, dtype in runs:
+            graphs[key] = ba.build_window_graph(init, pairs, meas, infos, device=device,
+                                                dtype=dtype)
+            res[key] = ba.refine_pose_graph(graphs[key], BA_ITERATIONS)
+        for key in ("card64", "card32"):
+            again = ba.refine_pose_graph(graphs[key], BA_ITERATIONS)
+            if not all(torch.equal(a, b) for a, b in zip((*again[0][:2], again[1]),
+                                                          (*res[key][0][:2], res[key][1]))):
+                raise AssertionError(f"pose graph, {label}, {key}: two card calls differ")
+        card64 = _graph_poses(res["card64"][0])
+        vs_cpu = float(np.abs(card64 - _graph_poses(res["cpu64"][0])).max()) if cpu else None
+        f32 = float(np.abs(_graph_poses(res["card32"][0]) - card64).max())
+        vs_gt = float(np.abs(card64[:, 9:] - gt[:, :3, 3]).max())
+        costs = res["card32"][1].cpu().numpy()
+        ms = {key: time_ms(torch, lambda: ba.refine_pose_graph(graphs[key], BA_ITERATIONS),
+                           reps=5, warmup=1) for key in ("card32", "card64")}
+        log(f"pose graph, {label}, {len(pairs)} edges, {BA_ITERATIONS} iterations: float64 "
+            f"card against CPU " + (f"{vs_cpu:.3e} (limit 1e-9)" if cpu else "not run")
+            + f", float32 against float64 {f32:.3e} (limit {BA_F32_ATOL:g}), float64 against "
+            f"the ground truth {vs_gt:.3e}; float32 cost {costs[0]:.4f} -> {costs[-1]:.3e}; "
+            f"two card calls bit for bit; {ms['card32']:.3f} ms a call in float32, "
+            f"{ms['card64']:.3f} in float64")
+        if not ((vs_cpu is None or vs_cpu <= 1e-9) and f32 <= BA_F32_ATOL and vs_gt <= 1e-6
+                and costs[-1] < costs[0]):
+            raise AssertionError(f"pose graph, {label}: the card's poses disagree")
+        out[label] = {"edges": len(pairs), "vs_cpu_f64": vs_cpu, "f32_vs_f64": f32,
+                      "vs_gt": vs_gt, "ms_f32": ms["card32"], "ms_f64": ms["card64"]}
+    return out
+
+
+def _dense_problem(torch, dev, seq, net, level):
+    """Phase 47's window: the first ``DENSE_FRAMES`` frames at 640x480,
+    encoded by ``net`` at ``level``; the ground-truth poses perturbed by
+    0.01; edges spanning ``BA_WINDOW`` frames."""
+    from deep_prob_feature_track_torch.apps.ba_refine import encode_frames, window_pairs
+    from deep_prob_feature_track_torch.data.loader import load_data
+    from deep_prob_feature_track_torch.geometry.lie import exp_se3
+
+    ds = load_data("TUM_RGBD", [1], "test", select_traj=seq, image_resize=CLI_VGA, root="")
+    frames = encode_frames(net, ds, DENSE_FRAMES, level, dev)
+    gt = np.stack(ds.cam_pose_seq[0][:DENSE_FRAMES])
+    gt = np.linalg.inv(gt[0])[None] @ gt
+    g = torch.Generator().manual_seed(level)
+    dR, dt = exp_se3(torch.randn(DENSE_FRAMES - 1, 6, generator=g, dtype=torch.float64) * 0.01)
+    R = torch.from_numpy(gt[:, :3, :3]).clone()
+    t = torch.from_numpy(gt[:, :3, 3]).clone()
+    t[1:] += torch.einsum("nij,nj->ni", R[1:], dt)
+    R[1:] = R[1:] @ dR
+    pairs = window_pairs(DENSE_FRAMES, BA_WINDOW)
+    ei, ej = (torch.tensor([p[k] for p in pairs], device=dev) for k in (0, 1))
+    return frames, R.float().to(dev), t.float().to(dev), ei, ej
+
+
+def phase_dense_window(torch, dev, seq):
+    """Phase 47: ``refine_dense_window`` on the seeded ``feature`` tracker's
+    encoding of 6 frames at 640x480, levels 1 and 0: a gather (K1 at level
+    1, K4 at level 0) and a K6 reduction per outer iteration; the poses
+    through the kernels, through the plain versions on the card and on the
+    CPU within ``DENSE_ATOL``; two calls bit for bit; the events of one
+    iteration, its device busy time and idle share."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+    from deep_prob_feature_track_torch.ops import kernels as K
+    from deep_prob_feature_track_torch.parallel.dense_ba import WindowFrames, refine_dense_window
+
+    net = build_tracker("feature", "", dev, overrides=["uncer_prop=1"])
+    out = {}
+    for level, gather in ((1, "gather_twohot"), (0, "gather_tiles")):
+        frames, R, t, ei, ej = _dense_problem(torch, dev, seq, net, level)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = refine_dense_window(frames, R, t, ei, ej, iterations=DENSE_ITERATIONS)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        want = counts(**{gather: DENSE_ITERATIONS, "fused_jtj_jtr": DENSE_ITERATIONS})
+        if launches != want:
+            raise AssertionError(f"dense window level {level} launched {launches}, "
+                                 f"expected {want}")
+        again = refine_dense_window(frames, R, t, ei, ej, iterations=DENSE_ITERATIONS)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"dense window level {level}: two calls differ")
+        plain = refine_dense_window(frames, R, t, ei, ej, iterations=DENSE_ITERATIONS,
+                                    plain=True)
+        cpu = refine_dense_window(WindowFrames(*(x.cpu() for x in frames)), R.cpu(), t.cpu(),
+                                  ei.cpu(), ej.cpu(), iterations=DENSE_ITERATIONS)
+
+        def gap(a, b):
+            return max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(a[:2], b[:2]))
+
+        row = {"edges": int(ei.numel()), "hw": list(frames.feats.shape[-2:]),
+               "c": int(frames.feats.shape[1]), "launches": launches,
+               "vs_plain": gap(got, plain), "vs_cpu": gap(got, cpu),
+               "costs": got[2].cpu().tolist()}
+
+        def one():
+            return refine_dense_window(frames, R, t, ei, ej, iterations=1)
+
+        row["iteration_ms"] = time_ms(torch, one, reps=5, warmup=1, windows=3)
+        row["profile"] = profile(torch, one, f"dense window iteration, level {level}, "
+                                             f"{row['edges']} edges")
+        log(f"dense window level {level} ({row['hw'][0]}x{row['hw'][1]}, {row['c']} feature "
+            f"channels, {row['edges']} edges, {DENSE_ITERATIONS} iterations): launches "
+            f"{launches}; costs {row['costs'][0]:.4f} -> {row['costs'][-1]:.4f}; kernels "
+            f"against plain {row['vs_plain']:.3e}, against the CPU {row['vs_cpu']:.3e} (limit "
+            f"{DENSE_ATOL:g}); one iteration {row['iteration_ms']:.3f} ms of events, "
+            f"{row['profile']['device_busy_ms']:.3f} ms device busy, idle share "
+            f"{row['profile']['idle_share']:.3f}")
+        if not (row["vs_plain"] <= DENSE_ATOL and row["vs_cpu"] <= DENSE_ATOL):
+            raise AssertionError(f"dense window level {level}: the poses disagree")
+        if not row["costs"][-1] < row["costs"][0]:
+            raise AssertionError(f"dense window level {level}: the cost did not fall")
+        out[f"level{level}"] = row
+    return out
+
+
+def _ba_cli(torch, dev, args, label):
+    """Run ``apps.ba_refine.main``: its launch counts (reset just before,
+    read just after), wall time, printed lines and trajectory."""
+    from deep_prob_feature_track_torch.apps import ba_refine
+    from deep_prob_feature_track_torch.apps.traj_eval import load_tum_trajectory
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    output = args[args.index("--output") + 1]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        if ba_refine.main([*args, "--device", str(dev)]) != 0:
+            raise AssertionError(f"ba_refine {label} failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"ba_refine {label} on {dev.type}: {line}")
+    return {"launches": dict(K.LAUNCHES), "wall_s": wall, "lines": lines,
+            "trajectory": load_tum_trajectory(output)[1]}
+
+
+def _from_first(poses):
+    """Poses [N,4,4] relative to the first: free of the pose graph's gauge."""
+    return np.linalg.inv(poses[0])[None] @ poses
+
+
+def phase_ba_cli(torch, dev, seq, workdir):
+    """Phase 48: ``apps.ba_refine.main --dense`` with a checkpoint it
+    writes, at 120x160 and at 640x480 on the card: the launches of 9
+    batches of 8 pairs (as served: K1 12 / K6 12, or K4 3 / K1 9 / K6 12)
+    and of the dense stage (its level-1 operand takes K1; K6) pinned; the
+    trajectory file against the CPU run of the same CLI within
+    ``BA_CLI_ATOL``, each pose relative to frame 0's; ATE before and after,
+    the wall time.  At 640x480 the CPU run covers the first
+    ``BA_CPU_VGA_FRAMES`` frames, and so does a second card run that is
+    compared with it: the timed 24-frame card run is held to its launch
+    counts, 24 finite poses and nothing more (its first frames' poses
+    differ from the short run's, since a chunk's batch-global reductions
+    and the pose graph's other edges enter them)."""
+    from deep_prob_feature_track_torch.models.presets import get_preset
+    from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
+    from deep_prob_feature_track_torch.training.checkpoints import save_variables
+
+    ckpt = save_variables(os.path.join(workdir, "ba.pt"), LeastSquareTracking(
+        get_preset("feature")).reset_parameters(5).state_dict())
+    out = {}
+    for scale, per_batch in ((CLI_SMALL, SERVE_LAUNCHES), (CLI_VGA, VGA_SERVE_LAUNCHES)):
+        base = ["--data_root", "", "--trajectory", seq, "--image_resize", str(scale),
+                "--checkpoint", ckpt, "--window", str(BA_WINDOW), "--batch_size", str(B),
+                "--dense"]
+        run = _ba_cli(torch, dev, [*base, "--output", os.path.join(workdir, "ba_card.txt")],
+                      f"{scale}")
+        want = {k: n * BA_BATCHES for k, n in per_batch.items()}
+        for k in ("gather_twohot", "fused_jtj_jtr"):
+            want[k] = want.get(k, 0) + BA_DENSE_ITERATIONS
+        if run["launches"] != want:
+            raise AssertionError(f"ba_refine {scale} launched {run['launches']}, expected {want}")
+        # the CPU run of the same CLI; at 640x480 on the first frames alone
+        short, label = run, f"{scale}"
+        frames = [] if scale == CLI_SMALL else ["--max_frames", str(BA_CPU_VGA_FRAMES)]
+        if frames:
+            label = f"{scale} first {BA_CPU_VGA_FRAMES} frames"
+            short = _ba_cli(torch, dev, [*base, *frames, "--output",
+                                         os.path.join(workdir, "ba_short.txt")], label)
+        cpu = _ba_cli(torch, torch.device("cpu"),
+                      [*base, *frames, "--output", os.path.join(workdir, "ba_cpu.txt")], label)
+        raw_gap = float(np.abs(short["trajectory"] - cpu["trajectory"]).max())
+        gap = float(np.abs(_from_first(short["trajectory"]) - _from_first(cpu["trajectory"])).max())
+        ate = next(ln for ln in run["lines"] if "ATE-RMSE" in ln)
+        out[str(scale)] = {"launches": run["launches"], "wall_s": run["wall_s"],
+                           "cpu_wall_s": cpu["wall_s"], "vs_cpu": gap, "vs_cpu_raw": raw_gap,
+                           "ate": ate, "frames_vs_cpu": len(cpu["trajectory"])}
+        log(f"ba_refine {scale} --dense: {run['wall_s']:.2f} s on the card (decode "
+            f"included), launches {run['launches']}; trajectory of "
+            f"{len(cpu['trajectory'])} frames against the CPU run: relative to frame 0 "
+            f"{gap:.3e} (limit {BA_CLI_ATOL:g}), as written {raw_gap:.3e}; {ate}")
+        if not (gap <= BA_CLI_ATOL and np.isfinite(run["trajectory"]).all()
+                and len(run["trajectory"]) == TUM_FRAMES):
+            raise AssertionError(f"ba_refine {scale}: the trajectory disagrees with the CPU's")
+    return out
+
+
+def _printed_poses(text):
+    """run_example's printed poses: one row of 12 numbers a pair."""
+    import re
+
+    pairs = re.split(r"pair \d+:", text)[1:]
+    return np.asarray([[float(x) for x in re.findall(r"-?\d+\.\d*(?:e[-+]\d+)?", p)]
+                       for p in pairs])
+
+
+def phase_run_example(torch, dev, seq):
+    """Phase 49: ``apps.run_example.main`` on the sequence's ``rgb/`` and
+    ``depth/`` folders: a pair's launches (K1 2 for the colour resizes,
+    C=3, and 12 for the forward; K6 12), the poses finite and within
+    ``RUN_EXAMPLE_ATOL`` of the CPU run's."""
+    from deep_prob_feature_track_torch.apps import run_example
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    def run(device):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if run_example.main(["--color_dir", os.path.join(seq, "rgb"), "--depth_dir",
+                                 os.path.join(seq, "depth"), "--device", str(device)]) != 0:
+                raise AssertionError("run_example failed")
+        torch.cuda.synchronize()
+        return _printed_poses(buf.getvalue()), time.perf_counter() - t0, dict(K.LAUNCHES)
+
+    card, wall, launches = run(dev)
+    cpu = run(torch.device("cpu"))[0]
+    pairs = TUM_FRAMES - 1
+    want = counts(gather_twohot=14 * pairs, fused_jtj_jtr=12 * pairs)
+    gap = float(np.abs(card - cpu).max()) if card.shape == cpu.shape else float("inf")
+    log(f"run_example: {card.shape[0]} pairs in {wall:.2f} s on the card (decode included), "
+        f"launches {launches}; poses against the CPU run {gap:.3e} (limit "
+        f"{RUN_EXAMPLE_ATOL:g})")
+    if launches != want:
+        raise AssertionError(f"run_example launched {launches}, expected {want}")
+    if not (card.shape == (pairs, 12) and np.isfinite(card).all() and gap <= RUN_EXAMPLE_ATOL):
+        raise AssertionError("run_example: the poses are not finite or disagree with the CPU")
+    return {"pairs": pairs, "wall_s": wall, "launches": launches, "vs_cpu": gap}
+
+
+def phase_vary_lighting(torch, dev, seq, workdir):
+    """Phase 50: the sequence's frames laid out as a VaryLighting scene
+    (``<root>/scene0/rgb``, ``depth``, no ground truth) and
+    ``apps.evaluate.main --dataset VaryLighting`` at 120x160: launches as
+    served a batch, "no ground truth; 23 poses estimated", and a summary row
+    of NaN (empty) metrics and 23 frames."""
+    from deep_prob_feature_track_torch.apps import evaluate
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    root = os.path.join(workdir, "vl")
+    os.makedirs(os.path.join(root, "scene0"))
+    for sub in ("rgb", "depth"):
+        os.symlink(os.path.join(seq, sub), os.path.join(root, "scene0", sub))
+    out_dir = os.path.join(workdir, "vl_out")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        if evaluate.main(["--dataset", "VaryLighting", "--data_root", root, "--trajectory",
+                          "scene0", "--keyframes", "1", "--batch_size", str(B),
+                          "--image_resize", str(CLI_SMALL), "--output_dir", out_dir,
+                          "--device", str(dev)]) != 0:
+            raise AssertionError("the evaluate CLI failed on VaryLighting")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    pairs = TUM_FRAMES - 1
+    batches = -(-pairs // B)
+    want = {k: n * batches for k, n in SERVE_LAUNCHES.items()}
+    line = f"scene0_keyframe_1: no ground truth; {pairs} poses estimated"
+    with open(os.path.join(out_dir, "nolearning_feature", "summary.csv")) as fh:
+        rows = fh.read().splitlines()
+    row = next(r for r in rows if r.startswith("scene0_keyframe_1,"))
+    log(f"evaluate CLI --dataset VaryLighting: launches {launches}; printed "
+        f"{line in buf.getvalue()!r} for {line!r}; summary row {row!r}")
+    if launches != want:
+        raise AssertionError(f"VaryLighting evaluation launched {launches}, expected {want}")
+    if line not in buf.getvalue() or row != f"scene0_keyframe_1,,,,{pairs},1,scene0":
+        raise AssertionError("VaryLighting evaluation: poses only and a NaN summary expected")
+    return {"launches": launches, "pairs": pairs, "summary_row": row}
+
+
+def phase_ba(torch, dev):
+    """Phases 46-50 in a temporary directory, removed after."""
+    import shutil
+
+    workdir = tempfile.mkdtemp(prefix="dpft_ba_")
+    try:
+        t0 = time.monotonic()
+        seq = os.path.join(workdir, "seq")
+        gt = np.stack(write_tum_sequence(seq, n=TUM_FRAMES))
+        out = {"pose_graph": phase_pose_graph(torch, dev, gt),
+               "dense_window": phase_dense_window(torch, dev, seq),
+               "ba_refine": phase_ba_cli(torch, dev, seq, workdir),
+               "run_example": phase_run_example(torch, dev, seq),
+               "vary_lighting": phase_vary_lighting(torch, dev, seq, workdir)}
+        log(f"phases 46-50 (windowed BA, run_example, VaryLighting) in "
+            f"{time.monotonic() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def profile(torch, fn, label):
     """Device busy time, span, idle share, launch count, launches by kernel
     name and the top kernels of one call of ``fn`` after three warm-up
@@ -3117,6 +3529,7 @@ def run(torch, loader, dev, name, smi):
     t0 = time.monotonic()
     variants = phase_variants(torch, dev, items, vga_items)
     log(f"phases 40-45 (the tracker options) in {time.monotonic() - t0:.1f} s")
+    ba = phase_ba(torch, dev)
     m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
                       "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
@@ -3125,7 +3538,7 @@ def run(torch, loader, dev, name, smi):
                       "ufc_serve_launches": ufc_launches, "ufc_k4_staged_share": ufc_k4_shares,
                       "preset_agree": presets, "scene_staged_share": scene_shares,
                       "vga_serve_launches": vga_launches, **cli, "objects": objects,
-                      "variants": variants, "card": smi}), flush=True)
+                      "variants": variants, "ba": ba, "card": smi}), flush=True)
 
     # K1 and K6 as the 120x160 serve path launched them, K2 and K3 as the
     # 120x160 train path did; K4 as the 480x640 serve path, K5 as the 480x640

@@ -32,8 +32,12 @@ sigma, weighted residual and the finest level's matches for the first N
 batches of the first loader, as PNG files under ``<output dir>/vis``
 (``dump_diagnostics``).
 
-Not ported, and raising ``NotImplementedError``: the ScanNet and
-VaryLighting datasets (ROADMAP item 6) and ``--mesh`` (item 8).
+    # a dataset without ground truth: the poses alone, NaN metrics
+    python -m deep_prob_feature_track_torch.apps.evaluate \
+        --dataset VaryLighting --data_root /path/to/vl --trajectory <scene>
+
+Not ported, and raising ``NotImplementedError``: the ScanNet dataset
+(ROADMAP item 6) and ``--mesh`` (item 8).
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for an option the port lacks, naming
     the ROADMAP item that ports it."""
     missing = [
-        (args.dataset in ("ScanNet", "VaryLighting"), f"--dataset {args.dataset}", "6"),
+        (args.dataset == "ScanNet", "--dataset ScanNet", "6"),
         (args.mesh, "--mesh", "8"),
     ]
     for hit, what, item in missing:
@@ -173,12 +177,15 @@ def main(argv=None):
         info = evaluate_two_view(loader, net, device, has_mask=has_mask,
                                  obj_only=args.obj_only, timers=timers)
         results[key] = info
-        print(
-            f"{key}: EPE3D={info['epes'].mean() * 100:.3f}cm  "
-            f"axis={np.degrees(info['angular_error'].mean()):.4f}deg  "
-            f"trans={info['translation_error'].mean() * 100:.3f}cm  "
-            f"({info['epes'].shape[0]} frames)"
-        )
+        if "epes" in info:
+            print(
+                f"{key}: EPE3D={info['epes'].mean() * 100:.3f}cm  "
+                f"axis={np.degrees(info['angular_error'].mean()):.4f}deg  "
+                f"trans={info['translation_error'].mean() * 100:.3f}cm  "
+                f"({info['epes'].shape[0]} frames)"
+            )
+        else:  # a dataset without ground truth (VaryLighting)
+            print(f"{key}: no ground truth; {info['R_est'].shape[0]} poses estimated")
 
     out_dir = os.path.join(args.output_dir, ckpt_name)
     if args.save_img > 0 and args.tracker == "learning_based":

@@ -1,10 +1,11 @@
 """Dataset factory: ``get_dataset_root`` and ``load_data``.
 
 Counterpart of ``deep_prob_feature_track_tpu/data/loader.py`` for the TUM
-RGB-D and MovingObjects3D datasets; ScanNet and VaryLighting are not ported
-(ROADMAP item 6).  Dataset roots resolve from (in order): an
-explicit ``root`` argument, the ``DPFT_DATA_ROOT`` environment variable, or
-a per-hostname entry in ``setup/datasets.yaml``, which needs PyYAML.
+RGB-D, MovingObjects3D and VaryLighting datasets; ScanNet, whose colour
+frames are JPEG files, waits for a JPEG decoder (ROADMAP item 6).  Dataset
+roots resolve from (in order): an explicit ``root`` argument, the
+``DPFT_DATA_ROOT`` environment variable, or a per-hostname entry in
+``setup/datasets.yaml``, which needs PyYAML.
 """
 
 from __future__ import annotations
@@ -56,12 +57,14 @@ def load_data(
 ):
     """Create a dataset.
 
-    :param dataset: TUM_RGBD or MovingObjects3D (ScanNet and VaryLighting
-        raise ``NotImplementedError``)
+    :param dataset: TUM_RGBD, MovingObjects3D or VaryLighting (ScanNet
+        raises ``NotImplementedError``)
     :param load_type: train | validation | test | keyframe
     """
-    if dataset in ("ScanNet", "VaryLighting"):
-        raise NotImplementedError(f"the {dataset} dataset is not ported (ROADMAP item 6)")
+    if dataset == "ScanNet":
+        raise NotImplementedError(
+            "the ScanNet dataset is not ported: its frames are JPEG files, and the port "
+            "has no JPEG decoder yet (ROADMAP item 6)")
     augment = ColorAugment(seed=augment_seed) if load_type == "train" else None
     if dataset == "MovingObjects3D":
         from .moving_objects import MovingObjects3D
@@ -73,6 +76,16 @@ def load_data(
             select_traj=select_traj,
             image_resize=image_resize,
             augment=augment,
+        )
+    if dataset == "VaryLighting":
+        from .vary_lighting import VaryLighting
+
+        return VaryLighting(
+            root=get_dataset_root("VaryLighting", root),
+            category="test" if load_type == "keyframe" else load_type,
+            keyframes=list(keyframes),
+            select_traj=select_traj,
+            image_resize=image_resize,
         )
     if dataset != "TUM_RGBD":
         raise ValueError(f"unsupported dataset {dataset!r}")

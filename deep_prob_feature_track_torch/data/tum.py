@@ -13,6 +13,9 @@ own association, decoding and split modules:
   ``__getitem__``, so a loader's prefetch thread draws them in index order
 * ``get_keypair`` pairs frame i against a fixed keyframe for keyframe-VO
   (ref :334-373)
+* ``add_vl_dataset`` adds the varying-lighting sequences
+  (``VARY_LIGHTING_TRAINVAL``, TUM-format, under the same root) to the
+  train/validation lists
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 
 from .association import load_sync_trajectory, tq_to_matrix4
 from .io import hwc_to_chw, read_depth_png, read_rgb
-from .tum_dicts import TUM_CALIB, TUM_TEST, TUM_TRAINVAL
+from .tum_dicts import TUM_CALIB, TUM_TEST, TUM_TRAINVAL, VARY_LIGHTING_TRAINVAL
 
 
 class TUM:
@@ -37,6 +40,7 @@ class TUM:
         select_traj: Optional[str] = None,
         image_resize: float = 0.25,
         truncate_depth: bool = True,
+        add_vl_dataset: bool = False,
         augment=None,
     ):
         self.image_seq: List[List[str]] = []
@@ -54,13 +58,16 @@ class TUM:
         if category == "test":
             self._load_test(root, select_traj)
         elif category in ("train", "validation"):
-            self._load_train_val(root, category, select_traj)
+            self._load_train_val(root, category, select_traj, add_vl_dataset)
         else:
             raise ValueError(category)
 
     # ------------------------------------------------------------------
-    def _load_train_val(self, root, category, select_traj):
-        for ks, seqs in TUM_TRAINVAL.items():
+    def _load_train_val(self, root, category, select_traj, add_vl_dataset):
+        data = dict(TUM_TRAINVAL)
+        if add_vl_dataset:
+            data.update(VARY_LIGHTING_TRAINVAL)
+        for ks, seqs in data.items():
             for seq_name in seqs:
                 if select_traj is not None and seq_name != select_traj:
                     continue

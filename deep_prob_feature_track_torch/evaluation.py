@@ -96,7 +96,8 @@ def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
         which then tracks the object
     :return: dict of per-frame arrays (R_est, t_est, epes, angular_error,
         translation_error) and the frames' ``names``; the padding of the
-        last batch is dropped
+        last batch is dropped.  Batches without a ``transform`` (no ground
+        truth) give the poses and names alone
     """
     out = {"R_est": [], "t_est": [], "names": [], "epes": [], "angular_error": [],
            "translation_error": []}
@@ -123,25 +124,26 @@ def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
         mask = batch["pad_mask"]
         out["R_est"].append(R.cpu().numpy()[mask])
         out["t_est"].append(t.cpu().numpy()[mask])
-        R_gt, t_gt = dev["transform"][:, :3, :3], dev["transform"][:, :3, 3]
-        with torch.inference_mode():
-            ang, trs = losses.compute_rpe_error(R, t, R_gt, t_gt)
-            depth0 = dev["depth0"]
-            invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
-            if has_mask and "obj_mask0" in dev:
-                invalid = invalid | ~dev["obj_mask0"]
-            epes = losses.compute_rt_epe_loss(R, t, R_gt, t_gt, depth0, dev["calib"],
-                                              invalid=invalid)
-        out["angular_error"].append(ang.cpu().numpy()[mask])
-        out["translation_error"].append(trs.cpu().numpy()[mask])
-        out["epes"].append(epes.cpu().numpy()[mask])
+        if "transform" in dev:  # a batch without ground truth gives poses only
+            R_gt, t_gt = dev["transform"][:, :3, :3], dev["transform"][:, :3, 3]
+            with torch.inference_mode():
+                ang, trs = losses.compute_rpe_error(R, t, R_gt, t_gt)
+                depth0 = dev["depth0"]
+                invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
+                if has_mask and "obj_mask0" in dev:
+                    invalid = invalid | ~dev["obj_mask0"]
+                epes = losses.compute_rt_epe_loss(R, t, R_gt, t_gt, depth0, dev["calib"],
+                                                  invalid=invalid)
+            out["angular_error"].append(ang.cpu().numpy()[mask])
+            out["translation_error"].append(trs.cpu().numpy()[mask])
+            out["epes"].append(epes.cpu().numpy()[mask])
         names = batch.get("name", [])
         out["names"] += [n for n, m in zip(names, mask) if m]
         if timers:
             timers.toc("evaluate")
 
-    # an empty loader fills no metric list: those keys are dropped, as the
-    # JAX package drops them
+    # an empty loader, or one without ground truth (VaryLighting), fills no
+    # metric list: those keys are dropped, as the JAX package drops them
     for key in ("epes", "angular_error", "translation_error"):
         if not out[key]:
             del out[key]
@@ -149,6 +151,11 @@ def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
         k: (np.concatenate(v) if v and isinstance(v[0], np.ndarray) else v)
         for k, v in out.items()
     }
+
+
+def _cell(value):
+    """A CSV cell: NaN as an empty cell, as pandas writes it."""
+    return "" if value != value else value
 
 
 def summarize_results(
@@ -160,17 +167,22 @@ def summarize_results(
     """The per-trajectory table and the per-keyframe means, in cm and deg.
 
     :return: dict of rows, each a dict over ``COLUMNS`` (a mean row has no
-        "total frames" or "trajectory"); written to ``output_csv`` with the
+        "total frames" or "trajectory"; a loader without ground truth has
+        NaN metrics); written to ``output_csv`` with the
         row names in the first column, and each loader's results pickled
         to ``dump_dir/<loader>.pkl``
     """
     rows: Dict[str, Dict[str, object]] = {}
     for key, info in per_loader.items():
         traj, kf = key.split("_keyframe_")
+        # without ground truth the metrics are NaN and the row stays
+        has_gt = "epes" in info
+        nan = float("nan")
         rows[key] = {
-            "3D EPE": float(info["epes"].mean()) * 100.0,
-            "axis error": float(info["angular_error"].mean()) * (180.0 / np.pi),
-            "trans error": float(info["translation_error"].mean()) * 100.0,
+            "3D EPE": float(info["epes"].mean()) * 100.0 if has_gt else nan,
+            "axis error": (float(info["angular_error"].mean()) * (180.0 / np.pi)
+                           if has_gt else nan),
+            "trans error": float(info["translation_error"].mean()) * 100.0 if has_gt else nan,
             "total frames": int(info["R_est"].shape[0]),
             "keyframe": int(kf),
             "trajectory": traj,
@@ -180,18 +192,25 @@ def summarize_results(
             with open(os.path.join(dump_dir, key + ".pkl"), "wb") as f:
                 pickle.dump(info, f)
 
+    # the means skip NaN metrics as pandas does: a mean over trajectories
+    # without any is NaN, a sum over frames 0
     metrics = ("3D EPE", "axis error", "trans error")
     stats = {}
     for kf in keyframes:
         sub = [r for r in rows.values() if r["keyframe"] == kf]
         if not sub:
             continue
-        stats[f"mean values of trajectories keyframe {kf}"] = {
-            **{m: sum(r[m] for r in sub) / len(sub) for m in metrics}, "keyframe": kf}
+        means = {}
+        for m in metrics:
+            vals = [r[m] for r in sub if r[m] == r[m]]
+            means[m] = sum(vals) / len(vals) if vals else float("nan")
+        # a float keyframe, as in the pandas mean rows (written "1.0")
+        stats[f"mean values of trajectories keyframe {kf}"] = {**means, "keyframe": float(kf)}
         total = sum(r["total frames"] for r in sub)
         stats[f"mean values of frames keyframe {kf}"] = {
-            **{m: sum(r[m] * r["total frames"] for r in sub) / total for m in metrics},
-            "keyframe": kf}
+            **{m: sum(r[m] * r["total frames"] for r in sub if r[m] == r[m]) / total
+               for m in metrics},
+            "keyframe": float(kf)}
     table = {**rows, **stats}
     if output_csv:
         os.makedirs(os.path.dirname(os.path.abspath(output_csv)), exist_ok=True)
@@ -199,5 +218,5 @@ def summarize_results(
             writer = csv.writer(f)
             writer.writerow(["", *COLUMNS])
             for name, row in table.items():
-                writer.writerow([name, *(row.get(c, "") for c in COLUMNS)])
+                writer.writerow([name, *(_cell(row.get(c, "")) for c in COLUMNS)])
     return table

@@ -1210,3 +1210,103 @@ def test_variant_train_step_on_card(cuda, preset, overrides, loss, launches):
     for key, ref in grads_p.items():
         torch.testing.assert_close(grads[key], ref, rtol=0,
                                    atol=5e-3 * ref.abs().max().item(), msg=key)
+
+
+def _plane_window(device, n=4, H=120, W=160, C=8, seed=0):
+    """A textured plane 2 m ahead seen from ``n`` poses 0.02 rad / 5 cm
+    apart (``C`` feature channels of sinusoids of the world point, sigma
+    ``0.5 + feats^2``) and the poses perturbed by 0.01: ``(WindowFrames,
+    R0, t0, edges_i, edges_j)`` for ``refine_dense_window``, edges spanning
+    2 frames."""
+    from deep_prob_feature_track_torch.geometry import lie as tl
+    from deep_prob_feature_track_torch.parallel.dense_ba import WindowFrames
+
+    g = torch.Generator().manual_seed(seed)
+    K = torch.tensor([[0.8 * W, 0.8 * W, (W - 1) / 2.0, (H - 1) / 2.0]]).repeat(n, 1)
+    steps = torch.cat([torch.rand(n - 1, 3, generator=g) * 0.04 - 0.02,
+                       torch.rand(n - 1, 3, generator=g) * 0.1 - 0.05], dim=1)
+    R, t = [torch.eye(3)], [torch.zeros(3)]
+    for dR, dt in zip(*tl.exp_se3(steps)):
+        R.append(R[-1] @ dR)
+        t.append(R[-2] @ dt + t[-1])
+    R, t = torch.stack(R), torch.stack(t)
+    px, py = tw.generate_xy_grid(n, H, W, K)
+    dirs = torch.cat([px, py, torch.ones_like(px)], dim=1)
+    z = (2.0 - t[:, 2, None, None, None]) / torch.einsum("nj,njhw->nhw", R[:, 2], dirs)[:, None]
+    X = torch.einsum("nij,njhw->nihw", R, dirs * z) + t[:, :, None, None]
+    freqs = torch.rand(C, 2, generator=g) * 12 + 3
+    feats = torch.sin(X[:, 0:1] * freqs[:, 0, None, None] + 1.0) * torch.cos(
+        X[:, 1:2] * freqs[:, 1, None, None])
+    frames = WindowFrames(feats, 0.5 + feats ** 2, 1.0 / z, K)
+    dR, dt = tl.exp_se3(torch.randn(n - 1, 6, generator=g) * 0.01)
+    R0 = torch.cat([R[:1], R[1:] @ dR])
+    t0 = torch.cat([t[:1], torch.einsum("nij,nj->ni", R[1:], dt) + t[1:]])
+    ei = torch.tensor([i for i in range(n) for j in range(i + 1, min(i + 3, n))])
+    ej = torch.tensor([j for i in range(n) for j in range(i + 1, min(i + 3, n))])
+    return (WindowFrames(*(x.to(device) for x in frames)), R0.to(device), t0.to(device),
+            ei.to(device), ej.to(device))
+
+
+@pytest.mark.parametrize("H,W", [(120, 160), (480, 640)])
+def test_dense_window_kernels_match_plain_on_card(cuda, H, W):
+    """``refine_dense_window`` through the kernels against their plain
+    versions on the card: poses within 1e-5, costs within 1e-5 relative; a
+    gather (K1, or K4 at 480x640: the C=10 operand takes the tile kernel
+    there) and a K6 reduction per outer iteration; two calls give the same
+    bits."""
+    from deep_prob_feature_track_torch.parallel.dense_ba import refine_dense_window
+
+    args = _plane_window(cuda, H=H, W=W)
+    tk.reset_launches()
+    R, t, costs = refine_dense_window(*args, iterations=3)
+    gather = "gather_tiles" if H == 480 else "gather_twohot"
+    assert tk.LAUNCHES == _launches(**{gather: 3, "fused_jtj_jtr": 3})
+    Rp, tp, costs_p = refine_dense_window(*args, iterations=3, plain=True)
+    torch.testing.assert_close(R, Rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(t, tp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(costs, costs_p, rtol=1e-5, atol=0)
+    assert float(costs[-1]) < float(costs[0])
+    again = refine_dense_window(*args, iterations=3)
+    assert all(torch.equal(a, b) for a, b in zip((R, t, costs), again))
+
+
+def test_pose_graph_on_card(cuda):
+    """``refine_pose_graph`` in float64 on the card against the CPU within
+    1e-9, in float32 against float64 within 1e-5; two card calls give the
+    same bits (the blocks are summed by a sorted ``index_put_``, not atomics)."""
+    from deep_prob_feature_track_torch.geometry import lie as tl
+    from deep_prob_feature_track_torch.parallel import ba
+
+    g = torch.Generator().manual_seed(0)
+    n = 12
+    steps = torch.cat([torch.randn(n - 1, 3, generator=g, dtype=torch.float64) * 0.1,
+                       torch.randn(n - 1, 3, generator=g, dtype=torch.float64) * 0.3], dim=1)
+    poses = [np.eye(4)]
+    for dR, dt in zip(*tl.exp_se3(steps)):
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = dR.numpy(), dt.numpy()
+        poses.append(poses[-1] @ T)
+    poses = np.stack(poses)
+    pairs = [(i, j) for i in range(n) for j in range(i + 1, min(i + 4, n))]
+    rel = [np.linalg.inv(poses[j]) @ poses[i] for i, j in pairs]
+    meas = [(T[:3, :3], T[:3, 3]) for T in rel]
+    A = torch.randn(len(pairs), 6, 6, generator=g, dtype=torch.float64)
+    infos = list((A @ A.transpose(1, 2) + torch.eye(6, dtype=torch.float64)).numpy())
+    init = poses.copy()
+    dR, dt = tl.exp_se3(torch.randn(n - 1, 6, generator=g, dtype=torch.float64) * 0.05)
+    init[1:, :3, :3] = init[1:, :3, :3] @ dR.numpy()
+    init[1:, :3, 3] += np.einsum("nij,nj->ni", poses[1:, :3, :3], dt.numpy())
+    out = {}
+    for device, dtype in ((cuda, torch.float64), ("cpu", torch.float64), (cuda, torch.float32)):
+        graph = ba.build_window_graph(init, pairs, meas, infos, device=device, dtype=dtype)
+        out[device, dtype] = ba.refine_pose_graph(graph, iterations=8)
+        if device == cuda:
+            again = ba.refine_pose_graph(graph, iterations=8)
+            assert torch.equal(again[0].R, out[device, dtype][0].R)
+            assert torch.equal(again[1], out[device, dtype][1])
+    card, cpu, f32 = (out[k][0] for k in ((cuda, torch.float64), ("cpu", torch.float64),
+                                          (cuda, torch.float32)))
+    torch.testing.assert_close(card.R.cpu(), cpu.R, rtol=0, atol=1e-9)
+    torch.testing.assert_close(card.t.cpu(), cpu.t, rtol=0, atol=1e-9)
+    torch.testing.assert_close(f32.t.double(), card.t, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(card.t.cpu().numpy(), poses[:, :3, 3], atol=1e-8)

@@ -161,7 +161,8 @@ NEW_MODULES = ("data.association", "data.io", "data.loader", "data.pipeline", "d
                "training.checkpoints", "utils.logger", "utils.timers", "apps.evaluate",
                "apps.train", "apps.baselines", "apps.kf_vo", "apps.traj_eval",
                "apps.import_checkpoint", "apps.convergence_basin", "data.moving_objects",
-               "utils.display", "apps.warping_objects")
+               "utils.display", "apps.warping_objects", "parallel.ba", "parallel.dense_ba",
+               "apps.ba_refine", "data.simple", "apps.run_example", "data.vary_lighting")
 
 
 def _blocked_python(code):
@@ -209,7 +210,8 @@ def test_clis_run_on_numpy_alone(tmp_path):
     modules blocked; so do the evaluate CLI with ``--obj_only`` and
     ``--save_img`` (its PNG files through the port's writer), the train CLI
     and ``warping_objects`` (both modes) on a MovingObjects3D dataset of
-    ``chip_smoke.write_mo3d_dataset``."""
+    ``chip_smoke.write_mo3d_dataset``; and ``ba_refine`` with ``--dense``,
+    ``run_example`` and the evaluate CLI on a VaryLighting scene."""
     code = f"""
 import os
 sys.path.insert(0, {REPO!r})
@@ -267,6 +269,18 @@ assert train.main(["--dataset", "MovingObjects3D", "--data_root", mo3d, "--keyfr
 for extra in (["--gt_pose"], []):
     assert warping_objects.main(["--data_root", mo3d, "--num_pairs", "1", "--device", "cpu",
                                  "--output_dir", os.path.join(root, "warp", *extra), *extra]) == 0
+from deep_prob_feature_track_torch.apps import ba_refine, run_example
+assert ba_refine.main(["--data_root", "", "--trajectory", seq, "--image_resize", "0.1",
+                       "--window", "2", "--dense", "--dense_iterations", "1",
+                       "--output", os.path.join(root, "ba.txt"), "--device", "cpu"]) == 0
+assert run_example.main(["--color_dir", os.path.join(seq, "rgb"), "--depth_dir",
+                         os.path.join(seq, "depth"), "--device", "cpu"]) == 0
+os.makedirs(os.path.join(root, "vl"))
+os.symlink(seq, os.path.join(root, "vl", "scene0"))
+assert evaluate.main(["--dataset", "VaryLighting", "--data_root", os.path.join(root, "vl"),
+                      "--trajectory", "scene0", "--keyframes", "1", "--batch_size", "2",
+                      "--image_resize", "0.1", "--output_dir", os.path.join(root, "vl_out"),
+                      "--device", "cpu"]) == 0
 """
     out = _blocked_python(code)
     assert out.returncode == 0, out.stderr
@@ -282,3 +296,6 @@ for extra in (["--gt_pose"], []):
     assert len(list((tmp_path / "mo3d_logs").rglob("checkpoint_epoch1.pt"))) == 1
     assert {p.name for p in (tmp_path / "warp").rglob("*.png")} == {"pair_0000.png"}
     assert len(list((tmp_path / "warp").rglob("*.png"))) == 2
+    assert len((tmp_path / "ba.txt").read_text().splitlines()) == 5
+    assert out.stdout.count("translation:") == 4 and "4 poses estimated" in out.stdout
+    assert os.path.isfile(tmp_path / "vl_out" / "nolearning_feature" / "summary.csv")
