@@ -4,6 +4,9 @@
     python3 chip_smoke.py          # every phase below
     python3 chip_smoke.py --time   # phases 1, 2, 17 and 18 only
 
+(``--rank R PORT DIR DEVICE`` runs one of phases 53-54's ranks; phase 53
+starts two.)
+
 ``--time`` runs the same measurements against whichever port package lies
 beside the script, so that a copy of this script in an unpacked older tree
 times that tree's kernels the same way, in the same call.
@@ -291,6 +294,39 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    23 poses estimated", a summary row of empty (NaN) metrics and 23
    frames; the JSON record gets ``ba``.
 
+51. ``feature`` at 120x160 B=64 with ``accum_steps=2``: K2, K3 and K6 24
+   times a step (12 a microbatch); the loss within 1e-5 relative and the
+   averaged gradients within ``GRAD_ENVELOPE`` of the same step through the
+   plain versions on the card, the parameters within 2 lr (one Adam update
+   each); in float64 through the plain versions at B=8, the card against
+   the CPU (loss 1e-10, gradients and parameters 1e-8); ms a step beside
+   the ``accum_steps=1`` step;
+52. the guarded step (``guard_nonfinite=True``) on a batch with one NaN
+   depth map: ``skipped``, and the weights, BatchNorm buffers and Adam
+   state bit for bit as before it, ``step`` advanced;
+53. data parallel on the card: two gloo ranks on card 0 (this script with
+   ``--rank``), B=32 each, against this process at B=64: two ``feature``
+   steps (K2 12 / K3 12 / K6 12 a step on each rank; the first loss within
+   1e-5, its gradients within ``GRAD_ENVELOPE``, the second loss and the
+   BatchNorm statistics within ``DP_SECOND_LOSS``, the parameters within 4
+   lr; both ranks bit for bit alike) and one 640x480 B=8 eval forward (4 a
+   rank: K4 3 / K1 9 / K6 12, poses within 1e-4); the train CLI with
+   ``--distributed`` at world size 1 over NCCL against the plain CLI: the
+   first loss bit for bit, the second within 1e-5;
+54. sharded BA on the same two ranks: phase 46's 800-pose graph in
+   float64 against the unsharded refinement (1e-9), phase 47's dense
+   window at level 1 (K1 3 / K6 3 on each rank) against one process
+   (``DENSE_ATOL``);
+55. a written 16-frame 640x480 ScanNet scan (``write_scannet_scan``: the
+   TUM scene, JPEG colour by ``encode_jpeg``): the decode time of one
+   frame on the host, the evaluate CLI at stride 2 at 120x160 (K1 12 / K6
+   12 a batch) and 640x480 (K4 3 / K1 9 / K6 12), its 120x160 poses
+   against the CLI on the CPU within 1e-4, frames/s and the loader-wait
+   share, and one train-CLI step (B=4, K2 12 / K3 12 / K6 12);
+56. the train CLI with ``--debug_nan`` on a batch with a NaN depth map
+   must raise ``NonFiniteError`` naming a module; the JSON record gets
+   ``final``.
+
 Phase 16 also records K4's staged share on the U_FC forwards (480x640 and
 120x160, on the synthetic scene and on the served requests), 17 times K4
 (C=28, beside K1 and ``grid_sample``), K1 (C=28 and 49), K2 and K3 (C=28)
@@ -538,6 +574,175 @@ def write_tum_sequence(seq_dir: str, n: int = TUM_FRAMES, save=write_png) -> lis
     for name, rows in lines.items():
         with open(os.path.join(seq_dir, f"{name}.txt"), "w") as fh:
             fh.write("# timestamp data\n" + "\n".join(rows) + "\n")
+    return poses
+
+
+# A baseline JPEG encoder for the ScanNet phase: the card's machine has
+# neither PIL nor OpenCV to write one.  Test machinery, not a package
+# feature: the ITU T.81 Annex K quantization and Huffman tables, JFIF
+# YCbCr, 4:2:0 chroma, an optional restart interval.
+_JPEG_LUM_Q = [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+               14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+               18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+               49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]
+_JPEG_CHR_Q = [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+               24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32
+_JPEG_HUFF = {  # (class, id): (counts of code lengths 1-16, symbols)
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a16"
+        "1718191a25262728292a3435363738393a434445464748494a535455565758595a63646566676869"
+        "6a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6"
+        "b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+        "f9fa")),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434"
+        "e125f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768"
+        "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+        "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+        "f9fa")),
+}
+_ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
+           41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15,
+           23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+
+
+def _huffman_codes(counts, symbols):
+    """symbol -> (code, length) of a JPEG Huffman table."""
+    codes, code, k = {}, 0, 0
+    for length, n in enumerate(counts, 1):
+        for _ in range(n):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 90, restart: int = 0) -> bytes:
+    """A baseline JFIF JPEG of uint8 RGB [H,W,3]: 4:2:0 chroma, the Annex K
+    tables scaled as libjpeg scales them for ``quality``, a restart marker
+    every ``restart`` MCUs (0: none)."""
+    h, w, _ = rgb.shape
+    x = rgb.astype(np.float64)
+    ycc = np.stack([0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2],
+                    -0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2] + 128,
+                    0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2] + 128], -1)
+    H, W = -(-h // 16) * 16, -(-w // 16) * 16
+    ycc = np.pad(ycc, ((0, H - h), (0, W - w), (0, 0)), mode="edge")
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    quant = [np.clip((np.asarray(q) * scale + 50) // 100, 1, 255) for q in (_JPEG_LUM_Q, _JPEG_CHR_Q)]
+    n = np.arange(8)
+    dct = np.cos((2 * n[None, :] + 1) * n[:, None] * np.pi / 16) * np.where(n == 0, np.sqrt(0.125),
+                                                                           0.5)[:, None]
+
+    def blocks(plane, q):  # [by, bx, 64] quantized coefficients, zigzag order
+        b = plane.reshape(plane.shape[0] // 8, 8, plane.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+        c = np.einsum("ij,abjk,lk->abil", dct, b - 128.0, dct).reshape(b.shape[:2] + (64,))
+        return np.rint(c / q.reshape(64))[..., _ZIGZAG].astype(np.int64)
+
+    chroma = ycc[..., 1:].reshape(H // 2, 2, W // 2, 2, 2).mean(axis=(1, 3))
+    planes = [blocks(ycc[..., 0], quant[0]), blocks(chroma[..., 0], quant[1]),
+              blocks(chroma[..., 1], quant[1])]
+    codes = {k: _huffman_codes(*v) for k, v in _JPEG_HUFF.items()}
+    out, bits = bytearray(), []
+
+    def flush():  # pad to a byte with ones, stuff every 0xFF
+        text = "".join(bits)
+        text += "1" * (-len(text) % 8)
+        data = int(text, 2).to_bytes(len(text) // 8, "big") if text else b""
+        out.extend(data.replace(b"\xff", b"\xff\x00"))
+        bits.clear()
+
+    def put(value, size, table):
+        code, length = table
+        bits.append(format(code, f"0{length}b"))
+        if size:
+            bits.append(format(value if value >= 0 else value + (1 << size) - 1, f"0{size}b"))
+
+    pred = [0, 0, 0]
+    n_mcu = (H // 16) * (W // 16)
+    for m in range(n_mcu):
+        if restart and m and m % restart == 0:
+            flush()
+            out.extend(bytes([0xFF, 0xD0 + (m // restart - 1) % 8]))
+            pred = [0, 0, 0]
+        my, mx = divmod(m, W // 16)
+        units = [(0, 2 * my + dy, 2 * mx + dx) for dy in (0, 1) for dx in (0, 1)]
+        for ci, by, bx in units + [(1, my, mx), (2, my, mx)]:
+            coef = planes[ci][by, bx]
+            tid = 0 if ci == 0 else 1
+            diff = int(coef[0]) - pred[ci]
+            pred[ci] = int(coef[0])
+            size = abs(diff).bit_length()
+            put(diff, size, codes[(0, tid)][size])
+            run = 0
+            last = int(np.flatnonzero(coef)[-1]) if coef[1:].any() else 0
+            for k in range(1, last + 1):
+                v = int(coef[k])
+                if v == 0:
+                    run += 1
+                    continue
+                while run > 15:
+                    put(0, 0, codes[(1, tid)][0xF0])
+                    run -= 16
+                size = abs(v).bit_length()
+                put(v, size, codes[(1, tid)][(run << 4) | size])
+                run = 0
+            if last < 63:
+                put(0, 0, codes[(1, tid)][0x00])
+    flush()
+
+    def segment(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    head = b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for tq, q in enumerate(quant):
+        head += segment(0xDB, bytes([tq]) + bytes(int(v) for v in np.asarray(q)[_ZIGZAG]))
+    head += segment(0xC0, struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3,
+                                                                      0x11, 1]))
+    for (tc, th), (counts, symbols) in _JPEG_HUFF.items():
+        head += segment(0xC4, bytes([tc << 4 | th, *counts, *symbols]))
+    if restart:
+        head += segment(0xDD, struct.pack(">H", restart))
+    head += segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return head + bytes(out) + b"\xff\xd9"
+
+
+def write_jpeg(path: str, rgb: np.ndarray, quality: int = 90, restart: int = 0) -> None:
+    """Write ``encode_jpeg(rgb, quality, restart)`` to ``path``."""
+    with open(path, "wb") as fh:
+        fh.write(encode_jpeg(rgb, quality, restart))
+
+
+SCANNET_FRAMES = 16
+
+
+def write_scannet_scan(scan_dir: str, n: int = SCANNET_FRAMES, lost=(), restart: int = 8,
+                       quality: int = 90) -> list:
+    """Write a ScanNet-format scan of ``n`` 640x480 frames of the
+    ``write_tum_sequence`` scene into ``scan_dir``: ``_info.txt``,
+    ``frame-XXXXXX.color.jpg`` (:func:`encode_jpeg`),
+    ``frame-XXXXXX.merged_depth.png`` (16-bit, metres x 5000) and
+    ``frame-XXXXXX.pose.txt`` (camera to world; all ``inf`` for the frames
+    in ``lost``, as ScanNet marks its tracking failures).  Returns the
+    poses."""
+    os.makedirs(scan_dir, exist_ok=True)
+    frames = {}
+
+    def keep(path, img):
+        frames.setdefault(os.path.basename(path)[:-4], []).append(img)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        poses = write_tum_sequence(tmp, n, save=keep)
+    for i, (color, depth) in enumerate(frames.values()):
+        base = os.path.join(scan_dir, f"frame-{i:06d}")
+        write_jpeg(base + ".color.jpg", color, quality, restart)
+        write_png(base + ".merged_depth.png", depth)
+        np.savetxt(base + ".pose.txt", np.full((4, 4), np.inf) if i in lost else poses[i])
+    with open(os.path.join(scan_dir, "_info.txt"), "w") as fh:
+        fh.write(f"m_versionNumber = 4\nm_sensorName = StructureSDK\nm_frames.size = {n}\n")
     return poses
 
 
@@ -861,7 +1066,7 @@ def ufc_inputs(torch, dev, b, h, w, c, seed, teleported=False):
     from deep_prob_feature_track_torch.solvers.trust_region import _warp_forward_depth
     from deep_prob_feature_track_torch.training.train import synthetic_batch
 
-    batch = synthetic_batch(b, h, w, seed=seed)
+    batch = synthetic_batch(b, h, w, seed=seed, device="cpu")
     depth = batch["depth0"]
     depth[:, :, ::37, ::41] = 0.0
     g = torch.Generator().manual_seed(seed)
@@ -1224,7 +1429,7 @@ def _payload(item) -> bytes:
 def request_items(n: int, h: int, w: int, seed: int = 1):
     from deep_prob_feature_track_torch.apps.serve import example_batch
 
-    batch = [t.numpy() for t in example_batch(n, h, w, seed=seed)]
+    batch = [t.numpy() for t in example_batch(n, h, w, seed=seed, device="cpu")]
     return [{k: a[i] for k, a in zip(KEYS, batch)} for i in range(n)]
 
 
@@ -1235,7 +1440,7 @@ def smooth_items(n: int, h: int, w: int):
     weighted ICP term or an information matrix amplifies."""
     from deep_prob_feature_track_torch.training.train import synthetic_batch
 
-    batch = synthetic_batch(n, h, w, seed=2)
+    batch = synthetic_batch(n, h, w, seed=2, device="cpu")
     return [{k: batch[k][i].numpy() for k in KEYS} for i in range(n)]
 
 
@@ -1364,6 +1569,15 @@ def _loss_and_grads(torch, dev, batch, plain, preset, overrides=(), objective="E
     return loss.item(), {k: p.grad for k, p in state.net.named_parameters()}
 
 
+def _worst_leaf(grads, ref):
+    """max over the leaves of |grads - ref| / max|ref|, and its leaf."""
+    ratios = [(((grads[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item(), k)
+              for k, g in ref.items()]
+    if not all(np.isfinite(r) for r, _ in ratios):
+        raise AssertionError("a gradient leaf is not finite")
+    return max(ratios)
+
+
 def phase_train(torch, dev, b, h, w, seed, expected, preset="feature", overrides=(),
                 objective="EPE3D"):
     """Three steps of ``preset`` at b x h x w under the loss ``objective``, with the
@@ -1401,17 +1615,9 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature", overrides
         _loss_and_grads(torch, dev, batch, plain, preset, overrides, objective)
         for plain in (False, False, True))
 
-    def worst_leaf(grads, ref):
-        """max over leaves of |grads - ref| / max|ref|, and its leaf"""
-        ratios = [(((grads[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item(), k)
-                  for k, g in ref.items()]
-        if not all(np.isfinite(r) for r, _ in ratios):
-            raise AssertionError("a gradient leaf is not finite")
-        return max(ratios)
-
-    spread, spread_key = worst_leaf(grads_k2, grads_k)
+    spread, spread_key = _worst_leaf(grads_k2, grads_k)
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
-    worst, worst_key = worst_leaf(grads_k, grads_p)
+    worst, worst_key = _worst_leaf(grads_k, grads_p)
     log(f"{name}: B={b} {h}x{w} train loss, kernels vs plain: {loss_k:.6f} vs {loss_p:.6f} "
         f"(relative {rel_loss:.2e}); worst gradient leaf {worst_key}: {worst:.2e} of its "
         f"largest entry (kernels vs kernels: {spread:.2e}, {spread_key})")
@@ -3348,6 +3554,506 @@ def phase_ba(torch, dev):
     return out
 
 
+# ------------------------------------------------------------- phases 51-56
+ACCUM = 2  # phase 51's microbatches a step
+ACCUM_LAUNCHES = counts(gather_twohot_grads=12 * ACCUM, splat_twohot=12 * ACCUM,
+                        fused_jtj_jtr=12 * ACCUM)
+ACCUM_F64_B = 8  # phase 51's float64 card-vs-CPU step (B=8 at 120x160, 2 microbatches)
+DP_WORLD = 2  # phases 53-54: gloo ranks on the one card
+DP_TIMEOUT_S = 600
+DP_SECOND_LOSS = 1e-2  # phase 53's second loss, after updates up to 2 lr apart
+DENSE_DP_LAUNCHES = counts(gather_twohot=DENSE_ITERATIONS, fused_jtj_jtr=DENSE_ITERATIONS)
+SCANNET_KEYFRAME = 2  # 16 frames at stride 2: 7 pairs, one batch of 8
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _step_ms(torch, dev, fn):
+    """ms a call of ``fn`` (events on the card, the host clock on the CPU)."""
+    if dev.type == "cuda":
+        return time_ms(torch, fn, reps=3, warmup=1)
+    return host_ms(fn, reps=1)
+
+
+def _step_snapshot(torch, state):
+    """The tracker's state_dict and the optimizer's per-parameter state,
+    cloned."""
+    net = {k: v.detach().clone() for k, v in state.net.state_dict().items()}
+    opt = {i: {k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+           for i, s in state.optimizer.state_dict()["state"].items()}
+    return net, opt
+
+
+def _accum_step(torch, dev, batch, plain, accum, dtype=None):
+    """One ``accum``-microbatch step of ``feature`` from the seeded init:
+    ``(metrics, the clipped averaged gradients, the parameters, the
+    launches, the state, the step)``."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+    from deep_prob_feature_track_torch.training import train as T
+
+    cfg = T.TrainConfig(accum_steps=accum)
+    _, state = _train_state(torch, dev, plain=plain)
+    if dtype is not None:
+        state.net.to(dtype)
+        state = T.TrainState(net=state.net, optimizer=T.make_optimizer(cfg,
+                                                                       state.net.parameters()))
+    step = T.make_train_step(cfg, steps_per_epoch=100)
+    _sync(torch, dev)
+    K.reset_launches()
+    state, metrics = step(state, batch)
+    _sync(torch, dev)
+    launches = dict(K.LAUNCHES)
+    grads = {k: p.grad.detach().clone() for k, p in state.net.named_parameters()
+             if p.grad is not None}
+    params = {k: p.detach().clone() for k, p in state.net.named_parameters()}
+    return metrics, grads, params, launches, state, step
+
+
+def phase_accum(torch, dev):
+    """Phase 51: ``feature`` at 120x160 B=64 with ``accum_steps=2``."""
+    from deep_prob_feature_track_torch.training import train as T
+
+    batch = T.synthetic_batch(B_TRAIN, H, W, seed=TRAIN_SEED, device=dev)
+    m_k, g_k, p_k, launches, state, step = _accum_step(torch, dev, batch, False, ACCUM)
+    m_p, g_p, p_p, plain_launches, _, _ = _accum_step(torch, dev, batch, True, ACCUM)
+    loss_k, loss_p = m_k["loss"].item(), m_p["loss"].item()
+    log(f"accumulation: B={B_TRAIN} {H}x{W} in {ACCUM} microbatches: loss {loss_k:.6f}, grad "
+        f"norm {m_k['grad_norm'].item():.6f}, launches {launches}")
+    if launches != ACCUM_LAUNCHES or any(plain_launches.values()):
+        raise AssertionError(f"the accumulated step launched {launches} (plain "
+                             f"{plain_launches}), expected {ACCUM_LAUNCHES}")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst, worst_key = _worst_leaf(g_k, g_p)
+    lr = T.TrainConfig().lr
+    # one Adam update moves a parameter by at most lr: two runs whose
+    # gradients differ in sign where they are near zero sit at most 2 lr apart
+    dp = max(float((p_k[k] - p_p[k]).abs().max()) for k in p_k)
+    log(f"accumulation: kernels against plain on the card: loss {rel:.2e} relative, worst "
+        f"averaged-gradient leaf {worst_key} {worst:.2e} of its largest entry, parameters "
+        f"{dp:.2e} apart (at most 2 lr = {2 * lr:g})")
+    if not (rel <= 1e-5 and worst <= GRAD_ENVELOPE and dp <= 2 * lr):
+        raise AssertionError("the accumulated step through the kernels disagrees with plain")
+
+    small = {k: v[:ACCUM_F64_B].double() if v.is_floating_point() else v[:ACCUM_F64_B]
+             for k, v in batch.items()}
+    card = _accum_step(torch, dev, small, True, ACCUM, torch.float64)
+    cpu = _accum_step(torch, torch.device("cpu"), {k: v.cpu() for k, v in small.items()}, True,
+                      ACCUM, torch.float64)
+    rel64 = abs(card[0]["loss"].item() - cpu[0]["loss"].item()) / abs(cpu[0]["loss"].item())
+    worst64, key64 = _worst_leaf({k: v.cpu() for k, v in card[1].items()}, cpu[1])
+    dp64 = max(float((card[2][k].cpu() - cpu[2][k]).abs().max()) for k in cpu[2])
+    log(f"accumulation in float64 (plain, B={ACCUM_F64_B}): card against CPU: loss "
+        f"{rel64:.2e} relative, worst gradient leaf {key64} {worst64:.2e}, parameters "
+        f"{dp64:.2e} apart")
+    if not (rel64 <= 1e-10 and worst64 <= 1e-8 and dp64 <= 1e-8):
+        raise AssertionError("the float64 accumulated step on the card disagrees with the CPU")
+
+    ms = time_ms(torch, lambda: step(state, batch), reps=3, warmup=1)
+    _, _, _, _, state1, step1 = _accum_step(torch, dev, batch, False, 1)
+    ms1 = time_ms(torch, lambda: step1(state1, batch), reps=3, warmup=1)
+    log(f"accumulation: {ms:.3f} ms a step of B={B_TRAIN} in {ACCUM} microbatches, "
+        f"{ms1:.3f} ms in one")
+    return {"launches": launches, "loss": loss_k, "vs_plain_loss": rel,
+            "vs_plain_grad_leaf": [worst_key, worst], "vs_plain_params": dp,
+            "f64_vs_cpu": {"loss": rel64, "grad_leaf": [key64, worst64], "params": dp64},
+            "step_ms": ms, "step_ms_accum1": ms1}
+
+
+def phase_guard(torch, dev):
+    """Phase 52: the guarded step on a batch with one NaN depth map."""
+    from deep_prob_feature_track_torch.training import train as T
+
+    cfg, state = _train_state(torch, dev)
+    step = T.make_train_step(cfg, steps_per_epoch=100, guard_nonfinite=True)
+    state, metrics = step(state, T.synthetic_batch(B, H, W, seed=1, device=dev))
+    if bool(metrics["skipped"]):
+        raise AssertionError("the guard skipped a finite batch")
+    before = _step_snapshot(torch, state)
+    batch = T.synthetic_batch(B, H, W, seed=2, device=dev)
+    batch["depth0"][0] = float("nan")
+    state, metrics = step(state, batch)
+    after = _step_snapshot(torch, state)
+    same = all(torch.equal(a, b) for a, b in zip(before[0].values(), after[0].values()))
+    for i, s in before[1].items():
+        same = same and all(torch.equal(v, after[1][i][k]) for k, v in s.items())
+    log(f"guard: a NaN depth map: skipped {bool(metrics['skipped'])}, loss "
+        f"{metrics['loss'].item()}, step {state.step}, skipped {state.skipped}; "
+        f"weights, BatchNorm buffers and Adam state bit for bit: {same}")
+    if not (bool(metrics["skipped"]) and same and state.step == 2
+            and state.skipped == 1):
+        raise AssertionError("the guard did not keep the state of a skipped step")
+    return {"skipped": True, "bit_identical": same}
+
+
+def _two_rank_work(torch, dev, mesh, workdir):
+    """Phases 53-54's work, with a mesh on this rank's shard, without one on
+    the whole batch: two ``feature`` steps at 120x160 B=64, the 640x480 B=8
+    eval forward, the 800-pose graph and the level-1 dense window."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
+    from deep_prob_feature_track_torch.ops import kernels as K
+    from deep_prob_feature_track_torch.parallel import ba
+    from deep_prob_feature_track_torch.parallel import mesh as M
+    from deep_prob_feature_track_torch.parallel.dense_ba import WindowFrames, refine_dense_window
+    from deep_prob_feature_track_torch.training import train as T
+
+    def shard(x):
+        return x if mesh is None else x[M.batch_sharding(mesh, x.shape[0])]
+
+    out = {}
+    cfg, state = _train_state(torch, dev)
+    step = T.make_train_step(cfg, steps_per_epoch=100, mesh=mesh)
+    batch = {k: shard(v) for k, v in T.synthetic_batch(B_TRAIN, H, W, seed=TRAIN_SEED,
+                                                       device=dev).items()}
+    losses, launches = [], []
+    for i in range(2):
+        _sync(torch, dev)
+        K.reset_launches()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        launches.append(dict(K.LAUNCHES))
+        if i == 0:
+            grads = {k: p.grad.detach().cpu() for k, p in state.net.named_parameters()
+                     if p.grad is not None}
+    out["train"] = {"losses": losses, "launches": launches, "grads": grads,
+                    "params": {k: v.detach().cpu() for k, v in state.net.state_dict().items()},
+                    "step_ms": _step_ms(torch, dev, lambda: step(state, batch))}
+
+    net = build_tracker("feature", device=dev)
+    inputs = [shard(x) for x in example_batch(B, H_VGA, W_VGA, seed=2, device=dev)]
+    _sync(torch, dev)
+    K.reset_launches()
+    with torch.inference_mode(), M.active(mesh):
+        R, t = net(*inputs)
+        if mesh is not None:
+            R, t = M.all_gather_rows(mesh, R), M.all_gather_rows(mesh, t)
+    _sync(torch, dev)
+    out["eval"] = {"R": R.cpu(), "t": t.cpu(), "launches": dict(K.LAUNCHES)}
+
+    _, init, pairs, meas, infos = _window_pose_graph(torch, _random_walk(torch, BA_LONG_FRAMES))
+    graph = ba.build_window_graph(init, pairs, meas, infos, device=dev, dtype=torch.float64)
+    if mesh is None:
+        refined, costs = ba.refine_pose_graph(graph, BA_ITERATIONS)
+    else:
+        refined, costs = ba.refine_pose_graph_sharded(graph, mesh, BA_ITERATIONS)
+    out["pose_graph"] = {"R": refined.R.cpu(), "t": refined.t.cpu(), "costs": costs.cpu(),
+                         "edges": len(pairs)}
+
+    saved = torch.load(os.path.join(workdir, "dense.pt"))
+    frames = WindowFrames(*(x.to(dev) for x in saved["frames"]))
+    args = [saved[k].to(dev) for k in ("R", "t", "ei", "ej")]
+    _sync(torch, dev)
+    K.reset_launches()
+    Rd, td, dcosts = refine_dense_window(frames, *args, iterations=DENSE_ITERATIONS, mesh=mesh)
+    _sync(torch, dev)
+    out["dense"] = {"R": Rd.cpu(), "t": td.cpu(), "costs": dcosts.cpu(),
+                    "launches": dict(K.LAUNCHES), "edges": int(args[2].numel())}
+    return out
+
+
+def two_rank_worker(rank: int, port: int, workdir: str, device: str) -> int:
+    """One of phases 53-54's gloo ranks on ``device`` (the parent's card):
+    ``_two_rank_work`` on its shard, saved to ``workdir/rank{rank}.pt``."""
+    import torch
+
+    from deep_prob_feature_track_torch.device import set_float32_policy
+    from deep_prob_feature_track_torch.ops.kernels import loader
+    from deep_prob_feature_track_torch.parallel import mesh as M
+
+    dev = torch.device(device)
+    set_float32_policy()
+    if dev.type == "cuda":
+        loader.build()  # the parent's libraries, found on disk
+    mesh = M.make_mesh(dev, backend="gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                       world_size=DP_WORLD)
+    try:
+        out = _two_rank_work(torch, dev, mesh, workdir)
+    finally:
+        M.destroy()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    return 0
+
+
+def phase_two_ranks(torch, dev, workdir, seq):
+    """Phases 53-54: two gloo ranks on the card against one process."""
+    from deep_prob_feature_track_torch.apps.serve import build_tracker
+    from deep_prob_feature_track_torch.parallel.mesh import free_port
+    from deep_prob_feature_track_torch.training import train as T
+
+    net = build_tracker("feature", "", dev, overrides=["uncer_prop=1"])
+    frames, R, t, ei, ej = _dense_problem(torch, dev, seq, net, 1)
+    torch.save({"frames": [x.cpu() for x in frames], "R": R.cpu(), "t": t.cpu(),
+                "ei": ei.cpu(), "ej": ej.cpu()}, os.path.join(workdir, "dense.pt"))
+    del net
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), "--rank",
+                               str(r), str(port), workdir, str(dev)], cwd=here,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(DP_WORLD)]
+    try:
+        ref = _two_rank_work(torch, dev, None, workdir)
+        logs = [p.communicate(timeout=DP_TIMEOUT_S)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError("a rank failed:\n" + "\n".join(x[-4000:] for x in logs))
+    got = [torch.load(os.path.join(workdir, f"rank{r}.pt")) for r in range(DP_WORLD)]
+    for k, v in got[0]["train"]["params"].items():
+        if not torch.equal(v, got[1]["train"]["params"][k]):
+            raise AssertionError(f"the ranks' {k} differ after the steps")
+
+    g, r = got[0]["train"], ref["train"]
+    per_rank = [x["train"]["launches"] for x in got]
+    rel = [abs(a - b) / abs(b) for a, b in zip(g["losses"], r["losses"])]
+    worst, worst_key = _worst_leaf(g["grads"], r["grads"])
+    lr = T.TrainConfig().lr
+    stats = [k for k in r["params"] if k.endswith(("running_mean", "running_var"))]
+    dp = max(float((g["params"][k] - r["params"][k]).abs().max())
+             for k in r["params"] if k not in stats and not k.endswith("num_batches_tracked"))
+    ds = max(float((g["params"][k] - r["params"][k]).abs().max() / r["params"][k].abs().max())
+             for k in stats)
+    log(f"data parallel, {DP_WORLD} gloo ranks on the card, B={B_TRAIN // DP_WORLD} each, "
+        f"against one process at B={B_TRAIN}: losses {g['losses']} against {r['losses']} "
+        f"(relative {max(rel):.2e}), worst first-step gradient leaf {worst_key} {worst:.2e} "
+        f"of its largest entry, parameters after 2 steps {dp:.2e} apart (at most 4 lr), "
+        f"BatchNorm statistics {ds:.2e} of their largest entry; "
+        f"launches a step on each rank {per_rank}; {g['step_ms']:.3f} ms a step on rank 0 "
+        f"against {r['step_ms']:.3f} ms in one process")
+    if not all(n == TRAIN_LAUNCHES for x in per_rank for n in x):
+        raise AssertionError(f"a rank's step launched {per_rank}, expected {TRAIN_LAUNCHES}")
+    # the first step from the same weights: its loss and gradients as the
+    # kernels against their plain versions (phase 11); one Adam update moves
+    # a parameter by up to lr, so where a gradient entry is near zero the two
+    # runs' parameters part by up to 2 lr a step, and the second loss with them
+    if not (rel[0] <= 1e-5 and worst <= GRAD_ENVELOPE and rel[1] <= DP_SECOND_LOSS
+            and dp <= 4 * lr and ds <= DP_SECOND_LOSS):
+        raise AssertionError("the two-rank steps disagree with the one-process steps")
+
+    ge, re_ = got[0]["eval"], ref["eval"]
+    de = max(float((ge["R"] - re_["R"]).abs().max()), float((ge["t"] - re_["t"]).abs().max()))
+    want = VGA_SERVE_LAUNCHES
+    log(f"data parallel eval forward, 640x480 B={B} ({B // DP_WORLD} a rank): poses "
+        f"{de:.3e} from one process (limit 1e-4); launches {[x['eval']['launches'] for x in got]}")
+    if not (de <= 1e-4 and all(x["eval"]["launches"] == want for x in got)):
+        raise AssertionError("the two-rank eval forward disagrees")
+
+    gp, rp = got[0]["pose_graph"], ref["pose_graph"]
+    dpg = max(float((gp["R"] - rp["R"]).abs().max()), float((gp["t"] - rp["t"]).abs().max()))
+    gd, rd = got[0]["dense"], ref["dense"]
+    dd = max(float((gd["R"] - rd["R"]).abs().max()), float((gd["t"] - rd["t"]).abs().max()))
+    log(f"sharded pose graph, {BA_LONG_FRAMES} poses, {gp['edges']} edges over {DP_WORLD} "
+        f"ranks, float64: {dpg:.3e} from the unsharded refinement (limit 1e-9); sharded "
+        f"dense window level 1, {gd['edges']} edges: {dd:.3e} from one "
+        f"process (limit {DENSE_ATOL:g}), launches {[x['dense']['launches'] for x in got]}; "
+        f"{wall:.1f} s for phases 53-54's two-rank part")
+    if not (dpg <= 1e-9 and dd <= DENSE_ATOL
+            and all(x["dense"]["launches"] == DENSE_DP_LAUNCHES for x in got)):
+        raise AssertionError("the sharded back end disagrees with the unsharded one")
+    return {"train": {"losses": g["losses"], "ref_losses": r["losses"], "loss_rel": max(rel),
+                      "grad_leaf": [worst_key, worst], "params": dp, "bn_stats": ds,
+                      "launches": per_rank,
+                      "step_ms_rank0": g["step_ms"], "step_ms_one_process": r["step_ms"]},
+            "eval_vga": {"vs_one_process": de, "launches": got[0]["eval"]["launches"]},
+            "pose_graph": {"vs_unsharded": dpg, "edges": gp["edges"]},
+            "dense_level1": {"vs_one_process": dd, "launches": got[0]["dense"]["launches"]},
+            "wall_s": wall}
+
+
+def _trainval_root(workdir, seq):
+    """A data root whose TUM training sequences are links to ``seq``."""
+    from deep_prob_feature_track_torch.data.tum_dicts import TUM_TRAINVAL
+
+    root = os.path.join(workdir, "trainval")
+    os.makedirs(root, exist_ok=True)
+    for name in (n for names in TUM_TRAINVAL.values() for n in names):
+        os.symlink(seq, os.path.join(root, name))
+    return root
+
+
+def _train_cli(torch, args, label):
+    """``apps.train.main(args)`` with each step's loss, time and launches."""
+    from deep_prob_feature_track_torch.apps import train
+
+    probe = _CliProbe(torch)
+    try:
+        t0 = time.monotonic()
+        if train.main(args) != 0:
+            raise AssertionError(f"{label}: the train CLI failed")
+        wall = time.monotonic() - t0
+    finally:
+        probe.restore()
+    return probe, wall
+
+
+def phase_distributed_cli(torch, dev, root, workdir):
+    """Phase 53's CLI part: ``--distributed`` at world size 1 over NCCL."""
+    base = ["--data_root", root, "--keyframes", "1", "--batch_size", str(B), "--image_resize",
+            str(CLI_SMALL), "--epochs", "1", "--max_steps_per_epoch", "2", "--no_val",
+            "--device", str(dev)]
+    plain, _ = _train_cli(torch, [*base, "--checkpoint_folder", os.path.join(workdir, "l1")],
+                          "train CLI")
+    dist_, wall = _train_cli(torch, [*base, "--distributed", "--checkpoint_folder",
+                                     os.path.join(workdir, "l2")], "train CLI --distributed")
+    a = [s["loss"] for s in plain.steps]
+    b = [s["loss"] for s in dist_.steps]
+    log(f"train CLI --distributed (NCCL, world size 1): losses {b} against {a}; launches "
+        f"{[s['launches'] for s in dist_.steps]}")
+    # the first loss bit for bit; the second follows an update whose K3
+    # sums (float atomics) differ in their last bits from run to run
+    if not (len(a) == len(b) == 2 and a[0] == b[0] and abs(a[1] - b[1]) <= 1e-5 * abs(a[1])
+            and all(s["launches"] == TRAIN_LAUNCHES for s in dist_.steps)):
+        raise AssertionError("the --distributed train CLI disagrees with the plain one")
+    return {"losses": b, "ref_losses": a, "wall_s": wall}
+
+
+def phase_scannet(torch, dev, workdir):
+    """Phase 55: a written 16-frame ScanNet scan through both CLIs."""
+    import pickle
+
+    from deep_prob_feature_track_torch.apps import evaluate
+    from deep_prob_feature_track_torch.data.io import read_rgb
+    from deep_prob_feature_track_torch.data.jpeg import read_jpeg
+
+    root = os.path.join(workdir, "scannet")
+    scan = os.path.join(root, "val", "scene0565_00")
+    t0 = time.monotonic()
+    write_scannet_scan(scan, n=SCANNET_FRAMES, quality=75)
+    os.makedirs(os.path.join(root, "train"))
+    os.symlink(scan, os.path.join(root, "train", "scene0565_00"))
+    write_s = time.monotonic() - t0
+    frame = os.path.join(scan, "frame-000000.color.jpg")
+    decode = {"read_jpeg_ms": host_ms(lambda: read_jpeg(frame), reps=3),
+              "read_rgb_0.25_ms": host_ms(lambda: read_rgb(frame, 0.25), reps=3),
+              "read_rgb_1.0_ms": host_ms(lambda: read_rgb(frame, 1.0), reps=3),
+              "bytes": os.path.getsize(frame)}
+    log(f"ScanNet: {SCANNET_FRAMES} frames written in {write_s:.1f} s; one 640x480 frame "
+        f"({decode['bytes']} bytes) decodes in {decode['read_jpeg_ms']:.1f} ms, read_rgb "
+        f"{decode['read_rgb_0.25_ms']:.1f} ms at 0.25 and {decode['read_rgb_1.0_ms']:.1f} ms "
+        f"at 1.0 (host)")
+    out = {"decode": decode, "write_s": write_s}
+    runs = (("card", CLI_SMALL, dev, SERVE_LAUNCHES), ("card", CLI_VGA, dev, VGA_SERVE_LAUNCHES),
+            ("cpu", CLI_SMALL, torch.device("cpu"), None))
+    poses = {}
+    for where, scale, device, expected in runs:
+        label = f"ScanNet evaluate CLI {scale} on the {where}"
+        out_dir = os.path.join(workdir, f"sn_{scale}_{where}")
+        probe = _CliProbe(torch)
+        try:
+            probe.K.reset_launches()
+            t0 = time.monotonic()
+            if evaluate.main(["--dataset", "ScanNet", "--data_root", root, "--trajectory",
+                              "scene0565_00", "--keyframes", str(SCANNET_KEYFRAME),
+                              "--batch_size", str(B), "--image_resize", str(scale),
+                              "--output_dir", out_dir, "--device", str(device)]) != 0:
+                raise AssertionError(f"{label} failed")
+            wall = time.monotonic() - t0
+            _sync(torch, device)
+            launches = dict(probe.K.LAUNCHES)
+        finally:
+            probe.restore()
+        with open(os.path.join(out_dir, "nolearning_feature",
+                               f"scene0565_00_keyframe_{SCANNET_KEYFRAME}.pkl"), "rb") as fh:
+            info = pickle.load(fh)
+        poses[(where, scale)] = info
+        row = {"frames": probe.frames, "batches": probe.batches, "launches": launches,
+               "wall_s": wall, "fps": probe.frames / probe.loop_s,
+               "loader_wait_share": probe.wait_s / probe.loop_s,
+               "epe3d_cm": float(info["epes"].mean() * 100)}
+        log(f"{label}: {probe.frames} frames in {probe.batches} batches, launches {launches}, "
+            f"EPE3D {row['epe3d_cm']:.3f} cm, {row['fps']:.1f} frames/s, "
+            f"{row['loader_wait_share']:.3f} of the loop waiting on the loader")
+        if expected is not None and launches != {k: n * probe.batches
+                                                 for k, n in expected.items()}:
+            raise AssertionError(f"{label} launched {launches}, expected {expected} a batch")
+        if not (np.isfinite(info["R_est"]).all() and np.isfinite(info["t_est"]).all()):
+            raise AssertionError(f"{label}: non-finite poses")
+        out[f"evaluate_{scale}_{where}"] = row
+    card, cpu = poses[("card", CLI_SMALL)], poses[("cpu", CLI_SMALL)]
+    gap = max(float(np.abs(card[k] - cpu[k]).max()) for k in ("R_est", "t_est"))
+    log(f"ScanNet evaluate CLI {CLI_SMALL}: card poses {gap:.3e} from the CPU's (limit 1e-4)")
+    if not gap <= 1e-4:
+        raise AssertionError("the ScanNet poses on the card disagree with the CPU")
+    out["card_vs_cpu"] = gap
+    probe, wall = _train_cli(torch, ["--dataset", "ScanNet", "--data_root", root, "--keyframes",
+                                     "1", "--batch_size", "4", "--image_resize",
+                                     str(CLI_SMALL), "--epochs", "1", "--max_steps_per_epoch",
+                                     "1", "--no_val", "--checkpoint_folder",
+                                     os.path.join(workdir, "sn_logs"), "--device", str(dev)],
+                             "ScanNet train CLI")
+    (st,) = probe.steps
+    log(f"ScanNet train CLI, B=4 at {CLI_SMALL}: loss {st['loss']:.6f}, launches "
+        f"{st['launches']}, {st['ms']:.1f} ms, loader wait {probe.wait_s:.2f} s of {wall:.1f} s")
+    if not (np.isfinite(st["loss"]) and st["launches"] == TRAIN_LAUNCHES):
+        raise AssertionError("the ScanNet train step failed")
+    out["train"] = {"loss": st["loss"], "step_ms": st["ms"], "loader_wait_s": probe.wait_s,
+                    "wall_s": wall}
+    return out
+
+
+def phase_debug_nan(torch, dev, root, workdir):
+    """Phase 56: the train CLI with ``--debug_nan`` on a NaN batch must
+    raise naming a module; nothing else counts as a pass."""
+    from deep_prob_feature_track_torch.apps import train
+    from deep_prob_feature_track_torch.training import train as T
+    from deep_prob_feature_track_torch.utils.debug import NonFiniteError
+
+    to_device = T.to_device
+
+    def nan_depth(batch, device):
+        out = to_device(batch, device)
+        out["depth0"][0] = float("nan")
+        return out
+
+    T.to_device = nan_depth
+    try:
+        train.main(["--data_root", root, "--keyframes", "1", "--batch_size", str(B),
+                    "--image_resize", str(CLI_SMALL), "--epochs", "1",
+                    "--max_steps_per_epoch", "1", "--no_val", "--debug_nan",
+                    "--checkpoint_folder", os.path.join(workdir, "nan_logs"),
+                    "--device", str(dev)])
+    except NonFiniteError as e:
+        message = str(e)
+    else:
+        raise AssertionError("--debug_nan let a NaN batch through")
+    finally:
+        T.to_device = to_device
+    log(f"--debug_nan on a NaN batch: {message}")
+    if "module" not in message:
+        raise AssertionError(f"--debug_nan named no module: {message}")
+    return {"error": message}
+
+
+def phase_final(torch, dev):
+    """Phases 51-56 in a temporary directory, removed after."""
+    import shutil
+
+    workdir = tempfile.mkdtemp(prefix="dpft_final_")
+    try:
+        t0 = time.monotonic()
+        out = {"accum": phase_accum(torch, dev), "guard": phase_guard(torch, dev)}
+        seq = os.path.join(workdir, "seq")
+        write_tum_sequence(seq, n=DENSE_FRAMES)
+        out["two_ranks"] = phase_two_ranks(torch, dev, workdir, seq)
+        root = _trainval_root(workdir, seq)
+        out["distributed_cli"] = phase_distributed_cli(torch, dev, root, workdir)
+        out["scannet"] = phase_scannet(torch, dev, workdir)
+        out["debug_nan"] = phase_debug_nan(torch, dev, root, workdir)
+        out["wall_s"] = time.monotonic() - t0
+        log(f"phases 51-56 (accumulation, guard, data parallel, sharded BA, ScanNet, "
+            f"--debug_nan) in {out['wall_s']:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def profile(torch, fn, label):
     """Device busy time, span, idle share, launch count, launches by kernel
     name and the top kernels of one call of ``fn`` after three warm-up
@@ -3390,7 +4096,8 @@ def main(argv) -> int:
     import torch
 
     time_only = argv == ["--time"]
-    if argv and not time_only:
+    rank_worker = len(argv) == 5 and argv[0] == "--rank"
+    if argv and not (time_only or rank_worker):
         print("usage: chip_smoke.py [--time]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3404,6 +4111,8 @@ def main(argv) -> int:
         print(f"chip_smoke: the port package is not beside this script ({e})", file=sys.stderr)
         return 1
 
+    if rank_worker:  # one of phases 53-54's ranks, started by phase_two_ranks
+        return two_rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -3530,6 +4239,7 @@ def run(torch, loader, dev, name, smi):
     variants = phase_variants(torch, dev, items, vga_items)
     log(f"phases 40-45 (the tracker options) in {time.monotonic() - t0:.1f} s")
     ba = phase_ba(torch, dev)
+    final = phase_final(torch, dev)
     m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
                       "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
@@ -3538,7 +4248,8 @@ def run(torch, loader, dev, name, smi):
                       "ufc_serve_launches": ufc_launches, "ufc_k4_staged_share": ufc_k4_shares,
                       "preset_agree": presets, "scene_staged_share": scene_shares,
                       "vga_serve_launches": vga_launches, **cli, "objects": objects,
-                      "variants": variants, "ba": ba, "card": smi}), flush=True)
+                      "variants": variants, "ba": ba, "final": final, "card": smi}),
+          flush=True)
 
     # K1 and K6 as the 120x160 serve path launched them, K2 and K3 as the
     # 120x160 train path did; K4 as the 480x640 serve path, K5 as the 480x640

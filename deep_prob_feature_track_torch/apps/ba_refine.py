@@ -21,8 +21,13 @@ implementation); without one the weights are a seeded init.  The pose
 graph and the dense window run in float32 on the device, as the tracker
 does; the chaining of the odometry runs on the host in float64.
 
-Not ported, and raising ``NotImplementedError``: ``--sharded`` (ROADMAP
-item 8).
+``--sharded`` splits the pose graph's edges over the ranks of a mesh
+(``parallel/mesh.py``: the ranks ``torchrun`` starts, or this process
+alone), padding them to a multiple of the world size with zero-information
+edges; every rank tracks the window, and rank 0 alone writes the trajectory::
+
+    torchrun --nproc_per_node 4 -m deep_prob_feature_track_torch.apps.ba_refine \
+        --data_root "" --trajectory /path/to/sequence --sharded
 """
 
 from __future__ import annotations
@@ -151,16 +156,27 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("--sharded is not ported (ROADMAP item 8)")
 
-    from ..data.loader import load_data
     from ..device import resolve_device
+    from ..parallel.mesh import destroy, make_mesh
+
+    device = resolve_device(args.device)
+    mesh = make_mesh(device) if args.sharded else None
+    try:
+        return refine(args, mesh.device if mesh else device, mesh)
+    finally:
+        if mesh is not None:
+            destroy()
+
+
+def refine(args, device, mesh) -> int:
+    """The CLI's work after the mesh is made: track, refine, write."""
+    from ..data.loader import load_data
     from ..parallel import ba
     from .kf_vo import ate_rmse, write_tum_trajectory
     from .serve import build_tracker
 
-    device = resolve_device(args.device)
+    main_process = mesh is None or mesh.is_main
     dataset = load_data(
         args.dataset, [args.keyframe], "test", select_traj=args.trajectory,
         image_resize=args.image_resize, root=args.data_root,
@@ -176,7 +192,14 @@ def main(argv=None):
                                              args.batch_size, device)
     graph = ba.build_window_graph(poses, pairs, meas, infos, device=device,
                                   dtype=torch.float32)
-    refined, costs = ba.refine_pose_graph(graph, args.iterations)
+    if mesh is None:
+        refined, costs = ba.refine_pose_graph(graph, args.iterations)
+    else:
+        pad = (-len(pairs)) % mesh.world
+        padded = ba.build_window_graph(
+            poses, pairs + [pairs[0]] * pad, meas + [meas[0]] * pad,
+            list(infos) + [np.zeros((6, 6))] * pad, device=device, dtype=torch.float32)
+        refined, costs = ba.refine_pose_graph_sharded(padded, mesh, args.iterations)
     costs = costs.cpu().numpy()
     print(f"[ba_refine] cost {float(costs[0]):.4f} -> {float(costs[-1]):.6f}")
     refined_poses = np.tile(np.eye(4), (n_frames, 1, 1))
@@ -198,6 +221,8 @@ def main(argv=None):
         refined_poses[:, :3, :3] = Rd.cpu().numpy()
         refined_poses[:, :3, 3] = td.cpu().numpy()
 
+    if not main_process:
+        return 0
     write_tum_trajectory(args.output, refined_poses)
     print(f"[ba_refine] wrote {args.output}")
 

@@ -36,8 +36,19 @@ batches of the first loader, as PNG files under ``<output dir>/vis``
     python -m deep_prob_feature_track_torch.apps.evaluate \
         --dataset VaryLighting --data_root /path/to/vl --trajectory <scene>
 
-Not ported, and raising ``NotImplementedError``: the ScanNet dataset
-(ROADMAP item 6) and ``--mesh`` (item 8).
+    # a ScanNet export (``<root>/val/<scan>/frame-XXXXXX.color.jpg``, ...);
+    # its colour frames must be 640x480, the depth camera's size
+    python -m deep_prob_feature_track_torch.apps.evaluate \
+        --dataset ScanNet --data_root /path/to/scannet --keyframes 1
+
+    # the batches split over the ranks of a mesh (parallel/mesh.py): the
+    # ranks torchrun starts, or this process alone
+    torchrun --nproc_per_node 4 -m deep_prob_feature_track_torch.apps.evaluate \
+        --mesh --batch_size 8 ...
+
+With ``--mesh`` the batch size must divide by the world size; each rank
+tracks its rows of every batch with the batch reductions over the whole
+batch, the poses are gathered, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -65,24 +76,14 @@ def build_argparser():
                             "Iter_Point2Plane", "RGBD", "ColorICP",
                             "Iter_ColorICP"))
     p.add_argument("--obj_only", action="store_true")
-    p.add_argument("--mesh", action="store_true")
+    p.add_argument("--mesh", action="store_true",
+                   help="split each batch over the ranks of a torch.distributed group "
+                        "(the batch size must divide by the world size)")
     p.add_argument("--output_dir", default="test_results")
     p.add_argument("--time", action="store_true")
     p.add_argument("--save_img", type=int, default=0, metavar="N")
     p.add_argument("--device", default="cuda")
     return p
-
-
-def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` for an option the port lacks, naming
-    the ROADMAP item that ports it."""
-    missing = [
-        (args.dataset == "ScanNet", "--dataset ScanNet", "6"),
-        (args.mesh, "--mesh", "8"),
-    ]
-    for hit, what, item in missing:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported (ROADMAP item {item})")
 
 
 def dump_diagnostics(net, loader, out_dir, n_batches, device, has_mask=False):
@@ -138,15 +139,33 @@ def dump_diagnostics(net, loader, out_dir, n_batches, device, has_mask=False):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
+    from ..device import resolve_device
+    from ..parallel.mesh import destroy, make_mesh
+
+    device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        mesh = make_mesh(device)
+        if args.batch_size % mesh.world:
+            destroy()
+            raise SystemExit(f"--mesh: batch_size {args.batch_size} not divisible by "
+                             f"{mesh.world} ranks")
+    try:
+        return evaluate(args, mesh.device if mesh else device, mesh)
+    finally:
+        if mesh is not None:
+            destroy()
+
+
+def evaluate(args, device, mesh) -> int:
+    """The CLI's work after the mesh is made."""
     import numpy as np
 
-    from ..device import resolve_device, set_float32_policy
+    from ..device import set_float32_policy
     from ..evaluation import create_eval_loaders, evaluate_two_view, summarize_results
     from ..utils.timers import Timers
     from .serve import build_tracker
 
-    device = resolve_device(args.device)
     keyframes = [int(k) for k in args.keyframes.split(",")]
     has_mask = args.dataset == "MovingObjects3D"
     timers = Timers(block=True) if args.time else None
@@ -175,7 +194,7 @@ def main(argv=None):
     results = {}
     for key, loader in loaders.items():
         info = evaluate_two_view(loader, net, device, has_mask=has_mask,
-                                 obj_only=args.obj_only, timers=timers)
+                                 obj_only=args.obj_only, timers=timers, mesh=mesh)
         results[key] = info
         if "epes" in info:
             print(
@@ -187,6 +206,8 @@ def main(argv=None):
         else:  # a dataset without ground truth (VaryLighting)
             print(f"{key}: no ground truth; {info['R_est'].shape[0]} poses estimated")
 
+    if mesh is not None and not mesh.is_main:
+        return 0
     out_dir = os.path.join(args.output_dir, ckpt_name)
     if args.save_img > 0 and args.tracker == "learning_based":
         dump_diagnostics(net, next(iter(loaders.values())), os.path.join(out_dir, "vis"),

@@ -200,10 +200,12 @@ def build_tracker(preset: str = "feature", checkpoint: str = "", device="cuda",
     return net.to(dev)
 
 
-def example_batch(B: int, H: int, W: int, seed: int = 0, device="cpu"):
+def example_batch(B: int, H: int, W: int, seed: int = 0, device="cuda"):
     """Random inputs of the served shape: colors in [0,1], depths in
     [0.5, 1.5] m, the 120x160 TUM intrinsics scaled to HxW (TUM's own
-    ``[525, 525, 319.5, 239.5]`` at 480x640)."""
+    ``[525, 525, 319.5, 239.5]`` at 480x640), on the card unless
+    ``device="cpu"``."""
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     sx, sy = W / 160, H / 120
     arrays = (

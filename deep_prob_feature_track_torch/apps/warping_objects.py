@@ -25,6 +25,7 @@ import os
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..geometry import warp as W
 from ..utils.display import create_mosaic, save_image
 
@@ -34,12 +35,13 @@ def _batch_of_one(item, key, device):
     return torch.from_numpy(np.asarray(item[key])[None]).to(device)
 
 
-def warp_residual_mosaic(item, pose, out_path: str, device="cpu") -> float:
+def warp_residual_mosaic(item, pose, out_path: str, device="cuda") -> float:
     """Warp ``item``'s colour 1 into frame 0 under ``pose`` (``(R [1,3,3],
     t [1,3])``) through the inverse depth of frame 0, save the mosaic of
     [colour 0 | colour 1 | warped | |warped - colour 0| masked to the
     frame-0 object] at ``out_path``, and return the masked residual's
-    mean."""
+    mean.  Runs on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     color0, color1, depth0, K = (_batch_of_one(item, k, device)
                                  for k in ("color0", "color1", "depth0", "calib"))
     B, _, H, W_ = depth0.shape

@@ -14,6 +14,12 @@ and in the same order, so that both give the same bits:
 
 The output size is ``round(H * scale)`` with the scale in float32.
 
+JPEG colour frames (ScanNet's) take the JAX package's OpenCV branch:
+:mod:`.jpeg` decodes them to the bits of ``cv2.imread``, then BGR becomes
+RGB, ``astype(float32) / 255`` (a division, where the PNG path multiplies
+by ``1/255`` after the blend), and ``cv2.resize(img, None, fx=s, fy=s)``
+with ``INTER_LINEAR`` on float32 (:func:`resize_linear_cv`).
+
 The JAX package's MovingObjects3D loader reads depth and masks through PIL
 instead; :func:`resize_nearest_pil` copies PIL's nearest resize for it.
 """
@@ -25,6 +31,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .jpeg import read_jpeg
 from .png import read_png
 
 _F = np.float32
@@ -35,7 +42,11 @@ def _out_size(n: int, scale: float) -> int:
 
 
 def read_rgb(path: str, scale: float = 1.0) -> np.ndarray:
-    """Read an RGB PNG -> float32 [H,W,3] in [0,1], resized by ``scale``."""
+    """Read an RGB PNG or JPEG -> float32 [H,W,3] in [0,1], resized by
+    ``scale``."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        img = read_jpeg(path).astype(_F) / _F(255)
+        return img if scale == 1.0 else resize_linear_cv(img, scale)
     img = read_png(path)
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
@@ -59,6 +70,38 @@ def read_rgb(path: str, scale: float = 1.0) -> np.ndarray:
     v = (rows0[:, x0] * (one - wx) * (one - wy) + rows0[:, x1] * wx * (one - wy)
          + rows1[:, x0] * (one - wx) * wy + rows1[:, x1] * wx * wy)
     return v * (one / _F(255))
+
+
+def resize_linear_cv(img: np.ndarray, scale: float) -> np.ndarray:
+    """``cv2.resize(img, None, fx=scale, fy=scale)`` (``INTER_LINEAR``) of a
+    float32 [H,W,C] image, bit for bit as OpenCV 5 computes it through its
+    bundled Intel IPP on an x86-64 host with FMA, for ``scale <= 1``.
+
+    The output size is ``cvRound(n * scale)`` (ties to even).  Each output
+    sample sits at ``(i + 0.5) / scale - 0.5`` (float64), clamped to ``[0,
+    n - 1]``; its left neighbour ``x0 = min(floor(x), n - 2)`` and its
+    weight ``float32(x - x0)``, so the last sample blends with weight 1.
+    Rows are resized first, then columns, each as one fused multiply-add
+    ``p0 + (p1 - p0) * w`` rounded once to float32 (computed here in
+    ``longdouble``).  OpenCV's own, non-IPP code gives other bits
+    (separate products, float32 weights).
+    """
+    H, W = img.shape[:2]
+    out_h, out_w = int(np.rint(H * scale)), int(np.rint(W * scale))
+    wide = np.longdouble
+
+    def axis(n_in, n_out):
+        x = np.clip((np.arange(n_out) + 0.5) / scale - 0.5, 0.0, n_in - 1)
+        x0 = np.minimum(np.floor(x).astype(np.int64), max(n_in - 2, 0))
+        return x0, np.minimum(x0 + 1, n_in - 1), (x - x0).astype(_F)
+
+    def lerp(p0, p1, w):
+        return ((p1 - p0).astype(wide) * w + p0).astype(_F)
+
+    y0, y1, wy = axis(H, out_h)
+    x0, x1, wx = axis(W, out_w)
+    rows = lerp(img[:, x0], img[:, x1], wx[None, :, None])
+    return lerp(rows[y0], rows[y1], wy[:, None, None])
 
 
 def read_depth_png(

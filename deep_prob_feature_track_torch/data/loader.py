@@ -1,8 +1,7 @@
 """Dataset factory: ``get_dataset_root`` and ``load_data``.
 
 Counterpart of ``deep_prob_feature_track_tpu/data/loader.py`` for the TUM
-RGB-D, MovingObjects3D and VaryLighting datasets; ScanNet, whose colour
-frames are JPEG files, waits for a JPEG decoder (ROADMAP item 6).  Dataset
+RGB-D, MovingObjects3D, ScanNet and VaryLighting datasets.  Dataset
 roots resolve from (in order): an explicit ``root`` argument, the
 ``DPFT_DATA_ROOT`` environment variable, or a per-hostname entry in
 ``setup/datasets.yaml``, which needs PyYAML.
@@ -57,15 +56,21 @@ def load_data(
 ):
     """Create a dataset.
 
-    :param dataset: TUM_RGBD, MovingObjects3D or VaryLighting (ScanNet
-        raises ``NotImplementedError``)
+    :param dataset: TUM_RGBD, MovingObjects3D, ScanNet or VaryLighting
     :param load_type: train | validation | test | keyframe
     """
-    if dataset == "ScanNet":
-        raise NotImplementedError(
-            "the ScanNet dataset is not ported: its frames are JPEG files, and the port "
-            "has no JPEG decoder yet (ROADMAP item 6)")
     augment = ColorAugment(seed=augment_seed) if load_type == "train" else None
+    if dataset == "ScanNet":
+        from .scannet import ScanNet
+
+        return ScanNet(
+            root=get_dataset_root("ScanNet", root),
+            category="test" if load_type == "keyframe" else load_type,
+            keyframes=list(keyframes),
+            select_traj=select_traj,
+            image_resize=image_resize,
+            augment=augment,
+        )
     if dataset == "MovingObjects3D":
         from .moving_objects import MovingObjects3D
 

@@ -22,6 +22,7 @@ import torch
 from . import losses
 from .data.pipeline import BatchLoader, to_device
 from .data.tum_dicts import EVAL_TRAJECTORIES
+from .parallel.mesh import active, all_gather_rows, batch_sharding, extrema_mask
 
 # structure/texture subsets of the TUM test scenes (ref evaluate.py:58-89)
 SUBSET_TRAJECTORIES = {
@@ -85,7 +86,7 @@ def create_eval_loaders(
 
 def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
                       has_mask: bool = False, obj_only: bool = False,
-                      timers=None) -> Dict[str, np.ndarray]:
+                      timers=None, mesh=None) -> Dict[str, np.ndarray]:
     """The two-view eval loop.
 
     :param forward_fn: ``(color0, color1, depth0, depth1, K[, obj_mask0=,
@@ -94,6 +95,11 @@ def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
         EPE3D counts only the frame-0 object's pixels
     :param obj_only: with ``has_mask``, the masks also go to the forward,
         which then tracks the object
+    :param mesh: a ``parallel.mesh.Mesh``: every rank loads the whole
+        batch (its size must divide by the world size), runs the forward on
+        its rows with the batch reductions over the whole batch (as a JAX
+        mesh runs the sharded batch), and the poses are gathered on every
+        rank, which then computes the metrics of the whole batch
     :return: dict of per-frame arrays (R_est, t_est, epes, angular_error,
         translation_error) and the frames' ``names``; the padding of the
         last batch is dropped.  Batches without a ``transform`` (no ground
@@ -106,11 +112,17 @@ def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
         if timers:
             timers.tic("forward step")
         dev = to_device(batch, device)
+        inputs = dev
+        if mesh is not None:
+            rows = batch_sharding(mesh, len(batch["pad_mask"]))
+            inputs = {k: dev[k][rows] for k in (*KEYS, "obj_mask0", "obj_mask1") if k in dev}
         masks = {}
         if has_mask and obj_only:
-            masks = {k: dev[k] for k in ("obj_mask0", "obj_mask1")}
-        with torch.inference_mode():
-            R, t = forward_fn(*(dev[k] for k in KEYS), **masks)
+            masks = {k: inputs[k] for k in ("obj_mask0", "obj_mask1")}
+        with torch.inference_mode(), active(mesh):
+            R, t = forward_fn(*(inputs[k] for k in KEYS), **masks)
+            if mesh is not None and isinstance(R, torch.Tensor):
+                R, t = all_gather_rows(mesh, R), all_gather_rows(mesh, t)
         if not isinstance(R, torch.Tensor):
             # an uncer_prop tracker's ((R, t), JtWJ): the JAX loop stops in
             # np.asarray of the (R, t) pair, with this error
@@ -129,7 +141,7 @@ def evaluate_two_view(loader: BatchLoader, forward_fn: Callable, device,
             with torch.inference_mode():
                 ang, trs = losses.compute_rpe_error(R, t, R_gt, t_gt)
                 depth0 = dev["depth0"]
-                invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
+                invalid = extrema_mask(depth0)
                 if has_mask and "obj_mask0" in dev:
                     invalid = invalid | ~dev["obj_mask0"]
                 epes = losses.compute_rt_epe_loss(R, t, R_gt, t_gt, depth0, dev["calib"],

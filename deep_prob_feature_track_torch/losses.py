@@ -21,6 +21,7 @@ from .geometry import warp as W
 from .geometry.lie import between, log_so3, rotation_angle
 from .ops.image import bilinear_resize
 from .ops.solver6 import lev_mar_damp
+from .parallel import mesh as M
 
 
 def epe3d(flow_est: torch.Tensor, flow_gt: torch.Tensor,
@@ -57,8 +58,16 @@ def compute_rpe_loss(R_est_pyr, t_est_pyr, R_gt, t_gt):
     errors."""
     angs, trss = zip(*(compute_rpe_error(R_est_pyr[:, i], t_est_pyr[:, i], R_gt, t_gt)
                        for i in range(R_est_pyr.shape[1])))
-    return (sum(torch.linalg.vector_norm(a) for a in angs),
-            sum(torch.linalg.vector_norm(t) for t in trss))
+    return sum(_norm_over_batch(a) for a in angs), sum(_norm_over_batch(t) for t in trss)
+
+
+def _norm_over_batch(x: torch.Tensor) -> torch.Tensor:
+    """The L2 norm of ``x`` over the batch: the global batch's while a mesh
+    is active (``parallel/mesh.py``)."""
+    mesh = M.current()
+    if mesh is None or mesh.world == 1:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(M.all_reduce_sum((x * x).sum(), mesh))
 
 
 def _downsampled_geometry(depth0, K, invalid, rH: int = 60, rW: int = 80):

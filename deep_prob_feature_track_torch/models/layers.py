@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum, current as current_mesh
+
 # CIFAR-style color statistics
 RGB_MEAN = (0.4914, 0.4822, 0.4465)
 RGB_STD = (0.2023, 0.1994, 0.2010)
@@ -35,19 +37,41 @@ class FlaxBatchNormMixin:
     flax's ``momentum=0.9`` moves them: ``0.9 * running + 0.1 * batch``,
     with the BIASED batch variance, where torch's own update takes the
     unbiased one.  Eval mode is torch's.
+
+    While a mesh is active (``parallel/mesh.py``), the statistics are those
+    of the global batch, as in a JAX mesh step: the sums the mean and the
+    variance come from are all-reduced over the ranks (the shards are of
+    equal size), and the gradient flows back through the reduction.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         dims = [0, *range(2, x.ndim)]
+        mesh = current_mesh()
+        if mesh is not None and mesh.world > 1:
+            out, mean, var = self._global_batch_norm(x, dims, mesh)
+        else:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
             keep = 1.0 - self.momentum
-            self.running_mean.mul_(keep).add_(self.momentum * mean)
-            self.running_var.mul_(keep).add_(self.momentum * var)
+            self.running_mean.mul_(keep).add_(self.momentum * mean.detach())
+            self.running_var.mul_(keep).add_(self.momentum * var.detach())
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return out
+
+    def _global_batch_norm(self, x: torch.Tensor, dims, mesh):
+        """The normalized ``x`` and the global batch's mean and biased
+        variance (two passes: the mean, then the centred squares)."""
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        count = mesh.world * (x.numel() // x.shape[1])
+        mean = all_reduce_sum(x.sum(dim=dims), mesh) / count
+        centred = x - mean.reshape(shape)
+        var = all_reduce_sum((centred * centred).sum(dim=dims), mesh) / count
+        out = centred * torch.rsqrt(var + self.eps).reshape(shape)
+        return out * self.weight.reshape(shape) + self.bias.reshape(shape), mean, var
 
 
 class BatchNorm2d(FlaxBatchNormMixin, nn.BatchNorm2d):

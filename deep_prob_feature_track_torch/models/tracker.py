@@ -30,6 +30,7 @@ from torch import nn
 
 from ..geometry import warp as W
 from ..ops.image import image_pyramid
+from ..parallel.mesh import extrema_mask
 from ..solvers.icp import ICPSigmaModel
 from ..solvers.residuals import (
     build_inverse_warp_operand,
@@ -221,8 +222,8 @@ class LeastSquareTracking(nn.Module):
         invD0 = torch.clamp(1.0 / depth0, 0.0, 10.0)
         invD1 = torch.clamp(1.0 / depth1, 0.0, 10.0)
         # zero out truncated inverse depths (batch-global min/max)
-        invD0 = invD0.masked_fill((invD0 == invD0.amin()) | (invD0 == invD0.amax()), 0.0)
-        invD1 = invD1.masked_fill((invD1 == invD1.amin()) | (invD1 == invD1.amax()), 0.0)
+        invD0 = invD0.masked_fill(extrema_mask(invD0), 0.0)
+        invD1 = invD1.masked_fill(extrema_mask(invD1), 0.0)
         I0 = color_normalize_nchw(img0)
         I1 = color_normalize_nchw(img1)
 

@@ -11,6 +11,8 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import extrema_mask
+
 _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 _SOBEL_Y = ((-1.0, -2.0, -1.0), (0.0, 0.0, 0.0), (1.0, 2.0, 1.0))
 
@@ -61,7 +63,7 @@ def compute_normal(vertex_map: torch.Tensor) -> torch.Tensor:
     normal = torch.linalg.cross(gx, gy, dim=1)
     normal = normal / (torch.linalg.vector_norm(normal, dim=1, keepdim=True) + 1e-8)
     depth = vertex_map[:, 2:3]
-    return normal.masked_fill((depth == depth.amin()) | (depth == depth.amax()), 0.0)
+    return normal.masked_fill(extrema_mask(depth), 0.0)
 
 
 def bilinear_resize(x: torch.Tensor, H: int, W: int) -> torch.Tensor:

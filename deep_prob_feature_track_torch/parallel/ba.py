@@ -1,7 +1,6 @@
 """Multi-keyframe pose-graph refinement (the windowed BA back end).
 
-Counterpart of ``deep_prob_feature_track_tpu/parallel/ba.py``, on one
-device: given a window of keyframe poses and pairwise relative-pose
+Counterpart of ``deep_prob_feature_track_tpu/parallel/ba.py``: given a window of keyframe poses and pairwise relative-pose
 constraints from the tracker, each with its 6x6 information matrix (the
 U_IC solver's ``JtWJ``, ``uncer_prop``), refine all poses jointly with
 Gauss-Newton on SE(3).
@@ -20,8 +19,10 @@ run on the card, at work linear in the edges.  The damped solve is
 the system is singular (its result is then non-finite, as
 ``jnp.linalg.solve``'s is).
 
-The mesh-sharded refinement (``refine_pose_graph_sharded``) is not ported
-and raises ``NotImplementedError`` (ROADMAP item 8).
+The mesh-sharded refinement (:func:`refine_pose_graph_sharded`) splits the
+edges over the ranks of a ``parallel.mesh.Mesh``: every rank builds H, b
+and the cost of its slice, the three are summed over the ranks, and the
+solve and the update run on every rank alike.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..geometry.lie import adjoint_se3, compose, exp_se3, inverse, log_se3
@@ -134,9 +136,38 @@ def refine_pose_graph(
     return graph, torch.stack(costs)
 
 
-def refine_pose_graph_sharded(graph: PoseGraph, mesh, *args, **kwargs):
-    """The mesh-sharded refinement: not ported."""
-    raise NotImplementedError("refine_pose_graph_sharded is not ported (ROADMAP item 8)")
+def refine_pose_graph_sharded(
+    graph: PoseGraph,
+    mesh,
+    iterations: int = 10,
+    damping: float = 1e-6,
+    anchor_weight: float = 1e6,
+) -> Tuple[PoseGraph, torch.Tensor]:
+    """:func:`refine_pose_graph` with the edges split over ``mesh``'s
+    ranks (a ``parallel.mesh.Mesh``): each rank takes its equal contiguous
+    slice of the edges, and H, b and the cost are summed over the ranks
+    before the solve, which every rank runs alike.  Every rank passes the
+    whole graph; the edge count must divide by the world size (pad with
+    zero-information edges).
+
+    :return: ``(refined graph, costs [iterations])``, the same on every rank
+    """
+    E = graph.edges_i.shape[0]
+    if E % mesh.world:
+        raise ValueError(f"pad the edges to a multiple of {mesh.world} (E={E})")
+    rows = slice(mesh.rank * (E // mesh.world), (mesh.rank + 1) * (E // mesh.world))
+    info = graph.info if graph.info is not None else torch.eye(
+        6, dtype=graph.R.dtype, device=graph.R.device).expand(E, 6, 6)
+    edges = (graph.edges_i[rows], graph.edges_j[rows], graph.meas_R[rows], graph.meas_t[rows],
+             info[rows])
+    costs = []
+    for _ in range(iterations):
+        H, b, cost = _edge_system(graph, *edges)
+        for x in (H, b, cost):
+            dist.all_reduce(x, group=mesh.group)
+        graph = _gn_update(graph, H, b, anchor_weight, damping)
+        costs.append(cost)
+    return graph, torch.stack(costs)
 
 
 def build_window_graph(poses_WC: np.ndarray, pairs, meas, infos=None, device="cuda",

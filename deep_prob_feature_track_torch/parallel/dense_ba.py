@@ -1,7 +1,6 @@
 """Dense feature-metric multi-keyframe refinement (direct windowed BA).
 
-Counterpart of ``deep_prob_feature_track_tpu/parallel/dense_ba.py``, on one
-device.  Where ``parallel/ba.py`` refines poses against fixed relative-pose
+Counterpart of ``deep_prob_feature_track_tpu/parallel/dense_ba.py``.  Where ``parallel/ba.py`` refines poses against fixed relative-pose
 measurements, this back end re-linearizes the dense uncertainty-normalized
 feature-metric residual of every window edge at the current poses on each
 Gauss-Newton iteration.
@@ -23,8 +22,12 @@ Per outer iteration:
 
 The batch of every reduction is the edge axis: with ``remove_tru_sigma``
 the sigma truncation takes its min/max over all E edges, zero-weight
-padding edges included, as in the JAX package.  The mesh-sharded branch
-(``mesh=``) is not ported (ROADMAP item 8).
+padding edges included, as in the JAX package.  With a mesh
+(``parallel.mesh.Mesh``) each rank linearizes its equal contiguous slice of
+the edges and H, b and the cost are summed over the ranks.  The JAX
+package runs that linearization inside ``shard_map``, so there the sigma
+truncation's min/max is each shard's own: so it is here, on each rank's
+slice (no mesh is active inside the linearization).
 """
 
 from __future__ import annotations
@@ -32,11 +35,13 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..geometry import warp as W
 from ..geometry.lie import adjoint_se3, compose, exp_se3, inverse
 from ..solvers.jacobians import jtj_jtr, precompute_uic, uic_factors
 from ..solvers.residuals import build_inverse_warp_operand, compute_inverse_residuals
+from . import mesh as M
 from .ba import scatter_blocks
 
 
@@ -105,30 +110,42 @@ def refine_dense_window(
     :param edges_i/edges_j: [E] edge endpoints (template=i, live=j)
     :param edge_weights: optional [E] weights; 0 pads the edge list without
         counting a constraint twice
+    :param mesh: a ``parallel.mesh.Mesh`` whose ranks split the edges (each
+        rank passes them all; their count must divide by the world size)
     :param plain: the kernels' plain versions on any device
     :return: ``(R [N,3,3], t [N,3], costs [iterations])``: each cost is the
         weighted sum of the squared residuals before that iteration's update
     """
-    if mesh is not None:
-        raise NotImplementedError("refine_dense_window(mesh=...) is not ported (ROADMAP item 8)")
     n_poses = R.shape[0]
     n6 = n_poses * 6
     if edge_weights is None:
         edge_weights = torch.ones(edges_i.shape, dtype=R.dtype, device=R.device)
+    sharded = mesh is not None and mesh.world > 1
+    if sharded:
+        E = edges_i.shape[0]
+        if E % mesh.world:
+            raise ValueError(f"pad the edges to a multiple of {mesh.world} (E={E})")
+        rows = slice(mesh.rank * (E // mesh.world), (mesh.rank + 1) * (E // mesh.world))
+        edges_i, edges_j, edge_weights = edges_i[rows], edges_j[rows], edge_weights[rows]
     eye = torch.eye(n6, dtype=R.dtype, device=R.device)
     anchor = torch.zeros(n6, dtype=R.dtype, device=R.device)
     anchor[:6] = anchor_weight
     costs = []
     for _ in range(iterations):
         R_rel, t_rel = compose(*inverse(R[edges_j], t[edges_j]), R[edges_i], t[edges_i])
-        JtWJ, JtR, cost = edge_linearization(frames, edges_i, edges_j, R_rel, t_rel,
-                                             remove_tru_sigma, plain=plain)
+        with M.active(None):  # the shard's own sigma min/max, as in shard_map
+            JtWJ, JtR, cost = edge_linearization(frames, edges_i, edges_j, R_rel, t_rel,
+                                                 remove_tru_sigma, plain=plain)
         JtWJ = JtWJ * edge_weights[:, None, None]
         JtR = JtR * edge_weights[:, None]
         H, b = _assemble(R_rel, t_rel, edges_i, edges_j, JtWJ, JtR, n_poses)
+        cost = torch.sum(cost * edge_weights)
+        if sharded:
+            for x in (H, b, cost):
+                dist.all_reduce(x, group=mesh.group)
         trace = torch.trace(H) / n6
         Hd = H + torch.diag(anchor) + (damping * trace + 1e-9) * eye
         xi = torch.linalg.solve_ex(Hd, b[:, None])[0].reshape(n_poses, 6)
         R, t = compose(R, t, *exp_se3(-xi))
-        costs.append(torch.sum(cost * edge_weights))
+        costs.append(cost)
     return R, t, torch.stack(costs)

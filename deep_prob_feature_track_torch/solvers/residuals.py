@@ -11,6 +11,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import warp as W
+from ..parallel.mesh import extrema_mask
 
 
 class ResidualOutput(NamedTuple):
@@ -49,8 +50,7 @@ def compose_residuals(u, v, invalid, f0, f1, sigma0, sigma1, eps: float = 1e-6,
     sigma = torch.sqrt(sigma_r * sigma_r + sigma0 * sigma0)
     weighted = res / sigma
     if remove_tru_sigma:
-        sigma_tru = ((sigma_r == sigma_r.amin()) | (sigma_r == sigma_r.amax())
-                     | (sigma0 == sigma0.amin()) | (sigma0 == sigma0.amax()))
+        sigma_tru = extrema_mask(sigma_r) | extrema_mask(sigma0)
         invalid = invalid | sigma_tru[:, 0:1]
     return ResidualOutput(weighted.masked_fill(invalid, eps), res, sigma, invalid)
 
@@ -83,12 +83,7 @@ def compute_inverse_residuals(
     sigma = torch.sqrt(sigma_r * sigma_r + sigma0 * sigma0)
     weighted = res / sigma
     if remove_tru_sigma:
-        sigma_tru = (
-            (sigma_r == sigma_r.amin())
-            | (sigma_r == sigma_r.amax())
-            | (sigma0 == sigma0.amin())
-            | (sigma0 == sigma0.amax())
-        )
+        sigma_tru = extrema_mask(sigma_r) | extrema_mask(sigma0)
         occ = occ | sigma_tru[:, 0:1]
     weighted = weighted.masked_fill(occ, 1e-6)
     return ResidualOutput(weighted, res, sigma, occ), u, v

@@ -5,7 +5,9 @@ Counterpart of ``save_variables``, ``restore_variables``,
 ``deep_prob_feature_track_tpu/training/checkpoints.py``.  A weights file is
 the tracker's ``state_dict`` (parameters and BatchNorm statistics); a
 training state is ``{"net": state_dict, "optimizer": the optimizer's
-state_dict, "step": int}``.  Both are written with ``torch.save`` and read
+state_dict, "step": int, "skipped": int}`` (``skipped``: the steps the
+non-finite guard skipped, which the learning-rate schedule does not
+count).  Both are written with ``torch.save`` and read
 with ``weights_only=True``.  The port reads no flax msgpack or orbax file
 of the JAX package; ``apps/import_checkpoint`` imports the original
 PyTorch implementation's checkpoint (``.pth.tar``) into a weights file.
@@ -41,18 +43,21 @@ def restore_variables(path: str) -> Dict[str, Any]:
 def tracker_weights(raw: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The tracker's ``state_dict`` in what :func:`restore_variables`
     returned: the file's own content, or a training state's ``net``."""
-    return raw["net"] if set(raw) == _TRAIN_STATE_KEYS else raw
+    return raw["net"] if _TRAIN_STATE_KEYS <= set(raw) else raw
 
 
 def save_train_state(path: str, state) -> str:
-    """Write a ``training.train.TrainState``: weights, optimizer state, step."""
+    """Write a ``training.train.TrainState``: weights, optimizer state, step
+    and skipped steps."""
     return _save(path, {"net": state.net.state_dict(),
-                        "optimizer": state.optimizer.state_dict(), "step": int(state.step)})
+                        "optimizer": state.optimizer.state_dict(), "step": int(state.step),
+                        "skipped": int(state.skipped)})
 
 
 def restore_train_state(path: str, state):
     """Load a file written by :func:`save_train_state` into ``state`` (its
-    tracker, optimizer and step), in place; returns ``state``.
+    tracker, optimizer, step and skipped steps, 0 in a file without them),
+    in place; returns ``state``.
 
     The optimizer keeps the hyperparameters it was built with (weight
     decay, Adam's betas and eps, SGD's momentum) and takes only the saved
@@ -67,4 +72,5 @@ def restore_train_state(path: str, state):
     for group, hyper in zip(state.optimizer.param_groups, current):
         group.update(hyper)
     state.step = int(raw["step"])
+    state.skipped = int(raw.get("skipped", 0))
     return state

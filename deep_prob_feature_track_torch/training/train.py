@@ -28,26 +28,52 @@ twist error with it, UEPE3D inverts ``lev_mar_damp`` of it into the pose
 covariance it pushes through the flow Jacobian (in the U_IC track the
 gradient then reaches K6's JtJ output).
 
-Not ported, and raising ``NotImplementedError``: gradient accumulation
-(``accum_steps > 1``) and the non-finite guard (ROADMAP item 5), and the
-device mesh (item 8).  Checkpoints are
-in ``training/checkpoints.py``.
+Gradient accumulation (``accum_steps > 1``) splits the batch into equal
+microbatches in order; each runs the training forward with its own
+BatchNorm batch statistics (the running statistics chain from one to the
+next), the gradients and losses are summed and divided by ``accum_steps``,
+and one clip and one optimizer step follow.  The JAX package's two forms
+of that loop (``accum_loop`` ``host`` and ``scan``) are an XLA compile
+choice with the same semantics: the port has the one Python loop, and no
+such field.
+
+The non-finite guard (``guard_nonfinite=True``) reads ``isfinite(loss) &
+isfinite(grad_norm)`` on the host once a step; where it is false, the
+parameters, the optimizer state (Adam's moments and per-parameter step)
+and the BatchNorm running statistics keep their pre-step values bit for
+bit, ``state.step`` still advances and ``metrics["skipped"]`` is true.
+The learning-rate schedule counts the updates taken (``state.step -
+state.skipped``), as optax's schedule counts in the optimizer state that
+the guard keeps; a checkpoint keeps ``skipped`` beside ``step``.
+
+With a mesh (``parallel/mesh.py``, one process per card) the step is the
+global program, sharded as in a JAX mesh step: each rank holds its rows of
+the global batch, BatchNorm statistics and the batch-global min/max run
+over the global batch, each rank's loss is its share of the global mean,
+and the gradients are summed over the ranks before the clip, so every rank
+applies the same update.  With accumulation, microbatch i is the global
+rows ``[i*B/accum, (i+1)*B/accum)``, split over the ranks (the JAX scan
+mode, the one mode JAX allows with a mesh): the ranks first gather the
+global batch.  Checkpoints are in ``training/checkpoints.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import losses
 from ..data.pipeline import to_device
 from ..device import resolve_device, set_float32_policy
 from ..models.tracker import LeastSquareTracking
 from ..ops.solver6 import lev_mar_damp
+from ..parallel import mesh as M
+from ..parallel.mesh import extrema_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +87,7 @@ class TrainConfig:
     epochs: int = 30
     batch_size: int = 64
     opt: str = "adam"  # adam | sgd
-    accum_steps: int = 1  # only 1 is ported
+    accum_steps: int = 1  # microbatches per step
 
 
 @dataclasses.dataclass
@@ -71,6 +97,7 @@ class TrainState:
     net: LeastSquareTracking
     optimizer: torch.optim.Optimizer
     step: int = 0
+    skipped: int = 0  # steps the non-finite guard skipped
 
 
 def make_lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], float]:
@@ -91,7 +118,7 @@ def make_lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], 
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
     """Adam, or SGD with momentum 0.9, with the L2 weight decay folded into
     the gradient; the step clips the gradients before it
-    (``apply_gradients``)."""
+    (:func:`clip_gradients`, then :func:`apply_update`)."""
     if cfg.opt == "adam":
         return torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.weight_decay)
     if cfg.opt == "sgd":
@@ -132,7 +159,7 @@ def compute_loss(net: LeastSquareTracking, train_cfg: TrainConfig,
     T = batch["transform"]
     R_gt, t_gt = T[:, :3, :3], T[:, :3, 3]
     depth0 = batch["depth0"]
-    invalid = (depth0 == depth0.amin()) | (depth0 == depth0.amax())
+    invalid = extrema_mask(depth0)
     if "obj_mask0" in batch:
         invalid = ~batch["obj_mask0"].bool() | invalid  # the loss on the object alone
     if train_cfg.loss == "RPE":
@@ -150,6 +177,15 @@ def compute_loss(net: LeastSquareTracking, train_cfg: TrainConfig,
         per_sample = 1e2 * losses.compute_rt_epe_loss(
             pyr_R, pyr_t, R_gt, t_gt, depth0, batch["calib"], invalid=invalid)
     mask = batch.get("pad_mask")
+    mesh = M.current()
+    if mesh is not None and mesh.world > 1:
+        # this rank's share of the global batch's mean
+        if mask is None:
+            mask = torch.ones_like(per_sample)
+        mask = mask.to(per_sample.dtype)
+        count = mask.sum().detach()
+        dist.all_reduce(count, group=mesh.group)
+        return (per_sample * mask).sum() / count.clamp(min=1)
     if mask is None:
         return per_sample.mean()
     mask = mask.to(per_sample.dtype)
@@ -167,51 +203,117 @@ def create_train_state(net: LeastSquareTracking, train_cfg: TrainConfig, seed: i
     return TrainState(net=net, optimizer=make_optimizer(train_cfg, net.parameters()))
 
 
-def make_train_step(train_cfg: TrainConfig, steps_per_epoch: int, mesh=None,
+def make_train_step(train_cfg: TrainConfig, steps_per_epoch: int, mesh: Optional[M.Mesh] = None,
                     guard_nonfinite: bool = False):
-    """``step(state, batch) -> (state, {"loss", "grad_norm"})``: one
-    forward and backward, clip, optimizer update.  ``state`` is updated in
-    place; ``grad_norm`` is the global norm before clipping."""
-    if train_cfg.accum_steps != 1:
-        raise NotImplementedError(
-            "gradient accumulation (accum_steps > 1) is not ported (ROADMAP item 5)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported (ROADMAP item 8)")
-    if guard_nonfinite:
-        raise NotImplementedError("the non-finite step guard is not ported (ROADMAP item 5)")
+    """``step(state, batch) -> (state, {"loss", "grad_norm"[, "skipped"]})``:
+    the forward and backward of ``accum_steps`` microbatches, one clip, one
+    optimizer update.  ``state`` is updated in place; ``grad_norm`` is the
+    global norm of the averaged gradient before clipping, ``loss`` the mean
+    over the microbatches (with a mesh, of the global batch).
+
+    :param mesh: a ``parallel.mesh.Mesh``: ``batch`` is this rank's rows of
+        the global batch, and the step is the global step (see the module)
+    :param guard_nonfinite: skip the update where the loss or the gradient
+        norm is not finite (``metrics["skipped"]``)
+    """
+    accum = int(train_cfg.accum_steps)
+    if accum < 1:
+        raise ValueError(f"accum_steps must be at least 1, not {accum}")
     schedule = make_lr_schedule(train_cfg, steps_per_epoch)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
+        kept = [b.clone() for b in state.net.buffers()] if guard_nonfinite else None
         state.optimizer.zero_grad(set_to_none=True)
-        loss = compute_loss(state.net, train_cfg, batch)
-        loss.backward()
-        grad_norm = apply_gradients(state.optimizer, train_cfg.grad_clip, schedule(state.step))
+        with M.active(mesh):
+            loss = None
+            for mb in microbatches(batch, accum, mesh):
+                part = compute_loss(state.net, train_cfg, mb)
+                part.backward()
+                loss = part.detach() if loss is None else loss + part.detach()
+        if accum > 1:
+            loss = loss / accum
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        if mesh is not None and mesh.world > 1:
+            dist.all_reduce(loss, group=mesh.group)
+            sum_gradients(mesh, params)
+        grad_norm = clip_gradients(params, train_cfg.grad_clip)
+        metrics = {"loss": loss, "grad_norm": grad_norm}
+        ok = True
+        if guard_nonfinite:
+            ok_t = torch.isfinite(loss) & torch.isfinite(grad_norm)
+            metrics["skipped"] = ~ok_t
+            ok = bool(ok_t)  # the one host read of the step
+        if ok:
+            apply_update(state.optimizer, schedule(state.step - state.skipped))
+        else:
+            # clip_grad_norm_ wrote NaN into the gradients: no update, and
+            # the running statistics back to their pre-step bits
+            with torch.no_grad():
+                for buf, old in zip(state.net.buffers(), kept):
+                    buf.copy_(old)
+            state.skipped += 1
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, metrics
 
     return step
 
 
-def apply_gradients(optimizer: torch.optim.Optimizer, grad_clip: float, lr: float):
-    """Clip the gradients of the optimizer's parameters to the global norm
-    ``grad_clip``, then take one optimizer step at ``lr``.
+def microbatches(batch: Dict[str, torch.Tensor], accum: int, mesh: Optional[M.Mesh] = None):
+    """The ``accum`` microbatches of ``batch``, equal slices in order.  With
+    a mesh of several ranks, ``batch`` is this rank's rows of the global
+    batch; microbatch i is the global rows ``[i*B/accum, (i+1)*B/accum)``
+    and this rank gets its equal part of them."""
+    if accum == 1:
+        yield batch
+        return
+    if mesh is not None and mesh.world > 1:
+        batch = {k: M.all_gather_rows(mesh, v) for k, v in batch.items()}
+    B = batch["color0"].shape[0]
+    if B % accum:
+        raise ValueError(f"batch dim {B} not divisible by accum_steps={accum}")
+    size = B // accum
+    for i in range(accum):
+        mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+        yield mb if mesh is None or mesh.world == 1 else M.shard_batch(mesh, mb)
 
-    :return: the global gradient norm before clipping
-    """
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    grad_norm = torch.nn.utils.clip_grad_norm_(params, grad_clip)
+
+def sum_gradients(mesh: M.Mesh, params) -> None:
+    """Sum the parameters' gradients over the ranks, in place, in one
+    all-reduce of their concatenation."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def clip_gradients(params, grad_clip: float) -> torch.Tensor:
+    """Clip the parameters' gradients to the global norm ``grad_clip``, in
+    place (optax's ``clip_by_global_norm``); returns the norm before
+    clipping.  A non-finite norm writes NaN into the gradients."""
+    return torch.nn.utils.clip_grad_norm_(params, grad_clip)
+
+
+def apply_update(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """One optimizer step at the learning rate ``lr``."""
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
-    return grad_norm
 
 
 def train_epoch(train_step, state: TrainState, loader, device, log_every: int = 10,
-                logger=None, max_steps: int = 0) -> Tuple[TrainState, float]:
+                logger=None, max_steps: int = 0, mesh=None) -> Tuple[TrainState, float]:
     """One epoch over ``loader`` (a ``data.pipeline.BatchLoader``): each
     batch goes to ``device`` and through ``train_step``.  Returns the state
-    and the mean loss.
+    and the mean loss.  With a mesh, ``train_step`` is the mesh's step and
+    the loader either holds this rank's shard (``BatchLoader(shard_index=
+    rank, num_shards=world)``) or yields global batches, of which each
+    rank takes its rows.
 
     The losses stay on the device and are reduced once at the end; the host
     waits for the device only at ``log_every`` steps, where one loss is
@@ -222,7 +324,10 @@ def train_epoch(train_step, state: TrainState, loader, device, log_every: int = 
     for i, batch in enumerate(loader):
         if max_steps and i >= max_steps:
             break
-        batch = to_device({k: v for k, v in batch.items() if not isinstance(v, list)}, device)
+        batch = {k: v for k, v in batch.items() if not isinstance(v, list)}
+        if mesh is not None and getattr(loader, "num_shards", 1) != mesh.world:
+            batch = M.shard_batch(mesh, batch)
+        batch = to_device(batch, device)
         batch["pad_mask"] = torch.as_tensor(batch["pad_mask"], device=device)
         state, metrics = train_step(state, batch)
         step_losses.append(metrics["loss"])
@@ -234,7 +339,7 @@ def train_epoch(train_step, state: TrainState, loader, device, log_every: int = 
     return state, torch.stack(step_losses).mean().item()
 
 
-def synthetic_batch(B: int, H: int, W: int, seed: int = 0, device="cpu"):
+def synthetic_batch(B: int, H: int, W: int, seed: int = 0, device="cuda"):
     """A seeded batch of smooth textured scenes.
 
     Each sample's colors are products of sinusoids (periods of 16 to 63
@@ -243,8 +348,10 @@ def synthetic_batch(B: int, H: int, W: int, seed: int = 0, device="cpu"):
     frame 1.  The intrinsics are TUM's scaled to HxW, the true motion a few
     centimetres with no rotation.  Smooth scenes keep the 12 chained
     Gauss-Newton solves well conditioned, so two roundings of one step give
-    nearly the same gradient; uniform noise images make it chaotic.
+    nearly the same gradient; uniform noise images make it chaotic.  The
+    batch lies on the card unless ``device="cpu"``.
     """
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     y = np.arange(H)[None, None, :, None]
     x = np.arange(W)[None, None, None, :]

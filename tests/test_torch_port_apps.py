@@ -304,7 +304,7 @@ def test_import_checkpoint_matches_jax(tmp_path, preset, jitted_jax_init):
             torch.testing.assert_close(got[key], value, rtol=0, atol=0, msg=key)
             torch.testing.assert_close(got[key], source.state_dict()[key], rtol=0, atol=0)
     # the imported tracker's forward is the source tracker's, bit for bit
-    batch = example_batch(2, 32, 40, seed=4)
+    batch = example_batch(2, 32, 40, seed=4, device="cpu")
     imported = LeastSquareTracking(get_preset(preset))
     imported.load_state_dict(got, strict=True)
     with torch.inference_mode():

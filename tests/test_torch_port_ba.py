@@ -207,7 +207,20 @@ def test_scatter_blocks_sums_repeated_edges():
     assert torch.equal(H, again[0]) and torch.equal(b, again[1])
 
 
-def test_sharded_refinement_raises(problem):
+def test_sharded_refinement_on_one_rank_is_the_refinement(problem):
+    """On a mesh of one rank the sharded refinement gives the unsharded
+    one's bits (two ranks: ``test_torch_port_dist.py``); an edge count that
+    does not divide over the ranks raises."""
+    from deep_prob_feature_track_torch.parallel import mesh as pmesh
+
     _, pg = _graphs(problem, torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        pba.refine_pose_graph_sharded(pg, mesh=None)
+    mesh = pmesh.make_mesh("cpu")
+    try:
+        got, got_costs = pba.refine_pose_graph_sharded(pg, mesh, iterations=4)
+        ref, ref_costs = pba.refine_pose_graph(pg, iterations=4)
+        assert torch.equal(got.R, ref.R) and torch.equal(got.t, ref.t)
+        assert torch.equal(got_costs, ref_costs)
+        with pytest.raises(ValueError, match="multiple of 2"):
+            pba.refine_pose_graph_sharded(pg, pmesh.Mesh(None, 0, 2, torch.device("cpu")))
+    finally:
+        pmesh.destroy()

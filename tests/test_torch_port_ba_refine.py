@@ -170,25 +170,39 @@ def test_ba_refine_cli_on_a_dataset_without_ground_truth(tmp_path, sequence, cap
     assert np.loadtxt(tmp_path / "vl.txt").shape == (3, 8)
 
 
-def test_sharded_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        pba.main(["--trajectory", "x", "--sharded", "--device", "cpu"])
+def test_sharded_cli_on_one_rank_writes_the_same_trajectory(tmp_path, sequence, capsys):
+    """``--sharded`` on a mesh of one rank (no ``torchrun`` environment)
+    writes the unsharded CLI's trajectory bit for bit."""
+    from deep_prob_feature_track_torch.parallel import mesh as pmesh
+
+    common = ["--data_root", "", "--trajectory", sequence, "--image_resize", str(RESIZE),
+              "--window", "2", "--iterations", "3", "--max_frames", "4", "--device", "cpu"]
+    assert pba.main([*common, "--output", str(tmp_path / "one.txt")]) == 0
+    assert pba.main([*common, "--sharded", "--output", str(tmp_path / "sharded.txt")]) == 0
+    assert not pmesh.dist.is_initialized()  # the CLI tore its group down
+    assert (tmp_path / "one.txt").read_bytes() == (tmp_path / "sharded.txt").read_bytes()
+    assert len(_stdout_lines(capsys, "[ba_refine] cost")) == 2
 
 
 @pytest.mark.parametrize("call", ["build_window_graph", "track_pairs", "track_window",
-                                  "encode_frames", "resize_batch"])
+                                  "encode_frames", "resize_batch", "synthetic_batch",
+                                  "example_batch", "warp_residual_mosaic"])
 def test_helpers_run_on_the_card_unless_asked(monkeypatch, call):
     """The back end's public helpers take the card by default, as the
     package's entry points do: without one they raise and name
     ``device='cpu'``, and never fall back to the CPU on their own."""
-    from deep_prob_feature_track_torch.apps import run_example
+    from deep_prob_feature_track_torch.apps import run_example, serve, warping_objects
     from deep_prob_feature_track_torch.parallel import ba
+    from deep_prob_feature_track_torch.training import train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fn = {"build_window_graph": lambda: ba.build_window_graph(np.eye(4)[None], [], []),
           "track_pairs": lambda: pba.track_pairs(None, [(0, 1)], None),
           "track_window": lambda: pba.track_window(None, None, 2, 1),
           "encode_frames": lambda: pba.encode_frames(None, None, 1, 0),
-          "resize_batch": lambda: run_example.resize_batch({})}[call]
+          "resize_batch": lambda: run_example.resize_batch({}),
+          "synthetic_batch": lambda: train.synthetic_batch(1, 8, 8),
+          "example_batch": lambda: serve.example_batch(1, 8, 8),
+          "warp_residual_mosaic": lambda: warping_objects.warp_residual_mosaic({}, None, "x")}[call]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fn()

@@ -60,7 +60,7 @@ RPE = tt.TrainConfig(loss="RPE")
 def rpe_loss_and_grads():
     """JAX and port RPE loss and parameter gradients of one training batch,
     from the same ``PRNGKey(7)`` weights."""
-    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=3).items()}
+    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=3, device="cpu").items()}
     net = JaxTracker(cfg=jp.get_preset("feature"))
     ins = [jnp.asarray(batch[k]) for k in ("color0", "color1", "depth0", "depth1", "calib")]
     v = jax.jit(lambda k, *a: net.init(k, *a, train=False))(jax.random.PRNGKey(7), *ins)
@@ -99,7 +99,7 @@ def test_rpe_loss_gradients_match_jax(rpe_loss_and_grads):
 
 def test_rpe_backward_matches_plain_autograd_in_float64(monkeypatch):
     batch = {k: v.double() if v.is_floating_point() else v
-             for k, v in tt.synthetic_batch(B, 16, 20, seed=1).items()}
+             for k, v in tt.synthetic_batch(B, 16, 20, seed=1, device="cpu").items()}
     net = LeastSquareTracking(get_preset("feature"), plain_kernels=True).reset_parameters(2)
     state = copy.deepcopy(net.state_dict())
 
@@ -139,7 +139,8 @@ def test_sgd_matches_optax_trace(rng):
     for step, g in enumerate(grads):
         for p, x in zip(p_t, g):
             p.grad = torch.tensor(x)
-        tt.apply_gradients(optimizer, cfg.grad_clip, schedule(step))
+        tt.clip_gradients(p_t, cfg.grad_clip)
+        tt.apply_update(optimizer, schedule(step))
     for a, b in zip(p_t, p_j):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=1e-6, rtol=0)
     with pytest.raises(ValueError, match="optimizer"):
@@ -153,7 +154,7 @@ class _Batches:
     """A dataset of ``synthetic_batch`` samples (16x20), one per index."""
 
     def __init__(self, n):
-        full = tt.synthetic_batch(n, 16, 20, seed=4)
+        full = tt.synthetic_batch(n, 16, 20, seed=4, device="cpu")
         self.items = [{k: v[i].numpy() for k, v in full.items() if k != "pad_mask"}
                       for i in range(n)]
 
@@ -202,7 +203,7 @@ def test_train_epoch_steps_and_logs(tmp_path, no_tensorboard):
 
 
 def test_checkpoint_round_trip_is_bit_exact(tmp_path):
-    batches = [tt.synthetic_batch(B, 16, 20, seed=10 + i) for i in range(4)]
+    batches = [tt.synthetic_batch(B, 16, 20, seed=10 + i, device="cpu") for i in range(4)]
     cfg = tt.TrainConfig(lr_decay_epochs=(1,))
     step = tt.make_train_step(cfg, steps_per_epoch=2)  # the decay falls in between
     whole = _state()
@@ -223,7 +224,7 @@ def test_checkpoint_round_trip_is_bit_exact(tmp_path):
             torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
     # the weights alone, and a tracker's weights out of a training state
     raw = checkpoints.restore_variables(path)
-    assert set(raw) == {"net", "optimizer", "step"}
+    assert set(raw) == {"net", "optimizer", "step", "skipped"} and raw["skipped"] == 0
     assert checkpoints.tracker_weights(raw) is raw["net"]
     bare = checkpoints.save_variables(str(tmp_path / "w.pt"), half.net.state_dict())
     assert checkpoints.tracker_weights(checkpoints.restore_variables(bare)).keys() == \
@@ -244,8 +245,8 @@ def test_resume_takes_the_current_optimizer_hyperparameters(tmp_path, rng, opt):
     def step(state, cfg, g):
         for p, x in zip(state.net.parameters(), g):
             p.grad = torch.from_numpy(x)
-        tt.apply_gradients(state.optimizer, cfg.grad_clip,
-                           tt.make_lr_schedule(cfg, 1)(state.step))
+        tt.clip_gradients(list(state.net.parameters()), cfg.grad_clip)
+        tt.apply_update(state.optimizer, tt.make_lr_schedule(cfg, 1)(state.step))
         state.step += 1
 
     torch.manual_seed(0)

@@ -1310,3 +1310,66 @@ def test_pose_graph_on_card(cuda):
     torch.testing.assert_close(card.t.cpu(), cpu.t, rtol=0, atol=1e-9)
     torch.testing.assert_close(f32.t.double(), card.t, rtol=0, atol=1e-5)
     np.testing.assert_allclose(card.t.cpu().numpy(), poses[:, :3, 3], atol=1e-8)
+
+
+def _accum_step_on_card(cuda, plain, accum=2):
+    from deep_prob_feature_track_torch.models.presets import get_preset
+    from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
+    from deep_prob_feature_track_torch.training import train as tt
+
+    cfg = tt.TrainConfig(accum_steps=accum)
+    net = LeastSquareTracking(get_preset("feature"), plain_kernels=plain)
+    state = tt.create_train_state(net, cfg, seed=1, device=cuda)
+    tk.reset_launches()
+    state, metrics = tt.make_train_step(cfg, 100)(state, tt.synthetic_batch(4, 60, 80, seed=3,
+                                                                            device=cuda))
+    torch.cuda.synchronize()
+    grads = {k: p.grad.clone() for k, p in net.named_parameters()}
+    return metrics, grads, dict(tk.LAUNCHES), {k: p.detach() for k, p in net.named_parameters()}
+
+
+def test_accumulated_step_kernels_match_plain_on_card(cuda):
+    """``accum_steps=2``: 12 launches of K2, K3 and K6 a microbatch; the
+    loss within 1e-5 relative of the plain step's, the averaged gradients
+    within 5e-3 of each leaf's largest entry, the parameters within 2 lr
+    (one Adam update each)."""
+    from deep_prob_feature_track_torch.training import train as tt
+
+    (m, grads, launches, params), (m_p, grads_p, launches_p, params_p) = (
+        _accum_step_on_card(cuda, plain) for plain in (False, True))
+    assert launches == {**{k: 0 for k in launches}, "gather_twohot_grads": 24,
+                        "splat_twohot": 24, "fused_jtj_jtr": 24}
+    assert not any(launches_p.values())
+    loss, loss_p = m["loss"].item(), m_p["loss"].item()
+    assert np.isfinite(loss) and abs(loss - loss_p) <= 1e-5 * abs(loss_p)
+    for key, ref in grads_p.items():
+        torch.testing.assert_close(grads[key], ref, rtol=0,
+                                   atol=5e-3 * ref.abs().max().item(), msg=key)
+    lr = tt.TrainConfig().lr
+    assert max((params[k] - params_p[k]).abs().max().item() for k in params) <= 2 * lr
+
+
+def test_guard_skips_a_nan_batch_bit_for_bit_on_card(cuda):
+    import copy
+
+    from deep_prob_feature_track_torch.models.presets import get_preset
+    from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
+    from deep_prob_feature_track_torch.training import train as tt
+
+    cfg = tt.TrainConfig()
+    state = tt.create_train_state(LeastSquareTracking(get_preset("feature")), cfg, seed=1,
+                                  device=cuda)
+    step = tt.make_train_step(cfg, 100, guard_nonfinite=True)
+    state, metrics = step(state, tt.synthetic_batch(2, 60, 80, seed=1, device=cuda))
+    assert not bool(metrics["skipped"])
+    net_before = copy.deepcopy(state.net.state_dict())
+    opt_before = copy.deepcopy(state.optimizer.state_dict()["state"])
+    batch = tt.synthetic_batch(2, 60, 80, seed=2, device=cuda)
+    batch["depth0"][0] = float("nan")
+    state, metrics = step(state, batch)
+    assert bool(metrics["skipped"]) and state.step == 2
+    for k, v in state.net.state_dict().items():
+        assert torch.equal(v, net_before[k]), k
+    for i, s in state.optimizer.state_dict()["state"].items():
+        for k, v in s.items():
+            assert torch.equal(v, opt_before[i][k]), (i, k)

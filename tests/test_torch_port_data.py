@@ -304,7 +304,10 @@ def test_dataset_roots_and_unported_datasets(monkeypatch):
     monkeypatch.setitem(sys.modules, "yaml", None)  # a machine without PyYAML
     with pytest.raises(ImportError, match="--data_root"):
         ploader.get_dataset_root("TUM_RGBD")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # ScanNet is ported: the loader routes it, and it lists the root's scans
+    with pytest.raises(FileNotFoundError, match="/x/train"):
         ploader.load_data("ScanNet", [1], root="/x")
+    with pytest.raises(ValueError, match="unsupported dataset"):
+        ploader.load_data("KITTI", [1], root="/x")
     # VaryLighting is ported: a root without scenes gives an empty dataset
     assert len(ploader.load_data("VaryLighting", [1], "test", root="/x")) == 0

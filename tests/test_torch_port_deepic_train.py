@@ -75,7 +75,7 @@ def loss_and_grads():
     """JAX (float64) and port (float32) loss, parameter gradients and
     BatchNorm statistics of one training batch, from the same weights, and
     the port's calls of each kernel wrapper."""
-    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=5).items()}
+    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=5, device="cpu").items()}
     port = LeastSquareTracking(get_preset("DeepIC")).reset_parameters(7)
     v = convert_state_dict(port.state_dict())
     assert v.pop("unmapped") == {}
@@ -175,7 +175,7 @@ def test_training_backward_matches_plain_autograd_in_float64(monkeypatch):
     Function of the gathers equals autograd through the plain gather and
     blend, in float64."""
     batch = {k: v.double() if v.is_floating_point() else v
-             for k, v in tt.synthetic_batch(B, 16, 20, seed=1).items()}
+             for k, v in tt.synthetic_batch(B, 16, 20, seed=1, device="cpu").items()}
     net = LeastSquareTracking(get_preset("DeepIC"), plain_kernels=True).reset_parameters(2)
     state = copy.deepcopy(net.state_dict())
 

@@ -230,7 +230,19 @@ def test_ground_truth_is_a_fixed_point(window, dtype):
         np.testing.assert_allclose(got, ref, atol=1e-8, rtol=0)
 
 
-def test_mesh_raises(window):
-    _, port = _cast(window, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        pdb.refine_dense_window(*port, mesh=object())
+def test_mesh_of_one_rank_is_the_refinement(window):
+    """On a mesh of one rank the sharded window gives the unsharded one's
+    bits (two ranks against the JAX mesh: ``test_torch_port_dist.py``)."""
+    from deep_prob_feature_track_torch.parallel import mesh as pmesh
+
+    _, port = _cast(window, torch.float64)
+    mesh = pmesh.make_mesh("cpu")
+    try:
+        got = pdb.refine_dense_window(*port, iterations=2, plain=True, mesh=mesh)
+        ref = pdb.refine_dense_window(*port, iterations=2, plain=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        with pytest.raises(ValueError, match="multiple of"):
+            pdb.refine_dense_window(*port, plain=True, mesh=pmesh.Mesh(
+                None, 0, 1 + port[3].shape[0], torch.device("cpu")))
+    finally:
+        pmesh.destroy()

@@ -215,8 +215,9 @@ def test_warping_objects_gt_pose_warps_the_object_into_place(tmp_path, root, cat
     item = load_data("MovingObjects3D", [1], "test", select_traj="boat", root=root,
                      image_resize=1.0)[0]
     T = torch.from_numpy(item["transform"][None])
-    gt = pwo.warp_residual_mosaic(item, (T[:, :3, :3], T[:, :3, 3]), str(tmp_path / "gt.png"))
+    gt = pwo.warp_residual_mosaic(item, (T[:, :3, :3], T[:, :3, 3]), str(tmp_path / "gt.png"),
+                                  device="cpu")
     eye = pwo.warp_residual_mosaic(item, (torch.eye(3)[None], torch.zeros(1, 3)),
-                                   str(tmp_path / "eye.png"))
+                                   str(tmp_path / "eye.png"), device="cpu")
     assert gt < 0.15 * eye, (gt, eye)
     assert read_png(str(tmp_path / "gt.png")).shape == (2 * 128, 2 * 160, 3)

@@ -20,6 +20,7 @@ make a frame's pose depend on its batch.  Tolerances:
 - ``summarize_results``: 1e-6 relative, on the same per-frame arrays.
 """
 
+import json
 import os
 import pickle
 import sys
@@ -227,17 +228,83 @@ def test_evaluate_cli_on_cpu(evaluated, sequence, tmp_path, monkeypatch, capsys)
             np.testing.assert_array_equal(dumped[name], info[name], err_msg=name)
 
 
-# VaryLighting is ported: on it, --mesh is refused still
+# Every option the CLIs refused before ROADMAP items 5, 6 and 8 runs now.
+# On one process (a mesh of one rank) the sharded runs give the plain run's
+# bits, and --debug_nan leaves a finite step as it is.
 EVAL_FLAGS = [["--mesh"], ["--dataset", "ScanNet"], ["--mesh", "--dataset", "VaryLighting"]]
 TRAIN_FLAGS = [["--accum_steps", "2"], ["--mesh"], ["--distributed"], ["--debug_nan"],
                ["--dataset", "ScanNet"]]
 
 
+@pytest.fixture(scope="module")
+def roots(sequence, tmp_path_factory):
+    """Dataset roots: the TUM sequence's folder (its name patched into
+    ``TUM_TRAINVAL`` for the train CLI), a VaryLighting scene of its first
+    3 frames, and a 5-frame ScanNet scan (``chip_smoke.write_scannet_scan``)
+    under both ``train/`` and ``val/``."""
+    import shutil
+
+    from chip_smoke import write_scannet_scan
+
+    base = tmp_path_factory.mktemp("roots")
+    for sub in ("rgb", "depth"):
+        os.makedirs(base / "vl" / "scene0" / sub)
+        for name in sorted(os.listdir(os.path.join(sequence, sub)))[:3]:
+            shutil.copy(os.path.join(sequence, sub, name), base / "vl" / "scene0" / sub / name)
+    write_scannet_scan(str(base / "scannet" / "val" / "scene0011_00"), n=5)
+    shutil.copytree(base / "scannet" / "val", base / "scannet" / "train")
+    return {"TUM_RGBD": os.path.dirname(sequence), "VaryLighting": str(base / "vl"),
+            "ScanNet": str(base / "scannet")}
+
+
+def _dataset(flags):
+    return flags[flags.index("--dataset") + 1] if "--dataset" in flags else "TUM_RGBD"
+
+
+def _run_eval(roots, sequence, out, flags=()):
+    dataset = _dataset(list(flags))
+    traj = {"TUM_RGBD": sequence, "VaryLighting": "scene0", "ScanNet": "scene0011_00"}[dataset]
+    root = "" if dataset == "TUM_RGBD" else roots[dataset]
+    assert pev.main(["--dataset", dataset, "--data_root", root, "--trajectory", traj,
+                     "--keyframes", "1", "--batch_size", "2", "--image_resize", str(RESIZE),
+                     "--output_dir", str(out), "--device", "cpu",
+                     *[f for f in flags if f not in ("--dataset", dataset)]]) == 0
+    (ckpt_dir,) = out.iterdir()
+    return {p.name: p.read_bytes() for p in ckpt_dir.iterdir()}
+
+
+def _run_train(roots, out, flags=()):
+    from deep_prob_feature_track_torch.data import tum as ptum
+    from deep_prob_feature_track_torch.utils import logger as plogger
+
+    dataset = _dataset(list(flags))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ptum, "TUM_TRAINVAL", {"fx": ["seq"]})
+        mp.setattr(plogger, "_tb_writer", lambda logdir: None)  # TensorFlow's import
+        assert ptr.main(["--dataset", dataset, "--data_root", roots[dataset], "--keyframes", "1",
+                         "--batch_size", "2", "--image_resize", str(RESIZE), "--epochs", "1",
+                         "--max_steps_per_epoch", "1", "--no_val", "--checkpoint_folder",
+                         str(out), "--device", "cpu",
+                         *[f for f in flags if f not in ("--dataset", dataset)]]) == 0
+    (logdir,) = out.iterdir()
+    lines = (logdir / "metrics.jsonl").read_text().splitlines()
+    return [v["value"] for v in map(json.loads, lines) if v["tag"] == "train/loss"]
+
+
 @pytest.mark.parametrize("cli,flags", [(pev, f) for f in EVAL_FLAGS]
                          + [(ptr, f) for f in TRAIN_FLAGS])
-def test_cli_refuses_what_is_not_ported(cli, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        cli.main(["--device", "cpu", "--data_root", "/nonexistent", *flags])
+def test_cli_runs_what_it_refused(cli, flags, roots, sequence, tmp_path):
+    dataset = _dataset(flags)
+    if cli is pev:
+        got = _run_eval(roots, sequence, tmp_path / "got", flags)
+        assert "summary.csv" in got  # (a TUM path's dumps land beside the sequence)
+        if "--mesh" in flags:
+            assert got == _run_eval(roots, sequence, tmp_path / "ref", ["--dataset", dataset])
+        return
+    losses = _run_train(roots, tmp_path / "got", flags)
+    assert len(losses) == 1 and np.isfinite(losses[0]) and losses[0] > 0
+    if dataset == "TUM_RGBD" and "--accum_steps" not in flags:
+        assert losses == _run_train(roots, tmp_path / "ref")
 
 
 def test_timers_and_profile_trace(tmp_path):

@@ -32,7 +32,7 @@ B, H, W = 2, 32, 40
 def loss_and_grads():
     """JAX and port loss and parameter gradients of one training batch,
     from the same weights."""
-    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=5).items()}
+    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=5, device="cpu").items()}
     port = LeastSquareTracking(get_preset("feature_icp")).reset_parameters(7)
     # the JAX package's own bridge carries the port's weights over: no
     # flax init to compile (tests/test_torch_port_models.py holds it)

@@ -47,7 +47,7 @@ B, H, W = 2, 32, 40
 
 
 def _batch():
-    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=3).items()}
+    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=3, device="cpu").items()}
     batch["obj_mask0"], batch["obj_mask1"] = object_masks(B, H, W)
     return batch
 

@@ -162,7 +162,8 @@ NEW_MODULES = ("data.association", "data.io", "data.loader", "data.pipeline", "d
                "apps.train", "apps.baselines", "apps.kf_vo", "apps.traj_eval",
                "apps.import_checkpoint", "apps.convergence_basin", "data.moving_objects",
                "utils.display", "apps.warping_objects", "parallel.ba", "parallel.dense_ba",
-               "apps.ba_refine", "data.simple", "apps.run_example", "data.vary_lighting")
+               "apps.ba_refine", "data.simple", "apps.run_example", "data.vary_lighting",
+               "parallel.mesh", "data.jpeg", "data.scannet", "utils.debug")
 
 
 def _blocked_python(code):
@@ -299,3 +300,53 @@ assert evaluate.main(["--dataset", "VaryLighting", "--data_root", os.path.join(r
     assert len((tmp_path / "ba.txt").read_text().splitlines()) == 5
     assert out.stdout.count("translation:") == 4 and "4 poses estimated" in out.stdout
     assert os.path.isfile(tmp_path / "vl_out" / "nolearning_feature" / "summary.csv")
+
+
+def test_mesh_and_scannet_clis_run_on_numpy_alone(tmp_path):
+    """With the same modules blocked, on a mesh of this process alone
+    (gloo): the train CLI with ``--accum_steps 2 --mesh --debug_nan``, the
+    evaluate CLI with ``--mesh`` and ``ba_refine --sharded`` on a written
+    TUM-format sequence, and both CLIs on a ScanNet scan of
+    ``chip_smoke.write_scannet_scan`` (JPEG colour, no OpenCV)."""
+    code = f"""
+import os
+sys.path.insert(0, {REPO!r})
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+from deep_prob_feature_track_torch.apps import ba_refine, evaluate, train
+from deep_prob_feature_track_torch.data import tum
+root = {str(tmp_path)!r}
+seq = os.path.join(root, "seq")
+chip_smoke.write_tum_sequence(seq, n=5)
+tum.TUM_TRAINVAL.clear()
+tum.TUM_TRAINVAL["fx"] = ["seq"]
+assert train.main(["--data_root", root, "--keyframes", "1", "--batch_size", "2",
+                   "--image_resize", "0.1", "--epochs", "1", "--max_steps_per_epoch", "1",
+                   "--no_val", "--checkpoint_folder", os.path.join(root, "mesh_logs"),
+                   "--accum_steps", "2", "--mesh", "--debug_nan", "--device", "cpu"]) == 0
+assert evaluate.main(["--data_root", "", "--trajectory", seq, "--keyframes", "1", "--mesh",
+                      "--batch_size", "2", "--image_resize", "0.1",
+                      "--output_dir", os.path.join(root, "mesh_out"), "--device", "cpu"]) == 0
+assert ba_refine.main(["--data_root", "", "--trajectory", seq, "--image_resize", "0.1",
+                       "--window", "2", "--sharded", "--output", os.path.join(root, "bas.txt"),
+                       "--device", "cpu"]) == 0
+scannet = os.path.join(root, "scannet")
+chip_smoke.write_scannet_scan(os.path.join(scannet, "val", "scene0011_00"), n=4)
+chip_smoke.write_scannet_scan(os.path.join(scannet, "train", "scene0000_00"), n=4)
+assert evaluate.main(["--dataset", "ScanNet", "--data_root", scannet, "--trajectory",
+                      "scene0011_00", "--keyframes", "1", "--batch_size", "2",
+                      "--image_resize", "0.1", "--output_dir", os.path.join(root, "sn_out"),
+                      "--device", "cpu"]) == 0
+assert train.main(["--dataset", "ScanNet", "--data_root", scannet, "--keyframes", "1",
+                   "--batch_size", "2", "--image_resize", "0.1", "--epochs", "1",
+                   "--max_steps_per_epoch", "1", "--no_val", "--checkpoint_folder",
+                   os.path.join(root, "sn_logs"), "--device", "cpu"]) == 0
+"""
+    out = _blocked_python(code)
+    assert out.returncode == 0, out.stderr
+    for logs in ("mesh_logs", "sn_logs"):
+        assert len(list((tmp_path / logs).rglob("checkpoint_epoch1.pt"))) == 1, logs
+    assert os.path.isfile(tmp_path / "mesh_out" / "nolearning_feature" / "summary.csv")
+    assert os.path.isfile(tmp_path / "sn_out" / "nolearning_feature" / "summary.csv")
+    assert len((tmp_path / "bas.txt").read_text().splitlines()) == 5

@@ -254,7 +254,7 @@ def slice_models():
     """(JAX tracker, its PRNGKey(7) variables, the port tracker with them,
     the numpy batch): smooth scenes at 96x448, where level 0 takes K4/K5."""
     batch = {k: v.numpy() for k, v in tt.synthetic_batch(B_SLICE, H_SLICE, W_SLICE,
-                                                          seed=3).items()}
+                                                          seed=3, device="cpu").items()}
     net = JaxTracker(cfg=jp.get_preset("feature"))
     # the weights do not depend on the image size: initialise at 32x40
     small = [jnp.asarray(batch[k][..., :32, :40]) for k in KEYS[:4]] + [jnp.asarray(
@@ -318,8 +318,8 @@ def test_train_loss_at_96x448_matches_jax(slice_models):
 
 
 def test_example_batch_intrinsics_follow_the_image_size():
-    np.testing.assert_array_equal(example_batch(2, 120, 160)[4].numpy(),
+    np.testing.assert_array_equal(example_batch(2, 120, 160, device="cpu")[4].numpy(),
                                   [[131.25, 131.25, 79.875, 59.875]] * 2)
-    np.testing.assert_array_equal(example_batch(1, 480, 640)[4].numpy(),
+    np.testing.assert_array_equal(example_batch(1, 480, 640, device="cpu")[4].numpy(),
                                   [[525.0, 525.0, 319.5, 239.5]])
-    assert example_batch(1, 480, 640)[0].shape == (1, 3, 480, 640)
+    assert example_batch(1, 480, 640, device="cpu")[0].shape == (1, 3, 480, 640)

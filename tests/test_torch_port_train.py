@@ -270,7 +270,7 @@ def test_compute_rt_epe_loss_matches_jax(rng, mode):
 def loss_and_grads():
     """JAX and port loss, parameter gradients and BatchNorm statistics of one
     training batch, from the same ``PRNGKey(7)`` weights."""
-    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=3).items()}
+    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=3, device="cpu").items()}
     net = JaxTracker(cfg=jp.get_preset("feature"))
     ins = [jnp.asarray(batch[k]) for k in ("color0", "color1", "depth0", "depth1", "calib")]
     v = jax.jit(lambda k, *a: net.init(k, *a, train=False))(jax.random.PRNGKey(7), *ins)
@@ -327,7 +327,7 @@ def test_training_backward_matches_plain_autograd_in_float64(monkeypatch):
     """The whole training gradient through the custom autograd Functions
     equals autograd through the plain forward ops (gather, blend, einsums)."""
     batch = {k: v.double() if v.is_floating_point() else v
-             for k, v in tt.synthetic_batch(B, 16, 20, seed=1).items()}
+             for k, v in tt.synthetic_batch(B, 16, 20, seed=1, device="cpu").items()}
     net = LeastSquareTracking(get_preset("feature"), plain_kernels=True).reset_parameters(2)
     state = copy.deepcopy(net.state_dict())
 
@@ -387,7 +387,8 @@ def test_optimizer_matches_optax_chain(rng):
     for step, g in enumerate(grads):
         for p, x in zip(p_t, g):
             p.grad = torch.tensor(x)
-        norm = tt.apply_gradients(optimizer, cfg.grad_clip, schedule(step))
+        norm = tt.clip_gradients(p_t, cfg.grad_clip)
+        tt.apply_update(optimizer, schedule(step))
         np.testing.assert_allclose(norm.item(), float(optax.global_norm(g)), rtol=1e-6)
     for a, b in zip(p_t, p_j):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=1e-6, rtol=0)
@@ -404,23 +405,23 @@ def test_lr_schedule_matches_optax():
 # ------------------------------------------------------- the train step
 
 
-def test_train_step_runs_and_refuses_what_is_not_ported():
+def test_train_step_runs_and_refuses_a_bad_config():
     cfg = tt.TrainConfig()
     state = tt.create_train_state(LeastSquareTracking(get_preset("feature")), cfg, seed=1,
                                   device="cpu")
     assert state.net.training
     before = copy.deepcopy(state.net.state_dict())
     step = tt.make_train_step(cfg, steps_per_epoch=10)
-    batch = tt.synthetic_batch(B, 16, 20, seed=5)
+    batch = tt.synthetic_batch(B, 16, 20, seed=5, device="cpu")
     state, metrics = step(state, batch)
     assert state.step == 1
     assert np.isfinite(metrics["loss"].item()) and np.isfinite(metrics["grad_norm"].item())
     moved = [k for k, v in state.net.state_dict().items() if not torch.equal(v, before[k])]
     assert "encoder.net0.0.0.weight" in moved and "pose_predictor.final_layer.1.bias" in moved
-    with pytest.raises(NotImplementedError):
-        tt.make_train_step(tt.TrainConfig(accum_steps=2), 10)
-    with pytest.raises(NotImplementedError):
-        tt.make_train_step(cfg, 10, guard_nonfinite=True)
+    with pytest.raises(ValueError, match="accum_steps"):
+        tt.make_train_step(tt.TrainConfig(accum_steps=0), 10)
+    with pytest.raises(ValueError, match="not divisible by accum_steps=3"):
+        tt.make_train_step(tt.TrainConfig(accum_steps=3), 10)(state, batch)
     with pytest.raises(ValueError, match="uncer_prop"):
         tt.compute_loss(state.net, tt.TrainConfig(loss="URPE"), batch)
     with pytest.raises(ValueError, match="training mode"):

@@ -324,7 +324,7 @@ def test_forward_at_96x448_routes_level_0_through_k4_and_matches_jax(variables, 
     > 16).  The forward matches the JAX one within ``ATOL``."""
     net, v, port = _models(variables, UFC)
     batch = {k: a.numpy() for k, a in tt.synthetic_batch(B_SLICE, H_SLICE, W_SLICE,
-                                                         seed=3).items()}
+                                                         seed=3, device="cpu").items()}
     calls = {}
     _counting(monkeypatch, calls)
     with torch.inference_mode():

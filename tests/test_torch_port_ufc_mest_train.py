@@ -83,7 +83,7 @@ def steps():
     """The port's float32 and float64 steps, the float32 step's kernel
     calls, and the JAX float64 loss, statistics and gradients from the same
     weights."""
-    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=5).items()}
+    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=5, device="cpu").items()}
     calls = {}
     net32, loss32 = _port_step(batch, torch.float32, calls)
     net64, loss64 = _port_step(batch, torch.float64)

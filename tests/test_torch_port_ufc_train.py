@@ -47,7 +47,7 @@ def step():
     """The port's loss, gradients, statistics and kernel calls of one
     training batch, and the JAX loss, statistics and gradients from the same
     weights."""
-    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=5).items()}
+    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=5, device="cpu").items()}
     cfg = tp.apply_overrides(tp.get_preset("feature"), UFC)
     port = LeastSquareTracking(cfg).reset_parameters(7)
     v = convert_state_dict(port.state_dict())

@@ -62,7 +62,7 @@ def _inputs(seed=3):
     """``synthetic_batch``'s smooth textured scene: on uniform-noise depth
     the ICP track's float32 occlusion test flips pixels between two
     roundings (ROADMAP queue 3), and its information matrix with them."""
-    batch = tt.synthetic_batch(B, H, W, seed=seed)
+    batch = tt.synthetic_batch(B, H, W, seed=seed, device="cpu")
     return tuple(batch[k].numpy() for k in ("color0", "color1", "depth0", "depth1", "calib"))
 
 

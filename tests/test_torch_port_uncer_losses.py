@@ -109,7 +109,7 @@ def test_rt_epe_uncertainty_loss_matches_jax(rng):
 
 
 def test_compute_loss_takes_all_four_losses():
-    batch = tt.synthetic_batch(B, H, W, seed=3)
+    batch = tt.synthetic_batch(B, H, W, seed=3, device="cpu")
     net = LeastSquareTracking(apply_overrides(get_preset("feature"), ["uncer_prop=1"]))
     net.reset_parameters(7).train()
     values = {}

@@ -40,7 +40,7 @@ UNCER = ["uncer_prop=1"]
 
 
 def _batch(dtype, depth_scale=1.0):
-    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=3).items()}
+    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=3, device="cpu").items()}
     batch["depth0"] = batch["depth0"] * depth_scale
     return {k: a.astype(dtype) if a.dtype == np.float32 else a for k, a in batch.items()}
 

@@ -302,9 +302,25 @@ def test_train_cli_on_vary_lighting_stops_as_the_jax_cli(vl_root, tmp_path, monk
                   "--no_val", "--checkpoint_folder", str(tmp_path / "port"), "--device", "cpu"])
 
 
-def test_scannet_still_raises():
-    with pytest.raises(NotImplementedError, match="JPEG.*item 6"):
-        ploader.load_data("ScanNet", [1], root="/x")
-    for cli in (pev, ptr):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            cli.main(["--dataset", "ScanNet", "--device", "cpu"])
+def test_scannet_loads_in_the_loader_and_both_clis(tmp_path, monkeypatch, capsys):
+    """ScanNet is ported (``tests/test_torch_port_scannet.py`` holds it to
+    the JAX package): the loader reads a written scan, and both CLIs run on
+    it."""
+    from chip_smoke import write_scannet_scan
+    from deep_prob_feature_track_torch.utils import logger as plogger
+
+    monkeypatch.setattr(plogger, "_tb_writer", lambda logdir: None)  # TensorFlow's import
+    root = tmp_path / "scannet"
+    for split in ("train", "val"):
+        write_scannet_scan(str(root / split / "scene0011_00"), n=4)
+    assert len(ploader.load_data("ScanNet", [1], "test", root=str(root))) == 3
+    assert pev.main(["--dataset", "ScanNet", "--data_root", str(root), "--trajectory",
+                     "scene0011_00", "--keyframes", "1", "--batch_size", "2",
+                     "--image_resize", "0.1", "--output_dir", str(tmp_path / "out"),
+                     "--device", "cpu"]) == 0
+    assert "scene0011_00_keyframe_1: EPE3D=" in capsys.readouterr().out
+    assert ptr.main(["--dataset", "ScanNet", "--data_root", str(root), "--keyframes", "1",
+                     "--batch_size", "2", "--image_resize", "0.1", "--epochs", "1",
+                     "--max_steps_per_epoch", "1", "--no_val", "--checkpoint_folder",
+                     str(tmp_path / "logs"), "--device", "cpu"]) == 0
+    assert "step=1)" in capsys.readouterr().out
