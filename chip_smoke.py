@@ -154,11 +154,17 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    12 upsamples of the prior weights), K3 21 times (the zero residual's
    weights reach no loss).
 
-27. write a TUM-format sequence of 24 640x480 frames (8-bit RGB, 16-bit
-   depth, ``rgb.txt``, ``depth.txt``, ``groundtruth.txt``; a textured plane
-   seen from a camera that moves 1.5 cm and 0.5 degrees a frame) with the
-   script's own PNG writer (rows filtered by Sub), and one frame filtered
-   by Paeth; time the port's decode of each (median of 5);
+27. build the port's native host tier (``data/native_io.py``, the host's
+   C++ compiler: its version, the build's seconds, and whether ``png.h``,
+   ``zlib.h`` and ``jpeglib.h`` exist, printed only); write a TUM-format
+   sequence of 24 640x480 frames (8-bit RGB, 16-bit depth, ``rgb.txt``,
+   ``depth.txt``, ``groundtruth.txt``; a textured plane seen from a camera
+   that moves 1.5 cm and 0.5 degrees a frame) with the script's own PNG
+   writer (rows filtered by Sub), and the first frame again filtered by
+   Paeth, by Average and by all five filters in turn; every frame read
+   through the native tier and through the numpy twins (``plain=True``)
+   must give the same bits (``read_png``, and ``read_rgb`` or
+   ``read_depth_png`` at 0.25 and 1.0); time both (medians of 5 and 3);
 28. ``apps.evaluate.main`` on it (keyframes 1 and 2, B=8) at
    ``--image_resize`` 0.25 and 1.0: per batch K1 12 and K6 12 times at
    120x160, K4 3, K1 9 and K6 12 times at 640x480, nothing else; the
@@ -172,8 +178,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    K6 12 times a step) and 1 at 640x480 B=4 (K5 6, K2 6, K3 12, K6 12),
    finite losses, the checkpoint; a resume from it for one more step (the
    step goes on from 2, the weights and optimizer state come back); the
-   evaluate CLI on the resumed checkpoint at 120x160; ms per step and the
-   loader's ms per batch of 64 pairs;
+   evaluate CLI on the resumed checkpoint at 120x160; ms per step, the
+   share of wait and step spent waiting on the loader, and the loader's ms
+   per batch of 64 pairs;
 30. the JSON record gets ``cli_eval``, ``cli_train`` and ``png_decode_ms``;
 31. ``apps.evaluate.main --tracker`` on the sequence of 27 for the six
    non-learned baselines at ``--image_resize`` 0.25 and for ``ICP`` and
@@ -318,8 +325,10 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    window at level 1 (K1 3 / K6 3 on each rank) against one process
    (``DENSE_ATOL``);
 55. a written 16-frame 640x480 ScanNet scan (``write_scannet_scan``: the
-   TUM scene, JPEG colour by ``encode_jpeg``): the decode time of one
-   frame on the host, the evaluate CLI at stride 2 at 120x160 (K1 12 / K6
+   TUM scene, JPEG colour by ``encode_jpeg``): every frame's ``read_jpeg``,
+   ``read_rgb`` at 0.25 and 1.0 and depth map through the native tier and
+   the numpy twins bit for bit, and the decode times of one frame on the
+   host through both; the evaluate CLI at stride 2 at 120x160 (K1 12 / K6
    12 a batch) and 640x480 (K4 3 / K1 9 / K6 12), its 120x160 poses
    against the CLI on the CPU within 1e-4, frames/s and the loader-wait
    share, and one train-CLI step (B=4, K2 12 / K3 12 / K6 12);
@@ -1977,34 +1986,93 @@ def host_ms(fn, reps: int = 5) -> float:
     return sorted(times)[reps // 2]
 
 
+def host_tier_build():
+    """The port's native host tier built on this machine (phase 27): the
+    host compiler's version, the seconds of the build and load, and whether
+    the compiler finds libpng's, zlib's and libjpeg's headers (printed only:
+    the tier needs none of them)."""
+    from deep_prob_feature_track_torch.data import native_io
+    from deep_prob_feature_track_torch.ops.kernels import loader
+
+    cxx = loader.host_cxx()
+    version = subprocess.run([*cxx, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.strip().splitlines()[0]
+    cached = loader.host_target(native_io.SOURCE, native_io.BUILD_DIR).exists()
+    t0 = time.monotonic()
+    native_io.library()
+    build_s = time.monotonic() - t0
+    headers = {h: subprocess.run([*cxx, "-E", "-x", "c++", "-"], input=f"#include <{h}>\n",
+                                 capture_output=True, text=True, timeout=60).returncode == 0
+               for h in ("png.h", "zlib.h", "jpeglib.h")}
+    log(f"host tier: {' '.join(cxx)} ({version}); built and loaded in {build_s:.2f} s"
+        f"{' (a library was there already)' if cached else ''}; headers found: "
+        + ", ".join(f"{h} {'yes' if ok else 'no'}" for h, ok in headers.items()))
+    return {"cxx": version, "build_s": build_s, "cached": cached, "headers": headers}
+
+
+def same_bits(label, native, plain):
+    """Raise unless the arrays ``native`` and ``plain`` hold the same
+    dtype, shape and bytes."""
+    if native.dtype != plain.dtype or native.shape != plain.shape or \
+            native.tobytes() != plain.tobytes():
+        raise AssertionError(f"{label}: the native tier's output differs from the numpy twin's")
+
+
+def native_and_plain_ms(fn, reps: int = 5) -> dict:
+    """Host ms of ``fn(plain=False)`` (median of ``reps``) and of
+    ``fn(plain=True)`` (median of 3)."""
+    return {"native": host_ms(lambda: fn(plain=False), reps),
+            "plain": host_ms(lambda: fn(plain=True), 3)}
+
+
 def phase_tum_sequence(workdir):
-    """Phase 27: the TUM-format sequence the CLI phases read, and the port's
-    decode time of a Sub-filtered and a Paeth-filtered 640x480 frame."""
+    """Phase 27: the TUM-format sequence the CLI phases read; the native
+    host tier's build; every written frame read through the native tier and
+    through the numpy twins, bit for bit; the decode times of both for a
+    Sub, Paeth, Average and mixed-filter 640x480 frame and a depth map."""
     from deep_prob_feature_track_torch.data import io as dio
     from deep_prob_feature_track_torch.data.png import read_png
 
+    host = host_tier_build()
     seq = os.path.join(workdir, "seq")
     t0 = time.monotonic()
     write_tum_sequence(seq)
     log(f"wrote a {TUM_FRAMES}-frame 640x480 TUM-format sequence in "
         f"{time.monotonic() - t0:.1f} s")
-    rgb = os.path.join(seq, "rgb", sorted(os.listdir(os.path.join(seq, "rgb")))[0])
-    depth = rgb.replace(os.sep + "rgb" + os.sep, os.sep + "depth" + os.sep)
-    paeth = os.path.join(workdir, "paeth.png")
-    write_png(paeth, read_png(rgb), filter_type=4)
-    if not (read_png(paeth) == read_png(rgb)).all():
-        raise AssertionError("the Paeth frame does not decode to the Sub frame's pixels")
-    decode = {
-        "sub_rgb8": host_ms(lambda: read_png(rgb)),
-        "paeth_rgb8": host_ms(lambda: read_png(paeth)),
-        "sub_depth16": host_ms(lambda: read_png(depth)),
-        "read_rgb_sub_0.25": host_ms(lambda: dio.read_rgb(rgb, 0.25)),
-        "read_rgb_sub_1.0": host_ms(lambda: dio.read_rgb(rgb, 1.0)),
-        "read_depth_png_sub_0.25": host_ms(lambda: dio.read_depth_png(depth, 5000.0, 0.25)),
-    }
-    log("PNG decode of one 640x480 frame, ms (median of 5): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in decode.items()))
-    return seq, decode
+    rgbs = [os.path.join(seq, "rgb", f) for f in sorted(os.listdir(os.path.join(seq, "rgb")))]
+    depths = [p.replace(os.sep + "rgb" + os.sep, os.sep + "depth" + os.sep) for p in rgbs]
+    frames = {"sub": rgbs[0]}
+    for name, filt in (("paeth", 4), ("average", 3), ("mixed", np.arange(480) % 5)):
+        frames[name] = os.path.join(workdir, f"{name}.png")
+        write_png(frames[name], read_png(rgbs[0]), filter_type=filt)
+        if not (read_png(frames[name]) == read_png(rgbs[0])).all():
+            raise AssertionError(f"the {name} frame does not decode to the Sub frame's pixels")
+    t0 = time.monotonic()
+    for path in rgbs + list(frames.values())[1:]:
+        same_bits(path, read_png(path), read_png(path, plain=True))
+        for scale in (CLI_SMALL, CLI_VGA):
+            same_bits(f"{path} at {scale}", dio.read_rgb(path, scale),
+                      dio.read_rgb(path, scale, plain=True))
+    for path in depths:
+        same_bits(path, read_png(path), read_png(path, plain=True))
+        for scale in (CLI_SMALL, CLI_VGA):
+            same_bits(f"{path} at {scale}", dio.read_depth_png(path, 5000.0, scale),
+                      dio.read_depth_png(path, 5000.0, scale, plain=True))
+    log(f"native against plain: {len(rgbs) + 3} RGB frames (Sub, Paeth, Average, mixed) and "
+        f"{len(depths)} depth maps bit for bit, read_png and at {CLI_SMALL} and {CLI_VGA}, in "
+        f"{time.monotonic() - t0:.1f} s")
+    decode = {f"{name}_rgb8": native_and_plain_ms(lambda plain, p=path: read_png(p, plain=plain))
+              for name, path in frames.items()}
+    decode["sub_depth16"] = native_and_plain_ms(lambda plain: read_png(depths[0], plain=plain))
+    for name in ("sub", "paeth"):
+        for scale in (CLI_SMALL, CLI_VGA):
+            decode[f"read_rgb_{name}_{scale}"] = native_and_plain_ms(
+                lambda plain, p=frames[name], s=scale: dio.read_rgb(p, s, plain=plain))
+    decode[f"read_depth_png_{CLI_SMALL}"] = native_and_plain_ms(
+        lambda plain: dio.read_depth_png(depths[0], 5000.0, CLI_SMALL, plain=plain))
+    log("PNG decode of one 640x480 frame, ms native / plain (median of 5 / 3): "
+        + ", ".join(f"{k} {v['native']:.2f} / {v['plain']:.2f}" for k, v in decode.items()))
+    return seq, {"host_tier": host, **decode}
 
 
 class _CliProbe:
@@ -2198,8 +2266,12 @@ def phase_cli_train(torch, dev, seq, workdir):
                                      f"expected {expected}")
         (logdir,) = [os.path.join(logs, d) for d in os.listdir(logs)
                      if d.endswith(f"_batch_{batch}")]
+        step_s = sum(st["ms"] for st in probe.steps) / 1e3
+        share = probe.wait_s / (probe.wait_s + step_s)
+        log(f"{label}: {probe.wait_s:.2f} s waiting on the loader against {step_s:.2f} s of "
+            f"steps: loader-wait share {share:.3f}")
         return {"steps": probe.steps, "wall_s": wall, "loader_wait_s": probe.wait_s,
-                "step_ms": [st["ms"] for st in probe.steps]}, logdir
+                "loader_wait_share": share, "step_ms": [st["ms"] for st in probe.steps]}, logdir
 
     out = {}
     out["small"], logdir = run(CLI_SMALL, B_TRAIN, 2, TRAIN_LAUNCHES, "--epochs", "1")
@@ -2529,6 +2601,10 @@ def phase_cli(torch, dev):
                     for s, expected in ((CLI_SMALL, SERVE_LAUNCHES),
                                         (CLI_VGA, VGA_SERVE_LAUNCHES))}
         cli_train = phase_cli_train(torch, dev, seq, workdir)
+        log("loader-wait shares: evaluate CLI (phase 28) "
+            + ", ".join(f"{s} {r['loader_wait_share']:.3f}" for s, r in cli_eval.items())
+            + "; train CLI (phase 29) " + ", ".join(
+                f"{k} {cli_train[k]['loader_wait_share']:.3f}" for k in ("small", "resume", "vga")))
         apps = {"cli_baselines": phase_cli_baselines(torch, dev, seq, workdir),
                 "kf_vo": phase_kf_vo(torch, dev, seq, workdir),
                 "convergence_basin": phase_basin(torch, dev, seq, workdir),
@@ -3919,7 +3995,7 @@ def phase_scannet(torch, dev, workdir):
     import pickle
 
     from deep_prob_feature_track_torch.apps import evaluate
-    from deep_prob_feature_track_torch.data.io import read_rgb
+    from deep_prob_feature_track_torch.data.io import read_depth_png, read_rgb
     from deep_prob_feature_track_torch.data.jpeg import read_jpeg
 
     root = os.path.join(workdir, "scannet")
@@ -3929,15 +4005,29 @@ def phase_scannet(torch, dev, workdir):
     os.makedirs(os.path.join(root, "train"))
     os.symlink(scan, os.path.join(root, "train", "scene0565_00"))
     write_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    for i in range(SCANNET_FRAMES):
+        color = os.path.join(scan, f"frame-{i:06d}.color.jpg")
+        depth = os.path.join(scan, f"frame-{i:06d}.merged_depth.png")
+        same_bits(color, read_jpeg(color), read_jpeg(color, plain=True))
+        for scale in (CLI_SMALL, CLI_VGA):
+            same_bits(f"{color} at {scale}", read_rgb(color, scale),
+                      read_rgb(color, scale, plain=True))
+            same_bits(f"{depth} at {scale}", read_depth_png(depth, 5000.0, scale),
+                      read_depth_png(depth, 5000.0, scale, plain=True))
+    log(f"ScanNet native against plain: {SCANNET_FRAMES} JPEG frames (read_jpeg, read_rgb at "
+        f"{CLI_SMALL} and {CLI_VGA}) and their depth maps bit for bit in "
+        f"{time.monotonic() - t0:.1f} s")
     frame = os.path.join(scan, "frame-000000.color.jpg")
-    decode = {"read_jpeg_ms": host_ms(lambda: read_jpeg(frame), reps=3),
-              "read_rgb_0.25_ms": host_ms(lambda: read_rgb(frame, 0.25), reps=3),
-              "read_rgb_1.0_ms": host_ms(lambda: read_rgb(frame, 1.0), reps=3),
+    decode = {"read_jpeg_ms": native_and_plain_ms(lambda plain: read_jpeg(frame, plain=plain)),
+              **{f"read_rgb_{scale}_ms": native_and_plain_ms(
+                  lambda plain, s=scale: read_rgb(frame, s, plain=plain))
+                 for scale in (CLI_SMALL, CLI_VGA)},
               "bytes": os.path.getsize(frame)}
     log(f"ScanNet: {SCANNET_FRAMES} frames written in {write_s:.1f} s; one 640x480 frame "
-        f"({decode['bytes']} bytes) decodes in {decode['read_jpeg_ms']:.1f} ms, read_rgb "
-        f"{decode['read_rgb_0.25_ms']:.1f} ms at 0.25 and {decode['read_rgb_1.0_ms']:.1f} ms "
-        f"at 1.0 (host)")
+        f"({decode['bytes']} bytes), ms native / plain (host): "
+        + ", ".join(f"{k[:-3]} {v['native']:.2f} / {v['plain']:.2f}" for k, v in decode.items()
+                    if k != "bytes"))
     out = {"decode": decode, "write_s": write_s}
     runs = (("card", CLI_SMALL, dev, SERVE_LAUNCHES), ("card", CLI_VGA, dev, VGA_SERVE_LAUNCHES),
             ("cpu", CLI_SMALL, torch.device("cpu"), None))
@@ -3990,10 +4080,12 @@ def phase_scannet(torch, dev, workdir):
                              "ScanNet train CLI")
     (st,) = probe.steps
     log(f"ScanNet train CLI, B=4 at {CLI_SMALL}: loss {st['loss']:.6f}, launches "
-        f"{st['launches']}, {st['ms']:.1f} ms, loader wait {probe.wait_s:.2f} s of {wall:.1f} s")
+        f"{st['launches']}, {st['ms']:.1f} ms, loader wait {probe.wait_s:.2f} s of {wall:.1f} s "
+        f"(share {probe.wait_s / (probe.wait_s + st['ms'] / 1e3):.3f} of wait and step)")
     if not (np.isfinite(st["loss"]) and st["launches"] == TRAIN_LAUNCHES):
         raise AssertionError("the ScanNet train step failed")
     out["train"] = {"loss": st["loss"], "step_ms": st["ms"], "loader_wait_s": probe.wait_s,
+                    "loader_wait_share": probe.wait_s / (probe.wait_s + st["ms"] / 1e3),
                     "wall_s": wall}
     return out
 

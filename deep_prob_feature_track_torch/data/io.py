@@ -4,7 +4,9 @@ Counterpart of ``deep_prob_feature_track_tpu/data/io.py``.  The JAX package
 decodes through its native tier (``native/dpft_io.cpp``) wherever that
 library loads, and through OpenCV or PIL elsewhere; the port decodes PNG
 files with :mod:`.png` and copies the native tier's arithmetic, in float32
-and in the same order, so that both give the same bits:
+and in the same order, so that both give the same bits.  The port's own
+native tier (:mod:`.native_io`, C++) runs every decode and resize here;
+``plain=True`` takes the numpy twins, which give the same bits:
 
 - colour: libpng's 16-to-8-bit strip, gray expanded to RGB and alpha
   dropped; a bilinear resize with half-pixel centres that blends the
@@ -31,6 +33,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from . import native_io
 from .jpeg import read_jpeg
 from .png import read_png
 
@@ -41,13 +44,16 @@ def _out_size(n: int, scale: float) -> int:
     return int(math.floor(float(_F(n) * _F(scale)) + 0.5))
 
 
-def read_rgb(path: str, scale: float = 1.0) -> np.ndarray:
+def read_rgb(path: str, scale: float = 1.0, plain: bool = False) -> np.ndarray:
     """Read an RGB PNG or JPEG -> float32 [H,W,3] in [0,1], resized by
-    ``scale``."""
+    ``scale``; ``plain`` decodes and resizes in numpy."""
     if path.lower().endswith((".jpg", ".jpeg")):
-        img = read_jpeg(path).astype(_F) / _F(255)
-        return img if scale == 1.0 else resize_linear_cv(img, scale)
-    img = read_png(path)
+        img = read_jpeg(path, plain=plain).astype(_F) / _F(255)
+        return img if scale == 1.0 else resize_linear_cv(img, scale, plain=plain)
+    img = read_png(path, plain=plain)
+    if not plain:
+        H, W = img.shape[:2]
+        return native_io.png_rgb(img, _out_size(H, scale), _out_size(W, scale))
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
     if img.shape[2] <= 2:  # gray, gray + alpha
@@ -72,10 +78,13 @@ def read_rgb(path: str, scale: float = 1.0) -> np.ndarray:
     return v * (one / _F(255))
 
 
-def resize_linear_cv(img: np.ndarray, scale: float) -> np.ndarray:
+def resize_linear_cv(img: np.ndarray, scale: float, plain: bool = False) -> np.ndarray:
     """``cv2.resize(img, None, fx=scale, fy=scale)`` (``INTER_LINEAR``) of a
     float32 [H,W,C] image, bit for bit as OpenCV 5 computes it through its
-    bundled Intel IPP on an x86-64 host with FMA, for ``scale <= 1``.
+    bundled Intel IPP on an x86-64 host with FMA, for ``scale < 1`` (at 1
+    OpenCV copies the image, where this blends the last row and column with
+    weight 1); the native tier computes each blend with ``std::fmaf``,
+    ``plain`` in numpy.
 
     The output size is ``cvRound(n * scale)`` (ties to even).  Each output
     sample sits at ``(i + 0.5) / scale - 0.5`` (float64), clamped to ``[0,
@@ -88,6 +97,8 @@ def resize_linear_cv(img: np.ndarray, scale: float) -> np.ndarray:
     """
     H, W = img.shape[:2]
     out_h, out_w = int(np.rint(H * scale)), int(np.rint(W * scale))
+    if not plain:
+        return native_io.resize_linear_cv(img, scale, out_h, out_w)
     wide = np.longdouble
 
     def axis(n_in, n_out):
@@ -109,18 +120,22 @@ def read_depth_png(
     depth_scale: float = 5000.0,
     scale: float = 1.0,
     clip: Optional[Tuple[float, float]] = (0.5, 5.0),
+    plain: bool = False,
 ) -> np.ndarray:
     """Read a one-channel (16-bit) depth PNG -> float32 [1,H,W] in meters.
 
     TUM convention: value/depth_scale = meters; nearest-neighbour resize
     (depth must not blend across boundaries); the clip to [0.5, 5.0] m
-    (Kinect range) unless ``clip`` is None.
+    (Kinect range) unless ``clip`` is None.  ``plain`` decodes and samples
+    in numpy.
     """
-    img = read_png(path)
+    img = read_png(path, plain=plain)
     if img.shape[2] != 1:
         raise ValueError(f"{path}: a depth PNG has one channel, this one has {img.shape[2]}")
     H, W = img.shape[:2]
     out_h, out_w = _out_size(H, scale), _out_size(W, scale)
+    if not plain:
+        return native_io.png_depth(img, out_h, out_w, depth_scale, clip)[None]
     ys = np.minimum((np.arange(out_h).astype(_F) * (_F(H) / _F(out_h))).astype(np.int64), H - 1)
     xs = np.minimum((np.arange(out_w).astype(_F) * (_F(W) / _F(out_w))).astype(np.int64), W - 1)
     depth = img[ys][:, xs, 0].astype(_F) * (_F(1) / _F(depth_scale))

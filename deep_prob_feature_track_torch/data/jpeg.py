@@ -27,8 +27,12 @@ Progressive, arithmetic-coded, 12-bit, lossless and hierarchical files,
 CMYK and RGB (Adobe transform 0, or components named R, G, B) raise
 ``ValueError`` naming the file.
 
-The Huffman decode is a Python loop over the symbols: about a second for a
-640x480 frame (``PERF.md`` has the time on the card's host).
+Python parses the markers and tables and raises every ``ValueError``;
+the scans' entropy-coded data, the inverse DCT, the upsampling and the
+colour conversion run in the native host tier (:mod:`.native_io`, C++)
+unless ``plain=True`` asks for the numpy twin, which gives the same bits.
+The twin's Huffman decode is a Python loop over the symbols: 0.1-0.2 s
+for a 640x480 frame (``PERF.md`` has the times on the card's host).
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from array import array
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from . import native_io
 
 # zigzag position -> natural (row-major) position; 16 extra entries absorb
 # a corrupt run past the end, as libjpeg's jpeg_natural_order does
@@ -78,6 +84,18 @@ def _huffman_lut(counts: List[int], symbols: bytes, path: str) -> List[int]:
             k += 1
         code <<= 1
     return lut.tolist()
+
+
+def _check_huffman(counts: List[int], symbols: bytes, path: str) -> bytes:
+    """The DHT table ``counts`` + ``symbols`` as the native tier takes it,
+    after the checks of :func:`_huffman_lut`."""
+    code = k = 0
+    for length in range(1, 17):
+        code, k = code + counts[length - 1], k + counts[length - 1]
+        if k > len(symbols) or code > (1 << length):
+            raise ValueError(f"{path}: bad Huffman table")
+        code <<= 1
+    return bytes(counts) + symbols[:k]
 
 
 def _windows(data: bytes) -> List[int]:
@@ -296,9 +314,10 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([y + cr_r, y + g, y + cb_b], axis=-1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(buf: bytes, path: str = "<bytes>") -> np.ndarray:
+def decode_jpeg(buf: bytes, path: str = "<bytes>", plain: bool = False) -> np.ndarray:
     """Decode a baseline JPEG into uint8 RGB [H,W,3] (gray repeated into
-    three channels), as ``cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]``.
+    three channels), as ``cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]``;
+    ``plain`` decodes in Python and numpy instead of the native tier.
 
     :raises ValueError: naming ``path``, on an unsupported or corrupt file
     """
@@ -367,8 +386,10 @@ def decode_jpeg(buf: bytes, path: str = "<bytes>") -> np.ndarray:
                 tc, th = seg[i] >> 4, seg[i] & 15
                 counts = list(seg[i + 1:i + 17])
                 total = sum(counts)
-                lut = _huffman_lut(counts, seg[i + 17:i + 17 + total], path)
-                (ac_luts if tc else dc_luts)[th] = lut
+                table = seg[i + 17:i + 17 + total]
+                (ac_luts if tc else dc_luts)[th] = (
+                    _huffman_lut(counts, table, path) if plain
+                    else _check_huffman(counts, table, path))
                 i += 17 + total
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", seg[:2])
@@ -385,9 +406,13 @@ def decode_jpeg(buf: bytes, path: str = "<bytes>") -> np.ndarray:
                 cid, tables = seg[1 + 2 * i], seg[2 + 2 * i]
                 ci = next(k for k, c in enumerate(comps) if c.cid == cid)
                 scan.append((ci, tables >> 4, tables & 15))
-            segments, pos = _entropy_segments(buf, pos)
-            _decode_scan(comps, scan, X, Y, hmax, vmax, restart, segments,
-                         dc_luts, ac_luts, path)
+            if plain:
+                segments, pos = _entropy_segments(buf, pos)
+                _decode_scan(comps, scan, X, Y, hmax, vmax, restart, segments,
+                             dc_luts, ac_luts, path)
+            else:
+                pos = _native_scan(buf, pos, comps, scan, X, Y, hmax, vmax, restart,
+                                   dc_luts, ac_luts, path)
     if not comps:
         raise ValueError(f"{path}: no frame header")
     if len(comps) == 3:
@@ -395,6 +420,8 @@ def decode_jpeg(buf: bytes, path: str = "<bytes>") -> np.ndarray:
         if (not jfif and adobe_transform == 0) or (
                 not jfif and adobe_transform is None and ids == (82, 71, 66)):
             raise ValueError(f"{path}: RGB-coded JPEG is not supported")
+    if not plain:
+        return _native_pixels(comps, quant, X, Y, hmax, vmax, path)
     planes = []
     for c in comps:
         if c.tq not in quant:
@@ -447,7 +474,38 @@ def _decode_scan(comps, scan, X, Y, hmax, vmax, restart, segments, dc_luts, ac_l
         _decode_segment(data, jobs[start:start + step], dcl, acl, coefs, path)
 
 
-def read_jpeg(path: str) -> np.ndarray:
+def _native_scan(buf, start, comps, scan, X, Y, hmax, vmax, restart, dc_tables, ac_tables,
+                 path) -> int:
+    """:func:`_entropy_segments` and :func:`_decode_scan` in the native
+    tier; returns the offset of the marker after the scan."""
+    for _, td, ta in scan:
+        if td not in dc_tables or ta not in ac_tables:
+            raise ValueError(f"{path}: missing Huffman table")
+    status, end = native_io.jpeg_scan(buf, start, scan, comps, dc_tables, ac_tables, X, Y, hmax,
+                                      vmax, restart)
+    if status == native_io.TRUNCATED:
+        raise ValueError(f"{path}: JPEG data ends inside a block")
+    if status:
+        raise ValueError(f"{path}: corrupt Huffman data")
+    return end
+
+
+def _native_pixels(comps, quant, X, Y, hmax, vmax, path) -> np.ndarray:
+    """:func:`decode_jpeg`'s inverse DCT, upsampling and colour conversion
+    in the native tier, after the same checks."""
+    for c in comps:
+        if c.tq not in quant:
+            raise ValueError(f"{path}: missing quantization table {c.tq}")
+        fh, fv = hmax // c.h, vmax // c.v
+        if (fh, fv) not in ((1, 1), (1, 2), (2, 1), (2, 2)):
+            raise ValueError(f"{path}: unsupported chroma sampling factors {fh}x{fv}")
+    status, rgb = native_io.jpeg_pixels(comps, quant, X, Y, hmax, vmax)
+    if status:
+        raise ValueError(f"{path}: unsupported chroma sampling factors")
+    return rgb
+
+
+def read_jpeg(path: str, plain: bool = False) -> np.ndarray:
     """Read a JPEG file into uint8 RGB [H,W,3] (see :func:`decode_jpeg`)."""
     with open(path, "rb") as f:
-        return decode_jpeg(f.read(), path)
+        return decode_jpeg(f.read(), path, plain)

@@ -9,10 +9,13 @@ palette file (colour type 3) it returns the palette indices, one channel,
 as PIL reads them.  Bit depths under 8 and interlaced files raise
 ``ValueError`` with the file's name.  :func:`write_png` writes 8-bit RGB.
 
-Each row of the file is filtered by one of five filters.  None, Sub (a
-running sum mod 256 along the row) and Up (a sum with the row above) take a
-few numpy operations a row.  Average and Paeth depend on the reconstructed
-byte to the left, so an image with any such row is rebuilt along its
+Each row of the file is filtered by one of five filters.  Python's
+``zlib`` inflates the data; the rows are rebuilt by the native host tier
+(:mod:`.native_io`, one C++ pass) unless ``plain=True`` asks for the numpy
+twin, which gives the same bytes.  There None, Sub (a running sum mod 256
+along the row) and Up (a sum with the row above) take a few numpy
+operations a row.  Average and Paeth depend on the reconstructed byte to
+the left, so an image with any such row is rebuilt along its
 anti-diagonals instead: every byte depends only on its left, upper and
 upper-left neighbours, so one step rebuilds every pixel of one diagonal,
 ``H + W - 1`` steps in all.
@@ -25,6 +28,8 @@ import zlib
 
 import numpy as np
 
+from . import native_io
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
 
@@ -33,9 +38,8 @@ def _chunks(data: bytes, path: str):
     pos = len(_SIGNATURE)
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
-        if len(body) != length or zlib.crc32(kind + body) != crc:
+        body, crc = data[pos + 8:pos + 8 + length], data[pos + 8 + length:pos + 12 + length]
+        if len(crc) != 4 or zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
             raise ValueError(f"{path}: corrupt PNG chunk {kind!r}")
         yield kind, body
         if kind == b"IEND":
@@ -44,9 +48,10 @@ def _chunks(data: bytes, path: str):
     raise ValueError(f"{path}: PNG ends before its IEND chunk")
 
 
-def read_png(path: str) -> np.ndarray:
+def read_png(path: str, plain: bool = False) -> np.ndarray:
     """Decode a PNG file into ``[H, W, channels]`` samples (``uint8``, or
-    ``uint16`` at 16 bits)."""
+    ``uint16`` at 16 bits); ``plain`` rebuilds the rows in numpy instead of
+    the native tier."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
@@ -72,9 +77,12 @@ def read_png(path: str) -> np.ndarray:
         raise ValueError(f"{path}: PNG image data has {raw.size} bytes, expected "
                          f"{height * (width * bpp + 1)}")
     raw = raw.reshape(height, width * bpp + 1)
-    filters, rows = raw[:, 0], raw[:, 1:].reshape(height, width, bpp)
+    filters = raw[:, 0]
     if (filters > 4).any():
         raise ValueError(f"{path}: unknown PNG row filter {int(filters.max())}")
+    if not plain:
+        return native_io.png_unfilter(raw, height, width, channels, depth)
+    rows = raw[:, 1:].reshape(height, width, bpp)
     if (filters >= 3).any():
         pixels = _unfilter_diagonals(rows, filters)
     else:

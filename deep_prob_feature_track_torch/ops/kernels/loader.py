@@ -1,4 +1,4 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and host code.
 
 Each ``csrc/<source>.cu`` exports the plain C launch functions of one or
 more kernels (``SOURCES``).  It is compiled
@@ -8,6 +8,11 @@ so a build takes seconds.  The build runs at first use, never at import,
 so the package imports on a machine without ``nvcc``; a file lock guards it
 against concurrent processes, and a library is reused only when its file
 name's hash of source and flags matches.
+
+:func:`build_host` is the host flavour of the same build: a ``.cpp`` source
+compiled by the host's C++ compiler (``$CXX``, else ``c++``) with
+``HOST_CXX_FLAGS``, which ask for no host-specific instructions and no
+contracted floating point, so that its results do not depend on the host.
 
 Each launch function takes one argument, a pointer to its arguments packed
 in a C struct: :func:`launcher` packs them with ``struct`` in the native
@@ -24,12 +29,13 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import shlex
 import shutil
 import struct
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -39,6 +45,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 # kernel name -> the csrc/ source that holds it
 SOURCES = {
     "gather_twohot": "gather_twohot",
@@ -79,37 +86,79 @@ def _target(source: str) -> Path:
     return BUILD_DIR / f"lib{source}_{digest}.so"
 
 
+def _compile(build_dir: Path, jobs: Dict[str, Tuple[Path, Sequence[str]]], tool: str) -> None:
+    """Under ``build_dir``'s file lock, run the compiler command of every
+    job ``source -> (library, command)`` whose library is missing, all
+    started together, each writing ``-o`` a temporary file that replaces
+    the library once it is whole; the output lands in
+    ``build_dir/<source>.log``.  Raises with the compiler's output when a
+    build fails."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            procs = {}
+            for source, (target, command) in jobs.items():
+                if target.exists():
+                    continue
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                procs[source] = (tmp, target, subprocess.Popen(
+                    [*command, "-o", str(tmp)], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+            errors = []
+            for source, (tmp, target, proc) in procs.items():
+                out, _ = proc.communicate()
+                (build_dir / f"{source}.log").write_text(out)
+                if proc.returncode != 0:
+                    errors.append(f"{source}: {tool} exited {proc.returncode}\n{out}")
+                else:
+                    os.replace(tmp, target)
+            if errors:
+                raise RuntimeError(f"{tool} build failed:\n" + "\n".join(errors))
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     """Compile the source of every kernel in ``names`` whose library is
     missing, one ``nvcc`` process per source, all started together.  Returns
     each source's library; raises with the compiler's output when a build
     fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {s: _target(s) for s in sorted({SOURCES[n] for n in names})}
-    with open(BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            procs = {}
-            for source, target in targets.items():
-                if target.exists():
-                    continue
-                tmp = target.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
-                procs[source] = (tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            errors = []
-            for source, (tmp, proc) in procs.items():
-                out, _ = proc.communicate()
-                (BUILD_DIR / f"{source}.log").write_text(out)
-                if proc.returncode != 0:
-                    errors.append(f"{source}: nvcc exited {proc.returncode}\n{out}")
-                else:
-                    os.replace(tmp, targets[source])
-            if errors:
-                raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
+    if any(not t.exists() for t in targets.values()):
+        nvcc = _nvcc()
+        _compile(BUILD_DIR, {s: (t, [nvcc, *NVCC_FLAGS, str(CSRC / f"{s}.cu")])
+                             for s, t in targets.items()}, "nvcc")
     return targets
+
+
+def host_cxx() -> List[str]:
+    """The host's C++ compiler command: ``$CXX`` (split as a shell would),
+    else ``c++``; raises if it is not on the ``PATH``."""
+    command = shlex.split(os.environ.get("CXX") or "c++")
+    if not command or shutil.which(command[0]) is None:
+        raise RuntimeError(f"no host C++ compiler {command[:1]} on the PATH: set $CXX or "
+                           "install c++ to build the port's host code")
+    return command
+
+
+def host_target(source: Path, build_dir: Path) -> Path:
+    """Where :func:`build_host` puts the library of ``source``: its name
+    holds a hash of the source, the compiler command and the flags."""
+    command = " ".join([*host_cxx(), *HOST_CXX_FLAGS])
+    digest = hashlib.sha256(source.read_bytes() + command.encode()).hexdigest()[:16]
+    return build_dir / f"lib{source.stem}_{digest}.so"
+
+
+def build_host(source: Path, build_dir: Path) -> Path:
+    """The shared library of the C++ file ``source``, compiled into
+    ``build_dir`` by :func:`host_cxx` with ``HOST_CXX_FLAGS`` unless a
+    library of the same source, compiler and flags is there already."""
+    target = host_target(source, build_dir)
+    if not target.exists():
+        command = [*host_cxx(), *HOST_CXX_FLAGS, str(source)]
+        _compile(build_dir, {source.stem: (target, command)}, command[0])
+    return target
 
 
 def _library(name: str) -> ctypes.PyDLL:
