@@ -26,7 +26,8 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 5. K2 ``gather_twohot_grads`` and K3 ``splat_twohot`` against their plain
    versions at the four pyramid shapes of the 120x160 B=64 training step
    (C=10): K2's ``out`` bit-exact, its gx/gy within 1e-6 of the largest
-   entry; K3 (float atomics) within 1e-5 of the largest entry;
+   entry; K3 (int64 fixed-point sums) bit for bit with its float32 plain
+   twin, NaN as NaN;
 6. K4 ``gather_tiles`` (B=8, 480x640) and K5 ``gather_tiles_grads`` (B=4,
    480x640 and 240x320) against their plain versions and against K1 / K2
    on the same inputs, at C=10 and C=17, K4 also at C=1, 3 and 6 and K5 at
@@ -37,8 +38,7 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 7. K1 (B=8) and K3 (B=64) against their plain versions on the smooth and
    teleported coordinates of 6, and on the smooth ones spread 4x about the
    centre (off the plane), at the four 120x160 levels, C=10 and C=17, and
-   K3 at 480x640, B=4 level 0 on smooth ones: K1 bit-exact, K3 within 1e-5
-   of the largest entry.  At C=10 every smooth 120x160 K3 tile stages its
+   K3 at 480x640, B=4 level 0 on smooth ones: K1 and K3 bit-exact.  At C=10 every smooth 120x160 K3 tile stages its
    corner box in shared memory, and the level-0 teleported and off-plane
    launches take both branches (teleported samples send some tiles to
    global atomics; off the plane, the corner tiles stage all their samples
@@ -118,7 +118,7 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    (bit-exact) at the 10 folded damping samples of B=8 (80 planes) at each
    120x160 level and at the prior weights' upsamples (B=8, 15x20 -> 30x40,
    30x40 -> 60x80, 60x80 -> 120x160: 4 samples a cell); K2 (``out``
-   bit-exact, gx/gy within 1e-6 of the largest entry) and K3 (within 1e-5)
+   bit-exact, gx/gy within 1e-6 of the largest entry) and K3 (bit-exact)
    at the training shapes: 640 folded planes at each level and the
    upsamples at B=64;
 20. serve ``DeepIC`` as in 8: per batch K1 51 times (12 a level: the first
@@ -137,8 +137,7 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    also with teleported samples (staged and global tiles in one launch),
    bit-exact with its plain version and K1; K1 (B=8) at C=28 and 49 at the
    120x160 levels, bit-exact; K2 (B=64) there at C=28 and 49, ``out``
-   bit-exact, gx/gy within 1e-6, and K3 at C=28 within 1e-5 of the largest
-   entry;
+   bit-exact, gx/gy within 1e-6, and K3 at C=28 bit-exact;
 23. serve U_FC (``feature`` with ``direction=forward``) as in 8: per batch K4
    3 times (level 0) and K1 9 times, no K6 (its systems are weighted); the
    kernel forward agrees with the plain one within 1e-5 and with the CPU
@@ -214,7 +213,7 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    the B=64 levels, K4 at C=11, 7 and 29 (U_FC) at 480x640 B=8 (C=29 also
    on 240x320 and 120x160), K5 at C=11 at 480x640 and 240x320 B=4, on
    smooth and teleported coordinates, against their plain versions (K1, K2,
-   K4, K5 ``out`` bit-exact, gx/gy within 1e-6, K3 within 1e-5), then each
+   K4, K5 ``out`` and K3 bit-exact, gx/gy within 1e-6), then each
    timed at level 0 beside the unmasked operand's even count (10, 6, 28)
    and, K1-K4, at C=12 (the C=11 operand padded);
 36. on a MovingObjects3D-format dataset (``write_mo3d_dataset``: a textured
@@ -336,6 +335,14 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    must raise ``NonFiniteError`` naming a module; the JSON record gets
    ``final``.
 
+57. run to run: two ``feature`` steps at 120x160 B=64 and at 640x480 B=4,
+   each run twice from the seeded state on the seeded batch, must give the
+   same losses and the same bits in every gradient leaf, parameter,
+   BatchNorm statistic and Adam moment; K3 launched ``K3_REPEATS`` times on
+   one input at level 0 (B=64, C=10) on random, smooth, teleported and
+   off-plane coordinates must give its plain twin's bits every time; the
+   JSON record gets ``repeat``.
+
 Phase 16 also records K4's staged share on the U_FC forwards (480x640 and
 120x160, on the synthetic scene and on the served requests), 17 times K4
 (C=28, beside K1 and ``grid_sample``), K1 (C=28 and 49), K2 and K3 (C=28)
@@ -381,6 +388,7 @@ TRAIN_STEPS = 3
 TRAIN_SEED = 5
 VGA_TRAIN_SEED = 3
 GRAD_ENVELOPE = 5e-3
+K3_REPEATS = 5  # phase 57: K3 launches on one input
 SLEEP_CYCLES = 100_000_000  # ~50 ms of device sleep while device_ms queues its calls
 N_CPU_VGA = 2  # the CPU forward at 480x640 takes this many requests of the batch
 # the coordinates K1 and K3 are checked and timed on: uniform over and past
@@ -984,6 +992,18 @@ def splat_cotangent(torch, dev, h, w, seed):
     return torch.randn(B_TRAIN, C_WARP, h * w, generator=g).to(dev)
 
 
+def check_splat(torch, got, ref, label):
+    """Raise unless K3's ``got`` holds the bits of its float32 plain twin's
+    ``ref`` (NaN as NaN); returns the largest error, 0."""
+    torch.cuda.synchronize()
+    same = (got.view(torch.int32) == ref.view(torch.int32)) | (got.isnan() & ref.isnan())
+    if got.shape != ref.shape or not bool(same.all()):
+        e = torch.where(same, 0.0, (got - ref).abs()).nan_to_num(nan=float("inf")).max().item()
+        raise AssertionError(f"splat_twohot differs from its plain version at {label}: "
+                             f"{int((~same).sum())} entries, max {e:.3e}")
+    return 0.0
+
+
 def phase_grads_kernels(torch, dev):
     from deep_prob_feature_track_torch.ops import kernels as K
 
@@ -1008,13 +1028,8 @@ def phase_grads_kernels(torch, dev):
         g = splat_cotangent(torch, dev, h, w, seed=30 + i)
         got = K.splat_twohot_cuda(g, *args[1:], h, w)
         ref = K.splat_twohot_ref(g, *args[1:], h, w)
-        torch.cuda.synchronize()
-        e = (got - ref).abs().max().item()
-        top = ref.abs().max().item()
-        log(f"K3 splat_twohot level {i} [{B_TRAIN},{h},{w},{C_WARP}]: max|kernel - plain| = "
-            f"{e:.3e} ({e / top:.2e} of the largest entry {top:.3e})")
-        if not e <= 1e-5 * top:
-            raise AssertionError(f"splat_twohot disagrees with its plain version: {e}")
+        e = check_splat(torch, got, ref, f"level {i}")
+        log(f"K3 splat_twohot level {i} [{B_TRAIN},{h},{w},{C_WARP}]: bit-exact")
         err["splat_twohot"] = max(err["splat_twohot"], e)
     return err
 
@@ -1148,8 +1163,8 @@ def phase_flat_kernels(torch, dev):
     """K1 (B=8), K2 and K3 (B=64) on smooth, teleported and off-plane
     coordinates at the four 120x160 levels, C=10 and C=17, K1 and K2 there
     at C=1, 3 and 6 (the classical and ICP warps), and K3 at 480x640, B=4
-    level 0: K1 and K2's ``out`` bit-exact (K2's also with
-    K1), K2's gx/gy within 1e-6 and K3 within 1e-5 of the largest entry.
+    level 0: K1, K2's ``out`` (also with K1) and K3 bit-exact, K2's gx/gy
+    within 1e-6 of the largest entry.
     The teleported and off-plane level-0 K3 launches at C=10 must mix
     staged and global tiles, and its smooth launches at C=10 stage every
     tile."""
@@ -1194,14 +1209,9 @@ def phase_flat_kernels(torch, dev):
         g = torch.randn(b, c, h * w, generator=torch.Generator().manual_seed(i)).to(dev)
         got = K.splat_twohot_cuda(g, *args, h, w)
         ref = K.splat_twohot_ref(g, *args, h, w)
-        torch.cuda.synchronize()
-        e3 = (got - ref).abs().max().item()
-        top = ref.abs().max().item()
+        e3 = check_splat(torch, got, ref, label)
         share = splat_staged_share(args[0], args[2], h, w, c)
-        log(f"K3 splat_twohot {label}, B={b}: staged share {share:.4f}, max|kernel - plain| = "
-            f"{e3:.3e} ({e3 / top:.2e} of the largest entry)")
-        if not e3 <= 1e-5 * top:
-            raise AssertionError(f"splat_twohot disagrees with its plain version on {label}: {e3}")
+        log(f"K3 splat_twohot {label}, B={b}: staged share {share:.4f}, bit-exact")
         if (vga, c, coords) == (False, C_WARP, "smooth") and share != 1.0:
             raise AssertionError(f"splat_twohot on {label}: a tile did not stage ({share})")
         if ((vga, i, c) == (False, 0, C_WARP) and coords in ("teleported", "offplane")
@@ -1228,8 +1238,8 @@ def upsample_inputs(torch, dev, b, h, w, seed):
 def phase_deepic_kernels(torch, dev):
     """K1 at DeepIC's eval shapes (the folded samples of B=8 at each level
     and the upsamples at B=8), K2 and K3 at its training shapes (the folded
-    samples of B=64 and the upsamples at B=64), C=1: K1 and K2's ``out``
-    bit-exact, gx/gy within 1e-6 and K3 within 1e-5 of the largest entry."""
+    samples of B=64 and the upsamples at B=64), C=1: K1, K2's ``out`` and
+    K3 bit-exact, gx/gy within 1e-6 of the largest entry."""
     from deep_prob_feature_track_torch.ops import kernels as K
 
     err = {"gather_twohot": 0.0, "gather_twohot_grads": 0.0, "splat_twohot": 0.0}
@@ -1259,18 +1269,14 @@ def phase_deepic_kernels(torch, dev):
         g = torch.randn(b, 1, args[0].shape[1], generator=torch.Generator().manual_seed(b))
         g = g.to(dev)
         got3, ref3 = K.splat_twohot_cuda(g, *args, h, w), K.splat_twohot_ref(g, *args, h, w)
-        torch.cuda.synchronize()
-        e3 = (got3 - ref3).abs().max().item()
-        top3 = ref3.abs().max().item()
+        e3 = check_splat(torch, got3, ref3, f"DeepIC {label}")
         log(f"K2/K3 DeepIC {label}, {b} planes: K2 max|out - plain| = {e_out:.3e}, "
             f"max|gx,gy - plain| = {e2:.3e} ({e2 / top:.2e} of the largest entry); K3 "
-            f"max|kernel - plain| = {e3:.3e} ({e3 / top3:.2e} of the largest entry)")
+            f"bit-exact")
         if e_out != 0.0:
             raise AssertionError(f"gather_twohot_grads out is not bit-exact at DeepIC {label}")
         if not e2 <= 1e-6 * top:
             raise AssertionError(f"gather_twohot_grads gx/gy disagree at DeepIC {label}: {e2}")
-        if not e3 <= 1e-5 * top3:
-            raise AssertionError(f"splat_twohot disagrees at DeepIC {label}: {e3}")
         err["gather_twohot_grads"] = max(err["gather_twohot_grads"], e2)
         err["splat_twohot"] = max(err["splat_twohot"], e3)
     return err
@@ -1336,8 +1342,7 @@ def phase_ufc_kernels(torch, dev):
     tiles in one launch), bit-exact with its plain version and with K1; K1
     at C=28 and C=49 (B=8) at the four 120x160 levels, bit-exact; K2 at
     C=28 and C=49 (B=64) there, ``out`` bit-exact, gx/gy within 1e-6 of the
-    largest entry; K3 at C=28 (B=64) there, within 1e-5 of the largest
-    entry.  Returns the largest errors and K4's staged shares."""
+    largest entry; K3 at C=28 (B=64) there, bit-exact.  Returns the largest errors and K4's staged shares."""
     from deep_prob_feature_track_torch.ops import kernels as K
     from deep_prob_feature_track_torch.ops.kernels.tiles import staged_share
 
@@ -1376,13 +1381,8 @@ def phase_ufc_kernels(torch, dev):
             g = torch.randn(B_TRAIN, c, h * w, generator=torch.Generator().manual_seed(i))
             g = g.to(dev)
             got, ref = K.splat_twohot_cuda(g, *args, h, w), K.splat_twohot_ref(g, *args, h, w)
-            torch.cuda.synchronize()
-            e3 = (got - ref).abs().max().item()
-            top = ref.abs().max().item()
-            log(f"K3 splat_twohot {label}, B={B_TRAIN}: max|kernel - plain| = {e3:.3e} "
-                f"({e3 / top:.2e} of the largest entry)")
-            if not e3 <= 1e-5 * top:
-                raise AssertionError(f"splat_twohot disagrees at {label}: {e3}")
+            e3 = check_splat(torch, got, ref, label)
+            log(f"K3 splat_twohot {label}, B={B_TRAIN}: bit-exact")
             err["splat_twohot"] = max(err["splat_twohot"], e3)
     return err, shares
 
@@ -1618,8 +1618,8 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature", overrides
             launches[k] += c
         losses.append(loss)
 
-    # kernels twice (K3's atomics and cuDNN reorder sums from run to run),
-    # then the plain versions
+    # kernels twice (the run-to-run spread, which phase 57 holds at 0), then
+    # the plain versions
     (loss_k, grads_k), (_, grads_k2), (loss_p, grads_p) = (
         _loss_and_grads(torch, dev, batch, plain, preset, overrides, objective)
         for plain in (False, False, True))
@@ -2658,9 +2658,9 @@ def phase_objmask_kernels(torch, dev, name):
     and 29 (U_FC) at 480x640 B=8 (and C=29 on its 240x320 and 120x160
     planes), K5 at C=11 at 480x640 and 240x320 B=4; smooth and teleported
     coordinates, the last channel a 0/1 mask (K3's cotangent zero there);
-    against the plain versions: K1, K2's and K4's ``out`` and K5's bit-exact
-    (K2, K4 and K5 also with K1 / K2), gx/gy within 1e-6, K3 within 1e-5 of
-    the largest entry.  Then each timed at level 0 beside the even channel
+    against the plain versions: K1, K2's and K4's ``out``, K5's and K3
+    bit-exact (K2, K4 and K5 also with K1 / K2), gx/gy within 1e-6 of the
+    largest entry.  Then each timed at level 0 beside the even channel
     count of the unmasked operand (C=10, 6, 28), in this call, and K1-K4 at
     C=12 (the masked U_IC operand padded to an even count)."""
     from deep_prob_feature_track_torch.ops import kernels as K
@@ -2686,14 +2686,9 @@ def phase_objmask_kernels(torch, dev, name):
             g[:, -1] = 0.0  # the mask channel's cotangent
             g = g.to(dev)
             got, ref = K.splat_twohot_cuda(g, *args, h, w), K.splat_twohot_ref(g, *args, h, w)
-            torch.cuda.synchronize()
-            e3 = (got - ref).abs().max().item()
-            top = ref.abs().max().item()
-            if not e3 <= 1e-5 * top:
-                raise AssertionError(f"splat_twohot disagrees at {label}: {e3}")
-            err["splat_twohot"] = max(err["splat_twohot"], e3)
+            err["splat_twohot"] = max(err["splat_twohot"], check_splat(torch, got, ref, label))
         log(f"K1 at C={C_OBJ_UIC} and {C_OBJ_ICP}, K2 and K3 at C={C_OBJ_UIC}, level {i} "
-            f"{h}x{w}: bit-exact (K3 within 1e-5)")
+            f"{h}x{w}: bit-exact")
     cases = [(c, VGA_LEVELS[0]) for c in (C_OBJ_UIC, C_OBJ_ICP, C_OBJ_UFC)]
     cases += [(C_OBJ_UFC, hw) for hw in (VGA_LEVELS[1], (H, W))]
     for c, (h, w) in cases:
@@ -4123,6 +4118,74 @@ def phase_debug_nan(torch, dev, root, workdir):
     return {"error": message}
 
 
+def _step_tensors(torch, dev, b, h, w, seed, steps=2):
+    """``steps`` ``feature`` steps from the seeded state on the seeded
+    synthetic batch: their losses, and after them every gradient leaf,
+    parameter and buffer (the BatchNorm statistics) and Adam moment,
+    cloned, by name."""
+    from deep_prob_feature_track_torch.training import train as T
+
+    batch = T.synthetic_batch(b, h, w, seed=seed, device=dev)
+    cfg, state = _train_state(torch, dev)
+    step = T.make_train_step(cfg, steps_per_epoch=100)
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+    net, opt = _step_snapshot(torch, state)
+    tensors = {f"grad {k}": p.grad.detach().clone() for k, p in state.net.named_parameters()
+               if p.grad is not None}
+    tensors.update({f"net {k}": v for k, v in net.items()})
+    tensors.update({f"adam {i} {k}": v for i, st in opt.items() for k, v in st.items()
+                    if torch.is_tensor(v)})
+    return losses, tensors
+
+
+def step_twice(torch, dev, b, h, w, seed):
+    """``_step_tensors`` run twice: both runs' losses, the number of
+    tensors compared and those whose bits differ, with their largest
+    difference."""
+    (l1, t1), (l2, t2) = (_step_tensors(torch, dev, b, h, w, seed) for _ in range(2))
+    differ = {k: (v.double() - t2[k].double()).abs().max().item()
+              for k, v in t1.items() if not torch.equal(v, t2[k])}
+    return {"losses": [l1, l2], "tensors": len(t1), "differ": differ}
+
+
+def phase_repeat(torch, dev):
+    """Phase 57: the training step and K3 give the same bits on every run."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    t0 = time.monotonic()
+    out = {}
+    for label, b, h, w, seed in ((f"{H}x{W} B={B_TRAIN}", B_TRAIN, H, W, TRAIN_SEED),
+                                 (f"{H_VGA}x{W_VGA} B={B_VGA_TRAIN}", B_VGA_TRAIN, H_VGA, W_VGA,
+                                  VGA_TRAIN_SEED)):
+        r = step_twice(torch, dev, b, h, w, seed)
+        log(f"run to run, feature {label}, two steps run twice: losses {r['losses'][0]} and "
+            f"{r['losses'][1]}; {len(r['differ'])} of {r['tensors']} tensors (gradients, "
+            f"parameters, BatchNorm statistics, Adam moments) differ {r['differ']}")
+        if r["differ"] or r["losses"][0] != r["losses"][1]:
+            raise AssertionError(f"two runs of the {label} steps differ: {r['differ']}")
+        out[label] = {"losses": r["losses"][0], "tensors": r["tensors"]}
+
+    h, w = LEVELS[0]
+    g = splat_cotangent(torch, dev, h, w, seed=30)
+    inputs = {"random": gather_inputs(torch, dev, h, w, seed=20, b=B_TRAIN)[0][1:]}
+    for coords in COORDS[1:]:
+        inputs[coords] = flat_inputs(torch, dev, B_TRAIN, h, w, C_WARP, 30, coords)[1]
+    for coords, args in inputs.items():
+        ref = K.splat_twohot_ref(g, *args, h, w)
+        for i in range(K3_REPEATS):
+            check_splat(torch, K.splat_twohot_cuda(g, *args, h, w), ref,
+                        f"{coords} coordinates, launch {i}")
+    out["k3_repeats"] = {"coords": list(inputs), "launches_each": K3_REPEATS, "same_bits": True}
+    out["wall_s"] = time.monotonic() - t0
+    log(f"run to run: K3 [{B_TRAIN},{h},{w},{C_WARP}] launched {K3_REPEATS} times on each of "
+        f"{list(inputs)} coordinates, the plain twin's bits every time; phase 57 in "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
 def phase_final(torch, dev):
     """Phases 51-56 in a temporary directory, removed after."""
     import shutil
@@ -4332,6 +4395,7 @@ def run(torch, loader, dev, name, smi):
     log(f"phases 40-45 (the tracker options) in {time.monotonic() - t0:.1f} s")
     ba = phase_ba(torch, dev)
     final = phase_final(torch, dev)
+    repeat = phase_repeat(torch, dev)
     m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
                       "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
@@ -4340,7 +4404,8 @@ def run(torch, loader, dev, name, smi):
                       "ufc_serve_launches": ufc_launches, "ufc_k4_staged_share": ufc_k4_shares,
                       "preset_agree": presets, "scene_staged_share": scene_shares,
                       "vga_serve_launches": vga_launches, **cli, "objects": objects,
-                      "variants": variants, "ba": ba, "final": final, "card": smi}),
+                      "variants": variants, "ba": ba, "final": final, "repeat": repeat,
+                      "card": smi}),
           flush=True)
 
     # K1 and K6 as the 120x160 serve path launched them, K2 and K3 as the

@@ -105,6 +105,8 @@ def build_argparser():
     p.add_argument("--debug_nan", action="store_true",
                    help="raise at the first non-finite value of a step (slow)")
     p.add_argument("--seed", type=int, default=1)
+    # the JAX CLI's flag, which it never reads: accepted, with no effect
+    p.add_argument("--time", action="store_true", help="stage timing")
     p.add_argument("--max_steps_per_epoch", type=int, default=0,
                    help="truncate epochs (smoke tests)")
     p.add_argument("--device", default="cuda")

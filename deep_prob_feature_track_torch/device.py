@@ -26,6 +26,11 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def set_float32_policy() -> None:
-    """Full float32 convolutions and matmuls: no TF32."""
+    """Full float32 convolutions and matmuls (no TF32), and cuDNN's
+    deterministic algorithms: its default backward algorithms add with
+    atomics, and with them a training step's bits change from run to run
+    (with them off and K3 in fixed point, a step gives the same bits every
+    run, as the JAX package does)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True

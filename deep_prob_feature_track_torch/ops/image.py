@@ -17,11 +17,20 @@ _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 _SOBEL_Y = ((-1.0, -2.0, -1.0), (0.0, 0.0, 0.0), (1.0, 2.0, 1.0))
 
 
+def _replicate_pad1(x: torch.Tensor) -> torch.Tensor:
+    """``F.pad(x, (1, 1, 1, 1), mode="replicate")`` built from slices:
+    the same values, and a backward that adds in a fixed order (CUDA's
+    replication-pad backward adds the border's gradients with atomics, so
+    a training step's bits would change from run to run)."""
+    x = torch.cat([x[..., :1, :], x, x[..., -1:, :]], dim=-2)
+    return torch.cat([x[..., :1], x, x[..., -1:]], dim=-1)
+
+
 def sobel_gradients(img: torch.Tensor, normalize_gradient: bool = True):
     """Per-channel Sobel x/y gradients of ``[B,C,H,W]`` with replicate padding,
     optionally normalized to unit magnitude."""
     B, C, H, W = img.shape
-    p = F.pad(img.reshape(B * C, 1, H, W), (1, 1, 1, 1), mode="replicate")
+    p = _replicate_pad1(img.reshape(B * C, 1, H, W))
     k = torch.tensor((_SOBEL_X, _SOBEL_Y), dtype=img.dtype, device=img.device)
     g = F.conv2d(p, k[:, None])  # [B*C, 2, H, W]
     gx = g[:, 0].reshape(B, C, H, W)

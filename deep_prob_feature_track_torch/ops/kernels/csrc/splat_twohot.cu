@@ -1,5 +1,6 @@
 // Adjoint of the bilinear sample: splat an output cotangent back onto the
-// channels-last plane it was sampled from.
+// channels-last plane it was sampled from, in fixed point, so that the
+// result has the same bits on every run.
 //
 // Replaces the Pallas TPU kernel splat_twohot
 // (deep_prob_feature_track_tpu/ops/pallas/gather.py:283 _splat_kernel,
@@ -11,13 +12,40 @@
 // where V and U hold (1-dv, dv) at rows (v0, v0+1) and (1-du, du) at columns
 // (u0, u0+1).  The TPU builds those two-hot matrices and contracts them on
 // the MXU because its scatter-add serialises; it keeps the accumulator plane
-// in VMEM across a sequential grid.  Hopper has no sequential grid, and what
-// a splat costs here is the float adds that reach L2: one thread per
-// (sample, channel) sends 4*C adds a sample, and each warp-wide atomic
-// scatters over 32 cells.  Shared-memory float atomics do not help: sm_90
-// has none, and compiles atomicAdd on shared memory into a compare-and-swap
-// loop.  So this kernel merges the adds of neighbouring samples before they
-// leave the CTA, with integer shared atomics only:
+// in VMEM across a sequential grid, so its sums run in one order.  Hopper
+// has no sequential grid: CTAs add into the plane with atomics, in an order
+// that changes from run to run, and float addition is not associative.  So
+// the sums here are integers:
+//
+// - Each product p = g * w is formed in float32 (the plain version's
+//   product), scaled by 2^s in float64 (exact) and rounded half to even to
+//   an int64.  s is per (b, c): s = min(51, 62 - ceil(log2 N)) - e, where
+//   2^e > the largest finite |g[b, c, :]| (frexp's exponent).  A sample's
+//   four corners are distinct cells (the starts are clamped to
+//   [0, size-2]) and its weights lie in [0, 1], so a cell takes at most N
+//   products of at most 2^(62 - ceil(log2 N)) each: its sum stays within
+//   2^62, and int64 addition is exact and associative.  Whatever order the
+//   atomics and the staged lists take, the integers, and so the bits of the
+//   result, are the same.  The quantum 2^-s is 2^-46 of the largest |g| at
+//   120x160 (N = 19,200) and 2^-42 at 480x640, far below float32's
+//   rounding of the result.
+// - Non-finite products (NaN or Inf in g or a weight) are added in float32
+//   into d_op itself, with float atomics: whether a cell ends NaN, +Inf or
+//   -Inf does not depend on the order.
+// - The result is the int64 sum converted to float64, times 2^-s (exact),
+//   rounded to float32, wherever d_op holds no non-finite sum (it is 0
+//   there); elsewhere the non-finite sum.  ops/kernels/splat.py's plain
+//   version computes the same integers and roundings, bit for bit.
+//
+// The launch function runs, on the caller's stream with no host sync:
+// memsets of d_op, of the int64 plane acc and of the per-(b, c) maxima;
+// finite_max_kernel, which writes the bits of each (b, c)'s largest finite
+// |g| (atomicMax on the bits of a non-negative float orders as the float);
+// splat_twohot_kernel; and convert_kernel.
+//
+// The splat merges the adds of neighbouring samples before they leave the
+// CTA, with integer shared atomics only (sm_90 has no shared-memory float
+// atomics):
 //
 // 1. The samples are read as rows of W (the tracker's warps sample the plane
 //    at its own size, so sample (r, x) lands near cell (r, x); for any other
@@ -27,46 +55,46 @@
 //    coalesced, clamps the corner starts to [0, size-2], puts each sample's
 //    four corner weights in shared memory, stages g[b, :, tile] there
 //    (loaded coalesced over n, the [B,C,N] layout the autograd backward hands
-//    over) and reduces the tile's corner box [vmin, vmax+1] x [umin, umax+1].
+//    over), puts each channel's 2^s there and reduces the tile's corner box
+//    [vmin, vmax+1] x [umin, umax+1].
 // 2. Staged, when the box has at most `capacity` cells: each sample pushes
 //    itself onto the list of its 00 cell (atomicExch on an int, native in
 //    shared memory).  Then each (cell, channel) of the box sums its
-//    contributors -- the lists of cells (y, x), (y, x-1), (y-1, x) and
-//    (y-1, x-1), with their 00, 01, 10 and 11 weights -- and adds the sum to
-//    the plane with one global atomic (neighbouring tiles' boxes overlap);
-//    consecutive lanes take consecutive channels and cells.  Under a smooth
-//    warp an 8 x 32 tile's 256 samples reach ~300 cells: ~3.4x fewer adds,
-//    in whole sectors.
+//    contributors' fixed-point products in int64 registers -- the lists of
+//    cells (y, x), (y, x-1), (y-1, x) and (y-1, x-1), with their 00, 01, 10
+//    and 11 weights -- and adds the sum to acc with one 64-bit integer
+//    atomic (neighbouring tiles' boxes overlap); consecutive lanes take
+//    consecutive channels and cells.  Under a smooth warp an 8 x 32 tile's
+//    256 samples reach ~300 cells: ~3.4x fewer adds, in whole sectors.
 // 3. Global, otherwise: the CTA walks the flattened k = s*C + c of its
-//    samples with consecutive lanes and adds straight into the plane, so a
-//    warp-wide atomic covers ~32/C samples' contiguous channel runs.
+//    samples with consecutive lanes and adds each fixed-point product
+//    straight into acc, so a warp's atomics cover ~32/C samples' contiguous
+//    channel runs.
 //
-// The choice is made per CTA, inside the launch, with no host sync.  Where C
-// is even a lane takes two channels (VEC = 2) and the global atomics are
-// sm_90's float2 vector atomics.
+// The choice is made per CTA, inside the launch.  Where C is even a lane
+// takes two channels (VEC = 2); there is no vector atomic for int64, so it
+// issues two.
 //
 // Bound: bytes (the cotangent, four coordinate arrays, and the plane written
-// once), which the launch function's memset and the atomics' read-modify-
-// write in L2 exceed; the arithmetic is 12 flops per (sample, channel).
-//
-// Atomic adds take the tiles in an order that changes from run to run, so
-// the result agrees with the plain version within a tolerance, not bit for
-// bit.  Each added value is g times the corner weight, the product the plain
-// version adds, or a sum of such products.
+// once), which the memsets, the max pre-pass's read of g, the int64 plane's
+// atomics in L2 and the convert's read of it and of d_op exceed; the
+// arithmetic is 12 flops per (sample, channel).
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 // The launch function's one argument; ops/kernels/splat.py packs it with
-// the struct format "6P6iP" (native layout).
+// the struct format "8P6iP" (native layout).
 struct SplatArgs {
   const float* g;  // [B,C,N]
   const int* v0;   // [B,N]
   const float* dv;
   const int* u0;
   const float* du;
-  float* d_op;  // [B,H,W,C], zeroed by the launch function
+  float* d_op;    // [B,H,W,C]: the non-finite sums, then the result
+  int64_t* acc;   // [B,H,W,C] scratch: the fixed-point sums
+  unsigned* top;  // [B*C] scratch: bits of each (b, c)'s largest finite |g|
   int B, H, W, C, N;
   int capacity;  // corner-box cells a CTA may stage
   void* stream;
@@ -77,27 +105,70 @@ namespace {
 constexpr int kTileW = 32;   // one warp per tile row
 constexpr int kMaxRows = 8;  // tile rows for C <= 32: 256 threads per CTA
 constexpr size_t kMaxShared = 227 * 1024;
+constexpr int kSumBits = 62;      // a cell's sum stays below 2^62
+constexpr int kProductBits = 51;  // each product's below 2^51 (the plain
+                                  // version rounds by adding 1.5 * 2^52)
+constexpr int kMaxChunk = 4096;   // samples of one (b, c) a pre-pass CTA scans
+constexpr int kThreads = 256;
 
 size_t shared_bytes(int tile_h, int C, int capacity) {
   const size_t S = (size_t)tile_h * kTileW;
   return S * (sizeof(float4) + sizeof(int2) + sizeof(int) + sizeof(float) * C) +
-         (size_t)capacity * sizeof(int);
+         (size_t)C * sizeof(double) + (size_t)capacity * sizeof(int);
 }
 
-template <int VEC>
-__device__ __forceinline__ void add(float* dst, float a0, float a1) {
-  if (VEC == 2)
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a0, a1));
+// frexp's exponent of the finite float >= 0 with these bits (0 for 0)
+__device__ __forceinline__ int frexp_exponent(unsigned bits) {
+  if (bits == 0) return 0;
+  const int biased = (int)(bits >> 23);
+  return biased ? biased - 126 : (32 - __clz((int)bits)) - 149;
+}
+
+// 2^s of channel (b, c) whose largest finite |g| has the bits `top`
+__device__ __forceinline__ int fixed_shift(unsigned top, int log2n) {
+  return min(kProductBits, kSumBits - log2n) - frexp_exponent(top);
+}
+
+// 2^e, exactly, for e in [-1022, 1023]
+__device__ __forceinline__ double pow2(int e) {
+  return __longlong_as_double((long long)(e + 1023) << 52);
+}
+
+// the product p into the int64 sum a (finite) or the float sum f (not)
+__device__ __forceinline__ void take(float p, double scale, long long& a, float& f) {
+  if (isfinite(p))
+    a += __double2ll_rn(__dmul_rn((double)p, scale));
   else
-    atomicAdd(dst, a0);
+    f += p;
+}
+
+__device__ __forceinline__ void add_sums(int64_t* acc, float* d_op, long long a, float f) {
+  if (a != 0)
+    atomicAdd(reinterpret_cast<unsigned long long*>(acc), (unsigned long long)a);
+  if (f != 0.0f) atomicAdd(d_op, f);  // NaN != 0 too
+}
+
+__global__ void __launch_bounds__(kThreads) finite_max_kernel(
+    const float* __restrict__ g, unsigned* __restrict__ top, int N) {
+  const long long row = blockIdx.x;  // (b, c)
+  const float* gr = g + row * N;
+  const int end = min(N, (int)blockIdx.y * kMaxChunk + kMaxChunk);
+  unsigned m = 0;
+  for (int n = blockIdx.y * kMaxChunk + threadIdx.x; n < end; n += kThreads) {
+    const unsigned bits = __float_as_uint(gr[n]) & 0x7fffffffu;
+    if (bits < 0x7f800000u) m = max(m, bits);  // finite
+  }
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(top + row, m);
 }
 
 template <int VEC>
 __global__ void __launch_bounds__(kTileW * kMaxRows) splat_twohot_kernel(
     const float* __restrict__ g, const int* __restrict__ v0,
     const float* __restrict__ dv, const int* __restrict__ u0,
-    const float* __restrict__ du, float* __restrict__ d_op, int H, int W,
-    int C, int N, int capacity) {
+    const float* __restrict__ du, float* __restrict__ d_op,
+    int64_t* __restrict__ acc, const unsigned* __restrict__ top, int H, int W,
+    int C, int N, int log2n, int capacity) {
   extern __shared__ float4 smem[];
   __shared__ int partial[4][kMaxRows];
   const int lane = threadIdx.x, warp = threadIdx.y;
@@ -108,13 +179,17 @@ __global__ void __launch_bounds__(kTileW * kMaxRows) splat_twohot_kernel(
   const int x = blockIdx.x * kTileW + lane;
   const long long n = (long long)(blockIdx.y * nwarps + warp) * W + x;
   const bool live = x < W && n < N;
-  float4* weights = smem;                               // [S] w00, w01, w10, w11
-  int2* starts = reinterpret_cast<int2*>(weights + S);  // [S] (v0, u0), -1 if not live
-  int* next = reinterpret_cast<int*>(starts + S);       // [S] next sample of a cell's list
-  float* gs = reinterpret_cast<float*>(next + S);       // [S][C] the tile's cotangent
-  int* head = reinterpret_cast<int*>(gs + S * C);       // [capacity] first sample of a cell
-  float* plane = d_op + (long long)b * H * W * C;
+  float4* weights = smem;                                   // [S] w00, w01, w10, w11
+  double* scales = reinterpret_cast<double*>(weights + S);  // [C] 2^s of each channel
+  int2* starts = reinterpret_cast<int2*>(scales + C);       // [S] (v0, u0), -1 if not live
+  int* next = reinterpret_cast<int*>(starts + S);           // [S] next sample of a cell's list
+  float* gs = reinterpret_cast<float*>(next + S);           // [S][C] the tile's cotangent
+  int* head = reinterpret_cast<int*>(gs + S * C);           // [capacity] first sample of a cell
+  const long long base = (long long)b * H * W * C;
+  float* plane = d_op + base;
+  int64_t* sums = acc + base;
 
+  for (int c = t; c < C; c += S) scales[c] = pow2(fixed_shift(top[b * C + c], log2n));
   int vi = -1, ui = -1;
   int vlo = INT_MAX, vhi = INT_MIN, ulo = INT_MAX, uhi = INT_MIN;
   if (live) {
@@ -124,7 +199,8 @@ __global__ void __launch_bounds__(kTileW * kMaxRows) splat_twohot_kernel(
     const float fv = dv[i];
     const float fu = du[i];
     const float omu = 1.0f - fu, omv = 1.0f - fv;
-    weights[t] = make_float4(omu * omv, fu * omv, omu * fv, fu * fv);
+    weights[t] = make_float4(__fmul_rn(omu, omv), __fmul_rn(fu, omv), __fmul_rn(omu, fv),
+                             __fmul_rn(fu, fv));
     const float* gt = g + (long long)b * C * N + n;
     for (int c = 0; c < C; ++c) gs[t * C + c] = gt[(long long)c * N];
     vlo = vhi = vi;
@@ -165,8 +241,10 @@ __global__ void __launch_bounds__(kTileW * kMaxRows) splat_twohot_kernel(
     int cell = t / CV, j = t - cell * CV;
     for (int k = t; k < items; k += S) {
       const int y = cell / cols, cx = cell - y * cols;
-      float a0 = 0.0f, a1 = 0.0f;
-      bool any = false;
+      const double s0 = scales[j * VEC];
+      const double s1 = VEC == 2 ? scales[j * VEC + 1] : 0.0;
+      long long a0 = 0, a1 = 0;
+      float f0 = 0.0f, f1 = 0.0f;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {  // corner q = 00, 01, 10, 11 of the contributor
         const int sy = y - (q >> 1), sx = cx - (q & 1);
@@ -176,15 +254,16 @@ __global__ void __launch_bounds__(kTileW * kMaxRows) splat_twohot_kernel(
           const float w = q == 0 ? wp.x : q == 1 ? wp.y : q == 2 ? wp.z : wp.w;
           if (VEC == 2) {
             const float2 gv = *reinterpret_cast<const float2*>(gs + p * C + j * 2);
-            a0 += gv.x * w;
-            a1 += gv.y * w;
+            take(__fmul_rn(gv.x, w), s0, a0, f0);
+            take(__fmul_rn(gv.y, w), s1, a1, f1);
           } else {
-            a0 += gs[p * C + j] * w;
+            take(__fmul_rn(gs[p * C + j], w), s0, a0, f0);
           }
-          any = true;
         }
       }
-      if (any) add<VEC>(plane + ((long long)(vlo + y) * W + ulo + cx) * C + j * VEC, a0, a1);
+      const long long o = ((long long)(vlo + y) * W + ulo + cx) * C + j * VEC;
+      add_sums(sums + o, plane + o, a0, f0);
+      if (VEC == 2) add_sums(sums + o + 1, plane + o + 1, a1, f1);
       cell += ds;
       j += dj;
       if (j >= CV) {
@@ -196,18 +275,26 @@ __global__ void __launch_bounds__(kTileW * kMaxRows) splat_twohot_kernel(
   }
 
   const int WC = W * C;
+  const int corner[4] = {0, C, WC, WC + C};
   int p = t / CV, j = t - p * CV;
   for (int k = t; k < S * CV; k += S) {
     const int2 st = starts[p];
     if (st.x >= 0) {
-      const float4 w = weights[p];
-      float* q = plane + ((long long)st.x * W + st.y) * C + j * VEC;
-      const float g0 = gs[p * C + j * VEC];
-      const float g1 = VEC == 2 ? gs[p * C + j * VEC + 1] : 0.0f;
-      add<VEC>(q, g0 * w.x, g1 * w.x);
-      add<VEC>(q + C, g0 * w.y, g1 * w.y);
-      add<VEC>(q + WC, g0 * w.z, g1 * w.z);
-      add<VEC>(q + WC + C, g0 * w.w, g1 * w.w);
+      const float4 w4 = weights[p];
+      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+      const long long o = ((long long)st.x * W + st.y) * C + j * VEC;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float gv = gs[p * C + j * VEC + v];
+        const double sc = scales[j * VEC + v];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          long long a = 0;
+          float f = 0.0f;
+          take(__fmul_rn(gv, w[q]), sc, a, f);
+          add_sums(sums + o + corner[q] + v, plane + o + corner[q] + v, a, f);
+        }
+      }
     }
     p += ds;
     j += dj;
@@ -218,8 +305,22 @@ __global__ void __launch_bounds__(kTileW * kMaxRows) splat_twohot_kernel(
   }
 }
 
+// d_op = acc * 2^-s rounded to float32, where d_op holds no non-finite sum
+__global__ void __launch_bounds__(kThreads) convert_kernel(
+    const int64_t* __restrict__ acc, float* __restrict__ d_op,
+    const unsigned* __restrict__ top, int C, int per_image, int log2n) {
+  const int b = blockIdx.y;
+  const long long base = (long long)b * per_image;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < per_image; i += gridDim.x * kThreads) {
+    if (d_op[base + i] != 0.0f) continue;  // NaN or Inf: it stays
+    const int c = i % C;
+    const double unscale = pow2(-fixed_shift(top[b * C + c], log2n));
+    d_op[base + i] = __double2float_rn(__dmul_rn(__ll2double_rn(acc[base + i]), unscale));
+  }
+}
+
 template <int VEC>
-int launch(const SplatArgs& a, int tile_h, size_t shared) {
+int launch(const SplatArgs& a, int tile_h, size_t shared, int log2n) {
   static size_t opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (shared > opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -232,25 +333,41 @@ int launch(const SplatArgs& a, int tile_h, size_t shared) {
   const dim3 block(kTileW, tile_h);
   const dim3 grid((a.W + kTileW - 1) / kTileW, (sample_rows + tile_h - 1) / tile_h, a.B);
   splat_twohot_kernel<VEC><<<grid, block, shared, (cudaStream_t)a.stream>>>(
-      a.g, a.v0, a.dv, a.u0, a.du, a.d_op, a.H, a.W, a.C, a.N, a.capacity);
+      a.g, a.v0, a.dv, a.u0, a.du, a.d_op, a.acc, a.top, a.H, a.W, a.C, a.N, log2n,
+      a.capacity);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Zeroes d_op, then splats.  Returns the first cudaError_t:
-// cudaErrorInvalidValue for a negative capacity, or a tile and box that do
-// not fit shared memory (C > ~1700).
+// Zeroes d_op, acc and top, then takes the maxima, splats and converts.
+// Returns the first cudaError_t: cudaErrorInvalidValue for a negative
+// capacity, or a tile and box that do not fit shared memory (C > ~1600).
 extern "C" int splat_twohot_launch(const SplatArgs* a) {
   const cudaStream_t st = (cudaStream_t)a->stream;
-  const size_t plane = (size_t)a->B * a->H * a->W * a->C * sizeof(float);
-  cudaError_t err = cudaMemsetAsync(a->d_op, 0, plane, st);
+  const size_t cells = (size_t)a->B * a->H * a->W * a->C;
+  cudaError_t err = cudaMemsetAsync(a->d_op, 0, cells * sizeof(float), st);
   if (err != cudaSuccess || a->B == 0 || a->N == 0 || a->C == 0) return (int)err;
   if (a->capacity < 0) return (int)cudaErrorInvalidValue;
   const int tile_h = a->C <= 32 ? kMaxRows : 1;
   const size_t shared = shared_bytes(tile_h, a->C, a->capacity);
   if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
-  if (a->C % 2 == 0 && reinterpret_cast<uintptr_t>(a->d_op) % 8 == 0)
-    return launch<2>(*a, tile_h, shared);
-  return launch<1>(*a, tile_h, shared);
+  err = cudaMemsetAsync(a->acc, 0, cells * sizeof(int64_t), st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(a->top, 0, (size_t)a->B * a->C * sizeof(unsigned), st);
+  if (err != cudaSuccess) return (int)err;
+  const int log2n = a->N > 1 ? 32 - __builtin_clz((unsigned)(a->N - 1)) : 0;
+
+  finite_max_kernel<<<dim3(a->B * a->C, (a->N + kMaxChunk - 1) / kMaxChunk), kThreads, 0, st>>>(
+      a->g, a->top, a->N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int status = a->C % 2 == 0 ? launch<2>(*a, tile_h, shared, log2n)
+                                   : launch<1>(*a, tile_h, shared, log2n);
+  if (status != 0) return status;
+  const int per_image = a->H * a->W * a->C;
+  const int blocks = (int)((per_image + kThreads - 1) / kThreads);
+  convert_kernel<<<dim3(blocks < 8192 ? blocks : 8192, a->B), kThreads, 0, st>>>(
+      a->acc, a->d_op, a->top, a->C, per_image, log2n);
+  return (int)cudaGetLastError();
 }

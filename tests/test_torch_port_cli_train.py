@@ -312,6 +312,22 @@ def _train_args(data_root, tmp_path, *extra):
             "--device", "cpu", *extra]
 
 
+def test_train_cli_takes_every_flag_of_the_jax_cli():
+    """The JAX train CLI's flags, ``--time`` ("stage timing", never read)
+    among them, parse in the port's CLI with the same help; the port adds
+    only ``--device``."""
+    from deep_prob_feature_track_tpu.apps import train as jax_cli
+
+    def flags(parser):
+        return {s: a for a in parser._actions for s in a.option_strings}
+
+    port, ref = flags(ptr.build_argparser()), flags(jax_cli.build_argparser())
+    assert set(port) - set(ref) == {"--device"} and set(ref) <= set(port)
+    assert port["--time"].help == ref["--time"].help == "stage timing"
+    assert ptr.build_argparser().parse_args(["--time"]).time is True
+    assert ptr.build_argparser().parse_args([]).time is False
+
+
 def test_train_cli_trains_saves_and_resumes(data_root, trainval, no_tensorboard, tmp_path,
                                             capsys):
     assert ptr.main(_train_args(data_root, tmp_path, "--epochs", "1",

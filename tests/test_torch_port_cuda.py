@@ -9,9 +9,9 @@ Tolerances: K1 (gather) must match its plain version bit for bit, on
 random, smooth and teleported coordinates; K2's
 ``out`` too, and its gx/gy within 1e-6 of the largest entry; K4 and K5 (the
 tile-staged gathers) the same as K1 and K2, whichever path each tile takes;
-K3 (splat)
-adds with float atomics, within 1e-5 of the largest entry, whichever branch
-(shared-memory sums or global atomics) each tile takes; K6 (JtJ) sums in
+K3 (splat) sums in int64 fixed point: bit for bit with its float32 plain
+version (NaN as NaN), whichever branch (shared-memory sums or global
+atomics) each tile takes, and the same bits on every launch; K6 (JtJ) sums in
 another order than the plain version, rtol 1e-5 with atol 1e-5 of the
 largest entry, against the plain version in float32 and in float64 (at
 307200 pixels the float64 one alone: the float32 one's own sums stray
@@ -92,6 +92,11 @@ def test_gather_grads_kernel_matches_plain(cuda, B, H, W, C):
         torch.testing.assert_close(got, r, rtol=0, atol=1e-6 * r.abs().max().item())
 
 
+def _assert_same_bits(got, ref):
+    """K3 against its float32 plain twin: the same bits, NaN as NaN."""
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.parametrize("B,H,W,C", [(64, 120, 160, 10), (64, 15, 20, 10), (1, 16, 20, 1),
                                      (3, 7, 9, 17)])
 def test_splat_kernel_matches_plain(cuda, B, H, W, C):
@@ -103,7 +108,7 @@ def test_splat_kernel_matches_plain(cuda, B, H, W, C):
     ref = tk.splat_twohot_ref(g, *args, H, W)
     torch.cuda.synchronize()
     assert d_op.shape == (B, H, W, C)
-    torch.testing.assert_close(d_op, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+    _assert_same_bits(d_op, ref)
 
 
 def _flat_coords(cuda, B, H, W, N, coords, seed=0):
@@ -203,7 +208,53 @@ def test_splat_kernel_on_flat_tiles(cuda, coords, C, B, H, W, N):
     ref = tk.splat_twohot_ref(g, *args, H, W)
     torch.cuda.synchronize()
     assert d_op.shape == (B, H, W, C)
-    torch.testing.assert_close(d_op, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+    _assert_same_bits(d_op, ref)
+
+
+@pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
+@pytest.mark.parametrize("C", [1, 10, 11, 28])
+@pytest.mark.parametrize("B,H,W,N", [(64, 120, 160, 120 * 160), (64, 2, 2, 300)])
+def test_splat_kernel_repeats_its_bits(cuda, coords, C, B, H, W, N):
+    """Five launches on one input give the same bits: the atomics and the
+    staged lists take another order each run, the int64 sums do not move.
+    On the 2x2 plane every sample of an image reaches every cell."""
+    args = _flat_coords(cuda, B, H, W, N, coords, seed=2)
+    g = torch.randn(B, C, N, generator=torch.Generator().manual_seed(C + 1)).to(cuda)
+    outs = [tk.splat_twohot_cuda(g, *args, H, W) for _ in range(5)]
+    ref = tk.splat_twohot_ref(g, *args, H, W)
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, outs[0])
+    _assert_same_bits(outs[0], ref)
+
+
+@pytest.mark.parametrize("C", [1, 10, 11])
+@pytest.mark.parametrize("coords", ["smooth", "random"])
+def test_splat_kernel_non_finite_and_extreme_values(cuda, C, coords):
+    """NaN and +-Inf in g (Inf times a zero weight is NaN), a NaN
+    coordinate, an all-zero channel, a subnormal one and one near the
+    float32 maximum (sums past it are Inf): the twin's bits, NaN as NaN,
+    on both branches (smooth tiles stage, random ones do not)."""
+    B, H, W = 7, 30, 40
+    N = H * W
+    g = torch.randn(B, C, N, generator=torch.Generator().manual_seed(3))
+    g[0, 0, 5] = float("nan")
+    g[1, 0, 7] = float("inf")
+    g[2, C - 1, 9] = -float("inf")
+    g[3, 0, 11], g[3, 0, 12] = float("inf"), -float("inf")
+    g[4] = 0.0
+    g[5] *= 1e-39
+    g[6] = g[6].abs().clamp(0.5, 1.0) * 3.3e38
+    v0, dv, u0, du = (t.clone() for t in _flat_coords(cuda, B, H, W, N, coords, seed=4))
+    du[0, 100] = float("nan")
+    du[1, 7], dv[1, 7] = 0.0, 0.0  # g[1, 0, 7] = Inf meets zero weights
+    g = g.to(cuda)
+    outs = [tk.splat_twohot_cuda(g, v0, dv, u0, du, H, W) for _ in range(3)]
+    ref = tk.splat_twohot_ref(g, v0, dv, u0, du, H, W)
+    torch.cuda.synchronize()
+    assert torch.isnan(ref).any() and torch.isposinf(ref).any() and torch.isneginf(ref).any()
+    for out in outs:
+        _assert_same_bits(out, ref)
 
 
 def test_splat_launch_mixes_staged_and_global_tiles(cuda):
@@ -809,9 +860,7 @@ def test_deepic_shapes_match_plain(cuda, P, h, w, kind):
     for a, r in zip(got[1:], ref[1:]):
         torch.testing.assert_close(a, r, rtol=0, atol=1e-6 * r.abs().max().item())
     cot = torch.randn(P, 1, maps[0].shape[1], generator=g, device=cuda)
-    ref = tk.splat_twohot_ref(cot, *maps, h, w)
-    torch.testing.assert_close(tk.splat_twohot_cuda(cot, *maps, h, w), ref, rtol=0,
-                               atol=1e-5 * ref.abs().max().item())
+    _assert_same_bits(tk.splat_twohot_cuda(cot, *maps, h, w), tk.splat_twohot_ref(cot, *maps, h, w))
 
 
 # ------------------------------------------------------------------ U_FC
@@ -883,9 +932,8 @@ def test_ufc_shapes_match_plain(cuda, C, H, W):
         torch.testing.assert_close(a, r, rtol=0, atol=1e-6 * r.abs().max().item())
     if C == C_UFC:
         cot = torch.randn(64, C, H * W, generator=torch.Generator().manual_seed(H)).to(cuda)
-        ref = tk.splat_twohot_ref(cot, *maps, H, W)
-        torch.testing.assert_close(tk.splat_twohot_cuda(cot, *maps, H, W), ref, rtol=0,
-                                   atol=1e-5 * ref.abs().max().item())
+        _assert_same_bits(tk.splat_twohot_cuda(cot, *maps, H, W),
+                          tk.splat_twohot_ref(cot, *maps, H, W))
 
 
 # per forward: K4 at the levels whose C=28 operand the JAX tile gate takes

@@ -230,10 +230,11 @@ def test_evaluate_cli_on_cpu(evaluated, sequence, tmp_path, monkeypatch, capsys)
 
 # Every option the CLIs refused before ROADMAP items 5, 6 and 8 runs now.
 # On one process (a mesh of one rank) the sharded runs give the plain run's
-# bits, and --debug_nan leaves a finite step as it is.
+# bits, and --debug_nan leaves a finite step as it is; --time (the JAX train
+# CLI's flag, which it never reads) changes nothing.
 EVAL_FLAGS = [["--mesh"], ["--dataset", "ScanNet"], ["--mesh", "--dataset", "VaryLighting"]]
 TRAIN_FLAGS = [["--accum_steps", "2"], ["--mesh"], ["--distributed"], ["--debug_nan"],
-               ["--dataset", "ScanNet"]]
+               ["--dataset", "ScanNet"], ["--time"]]
 
 
 @pytest.fixture(scope="module")

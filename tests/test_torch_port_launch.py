@@ -164,6 +164,7 @@ def test_jtj_wrappers_raise_the_checks_errors(fault):
 
 _CTYPES = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
            "const int*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "int64_t*": ctypes.c_void_p, "unsigned*": ctypes.c_void_p,
            "int": ctypes.c_int, "float": ctypes.c_float}
 
 
