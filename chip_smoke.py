@@ -38,13 +38,13 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 7. K1 (B=8) and K3 (B=64) against their plain versions on the smooth and
    teleported coordinates of 6, and on the smooth ones spread 4x about the
    centre (off the plane), at the four 120x160 levels, C=10 and C=17, and
-   K3 at 480x640, B=4 level 0 on smooth ones: K1 and K3 bit-exact.  At C=10 every smooth 120x160 K3 tile stages its
-   corner box in shared memory, and the level-0 teleported and off-plane
-   launches take both branches (teleported samples send some tiles to
-   global atomics; off the plane, the corner tiles stage all their samples
-   onto one cell); K2 at B=64 on the same inputs as K3: ``out`` bit-exact
-   with its plain version and with K1, gx/gy within 1e-6 of the largest
-   entry; K1 and K2 also at C=1, 3 and 6, where no K3 runs;
+   K3 at 480x640, B=4 level 0 on smooth ones: K1 and K3 bit-exact.  No
+   smooth K3 bin is split over CTAs, and the level-0 off-plane launch at
+   C=10 splits some bins and not others (its corner tiles' bins hold the
+   samples clamped onto the corner cells); K2 at B=64 on the same inputs
+   as K3: ``out`` bit-exact with its plain version and with K1, gx/gy
+   within 1e-6 of the largest entry; K1 and K2 also at C=1, 3 and 6, where
+   no K3 runs;
 8. serve: ``build_service("feature", "", max_batch=8)`` at 120x160 on the
    card, 12 requests from threads and one HTTP ``POST /track``; with the
    launch counts reset just before and read just after, K1 and K6 must
@@ -80,10 +80,10 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 15. train at 480x640, B=4 as in 11: per step K5 6 times (levels 0-1), K2 6
    times (levels 2-3), K3 and K6 12 times, K1 and K4 not at all; kernels
    against plain within the same limits; timed and profiled;
-16. the share of K4's, K5's and K3's tiles that staged on the
-   synthetic scenes' own warps: the 480x640 ``feature`` and ``feature_icp``
-   forwards, and one loss and
-   backward at 480x640, B=4 and at 120x160, B=64;
+16. the share of K4's and K5's tiles that staged and of K3's bins that
+   split over CTAs, on the synthetic scenes' own warps: the 480x640
+   ``feature`` and ``feature_icp`` forwards, and one loss and backward at
+   480x640, B=4 and at 120x160, B=64;
 17. time the forwards and each kernel at each level (CUDA events around
    back-to-back calls after warm-up, and the kernels' own device time:
    events around calls queued behind a sleep kernel, so no host launch gap
@@ -393,9 +393,9 @@ SLEEP_CYCLES = 100_000_000  # ~50 ms of device sleep while device_ms queues its 
 N_CPU_VGA = 2  # the CPU forward at 480x640 takes this many requests of the batch
 # the coordinates K1 and K3 are checked and timed on: uniform over and past
 # the plane, smooth sub-pixel flow, the same with a few samples moved half
-# the plane away (K3 launches then mix staged and global tiles), and smooth
-# flow zoomed out 4x about the centre (most samples clamp to the border:
-# K3 tiles in the corners stage every sample onto one cell's list)
+# the plane away (their K3 bins scatter), and smooth flow zoomed out 4x
+# about the centre (most samples clamp to the border: K3's corner tiles
+# take thousands of samples on one cell and split)
 COORDS = ("random", "smooth", "teleported", "offplane")
 KEYS = ("color0", "color1", "depth0", "depth1", "calib")
 # published peaks (NVIDIA data sheets): device-memory bytes/s, f32 flop/s
@@ -1165,11 +1165,11 @@ def phase_flat_kernels(torch, dev):
     at C=1, 3 and 6 (the classical and ICP warps), and K3 at 480x640, B=4
     level 0: K1, K2's ``out`` (also with K1) and K3 bit-exact, K2's gx/gy
     within 1e-6 of the largest entry.
-    The teleported and off-plane level-0 K3 launches at C=10 must mix
-    staged and global tiles, and its smooth launches at C=10 stage every
-    tile."""
+    No smooth K3 bin may split over CTAs, and the off-plane level-0 K3
+    launch at C=10 must split some bins (its corner tiles') and not
+    others."""
     from deep_prob_feature_track_torch.ops import kernels as K
-    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
+    from deep_prob_feature_track_torch.ops.kernels.splat import splat_bins
 
     err = {"gather_twohot": 0.0, "gather_twohot_grads": 0.0, "splat_twohot": 0.0}
     cases = [(False, i, B_TRAIN, h, w, c, coords) for i, (h, w) in enumerate(LEVELS)
@@ -1210,13 +1210,15 @@ def phase_flat_kernels(torch, dev):
         got = K.splat_twohot_cuda(g, *args, h, w)
         ref = K.splat_twohot_ref(g, *args, h, w)
         e3 = check_splat(torch, got, ref, label)
-        share = splat_staged_share(args[0], args[2], h, w, c)
-        log(f"K3 splat_twohot {label}, B={b}: staged share {share:.4f}, bit-exact")
-        if (vga, c, coords) == (False, C_WARP, "smooth") and share != 1.0:
-            raise AssertionError(f"splat_twohot on {label}: a tile did not stage ({share})")
-        if ((vga, i, c) == (False, 0, C_WARP) and coords in ("teleported", "offplane")
-                and not 0.0 < share < 1.0):
-            raise AssertionError(f"splat_twohot on {label} did not take both branches ({share})")
+        bins = splat_bins(args[0], args[2], h, w, c)
+        share = bins["split_share"]
+        log(f"K3 splat_twohot {label}, B={b}: {bins['ctas']} CTAs, split share {share:.4f}, "
+            f"cross-tile share {bins['cross_share']:.4f}, bit-exact")
+        if coords == "smooth" and share != 0.0:
+            raise AssertionError(f"splat_twohot on {label}: a smooth bin split ({share})")
+        if (vga, i, c, coords) == (False, 0, C_WARP, "offplane") and not 0.0 < share < 1.0:
+            raise AssertionError(f"splat_twohot on {label} did not split its corner bins alone "
+                                 f"({share})")
         err["splat_twohot"] = max(err["splat_twohot"], e3)
     return err
 
@@ -1655,17 +1657,17 @@ def phase_train(torch, dev, b, h, w, seed, expected, preset="feature", overrides
 
 
 def phase_scene_share(torch, dev):
-    """The share of K4's, K5's and K3's tiles that staged on the
-    synthetic scenes, recorded from the warp's kernel calls (the other
-    tiles take the global path): the level-0 warps of the 480x640
-    ``feature`` and ``feature_icp`` forwards and the level 0-2 warps of the
+    """The share of K4's and K5's tiles that staged (the other tiles take
+    the global path) and of K3's bins that split over CTAs, on the
+    synthetic scenes, recorded from the warp's kernel calls: the level-0
+    warps of the 480x640 ``feature`` and ``feature_icp`` forwards and the level 0-2 warps of the
     480x640 U_FC forward, the level-0 warps of the 120x160 U_FC forward on
     the synthetic scene and on the served requests' random depth, then one
     loss and backward at 480x640, B=4 (K5 at levels 0-1, K3 at every level)
     and at 120x160, B=64 (K3)."""
     from deep_prob_feature_track_torch.apps.serve import build_tracker, example_batch
     from deep_prob_feature_track_torch.geometry import warp
-    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
+    from deep_prob_feature_track_torch.ops.kernels.splat import splat_bins
     from deep_prob_feature_track_torch.ops.kernels.tiles import grads_staged_share, staged_share
     from deep_prob_feature_track_torch.training import train as T
 
@@ -1677,7 +1679,7 @@ def phase_scene_share(torch, dev):
     def recorder(name):
         def call(x, v0, dv, u0, du, *hw):
             if hw:  # K3: the plane's H, W; x is the cotangent [B,C,N]
-                size, share = hw, splat_staged_share(v0, u0, *hw, x.shape[1])
+                size, share = hw, splat_bins(v0, u0, *hw, x.shape[1])["split_share"]
             else:  # K4 / K5: the sample grid
                 size, share = tuple(v0.shape[1:]), tile_share[name](v0, u0, *x.shape[1:])
             shares.setdefault(f"{name} {scene[0]}", []).append((size, share))
@@ -1706,7 +1708,7 @@ def phase_scene_share(torch, dev):
         for name, fn in kernels.items():
             setattr(warp, name, fn)
     for key, calls in shares.items():
-        log(f"{key}: staged share per call "
+        log(f"{key}: {'split' if 'splat' in key else 'staged'} share per call "
             + ", ".join(f"{h}x{w} {s:.4f}" for (h, w), s in calls))
     return {k: [s for _, s in v] for k, v in shares.items()}
 
@@ -1752,13 +1754,35 @@ def k1_timing(torch, F, args, uv, bw, flops):
     }
 
 
+def kernel_split_us(torch, fn, calls: int = 10):
+    """Device µs of each kernel and memset name in one call of ``fn``, from
+    a ``torch.profiler`` trace of ``calls`` calls after a warm-up call;
+    "not measured" where the trace holds no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    fn()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name[:60]] = out.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / calls
+    return out or "not measured: the trace holds no device activity"
+
+
 def k3_timing(torch, g, args, uv, h, w, bw, flops):
     """K3's events and device time for the cotangent g [b,C,h*w] at the
     corner maps ``args``, beside its plain version, the library's operand
     cotangent of ``grid_sample`` (border, align_corners=True) at the same
-    coordinates ``uv``, the byte bound and the share of staged tiles."""
+    coordinates ``uv``, the byte bound, the device time of each of its
+    kernels and the share of its bins that split over CTAs."""
     from deep_prob_feature_track_torch.ops import kernels as K
-    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
+    from deep_prob_feature_track_torch.ops.kernels.splat import splat_bins
 
     b, c, n = g.shape
     grid = _grid(*uv, b, h, w)
@@ -1772,7 +1796,8 @@ def k3_timing(torch, g, args, uv, h, w, bw, flops):
         "library_ms": time_ms(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
             g4, F_nchw, grid, 0, 1, True, [True, False]), windows=5),
         **bound(4 * (2 * planes + 4 * b * n), b * n * (2 + 12 * c), bw, flops),
-        "staged_share": splat_staged_share(args[0], args[2], h, w, c),
+        "split_us": kernel_split_us(torch, lambda: K.splat_twohot_cuda(g, *args, h, w)),
+        "split_share": splat_bins(args[0], args[2], h, w, c)["split_share"],
     }
 
 
@@ -1878,7 +1903,7 @@ def phase_time_grads(torch, dev, name):
             log(f"level {i} {h}x{w} B={B_TRAIN}, {coords} coordinates: K3 {r['ms']:.4f} ms, "
                 f"device {r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, "
                 f"grid_sampler_2d_backward {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}, "
-                f"staged share {r['staged_share']:.4f})")
+                f"split share {r['split_share']:.4f}); by kernel, µs: {r['split_us']}")
 
     h, w = VGA_LEVELS[0]
     _, flat, uv = flat_inputs(torch, dev, B_VGA_TRAIN, h, w, C_WARP, 70, "smooth")
@@ -1886,8 +1911,8 @@ def phase_time_grads(torch, dev, name):
     vga = k3_timing(torch, g.to(dev), flat, uv, h, w, bw, flops)
     log(f"level 0 {h}x{w} B={B_VGA_TRAIN}, smooth coordinates: K3 {vga['ms']:.4f} ms, device "
         f"{vga['device_ms']:.4f} (plain {vga['plain_ms']:.4f}, grid_sampler_2d_backward "
-        f"{vga['library_ms']:.4f}, bound {vga['bound_ms']:.4f}, staged share "
-        f"{vga['staged_share']:.4f})")
+        f"{vga['library_ms']:.4f}, bound {vga['bound_ms']:.4f}, split share "
+        f"{vga['split_share']:.4f}); by kernel, µs: {vga['split_us']}")
     return levels, vga
 
 

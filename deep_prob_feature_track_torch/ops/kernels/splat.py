@@ -17,7 +17,7 @@ launch the kernel (``csrc/splat_twohot.cu``), CPU tensors take
 ``splat_twohot_ref``.
 
 Float32 sums run in fixed point, so that their bits do not depend on the
-order of the adds: the kernel's atomics take its tiles in an order that
+order of the adds: the kernel's CTAs take their bins in an order that
 changes from run to run, and the JAX package's splats give the same bits
 every run.  Each finite product ``g * w`` is formed in float32, scaled by
 ``2**s`` of its (b, c) channel in float64 and rounded half to even to an
@@ -27,41 +27,42 @@ e``, where ``2**e`` lies above the largest finite ``|g[b, c, :]|``
 in [0, 1] (the fractions ``dv``, ``du`` that ``geometry/warp.py::
 _corner_weights`` makes lie in [0, 1]), so a cell's sum of at most N
 products stays within 2**62.  The result is that sum as a float64 times
-``2**-s``, rounded to float32.  Non-finite products (NaN or Inf in g or in a weight) are
-summed in float32 into the output plane, where their class (NaN, +Inf or
--Inf) does not depend on the order, and stand there in place of the
-fixed-point result.  Float64 inputs, which only the plain version takes,
+``2**-s``, rounded to float32.  Non-finite products (NaN or Inf in g or
+in a weight) stand in place of that result as their float32 sum: its class
+(NaN, +Inf or -Inf) does not depend on the order, and the kernel keeps only
+the class.  Float64 inputs, which only the plain version takes,
 are summed in float64 as they come.
 
-The kernel reads the samples as rows of ``W`` (the tracker samples each
-plane at its own size) and gives each CTA a tile of ``tile_rows(C)`` x 32 of
-them.  A tile whose clamped corner box, ``(vmax - vmin + 2) x
-(umax - umin + 2)`` cells, has at most ``BOX_CELLS`` cells sums each cell's
-contributions in shared memory and adds each sum once (staged); any other
-tile adds straight into the plane (global).  :func:`splat_staged_share`
-computes that decision as the kernel does.
+Because no order of the adds can move a bit, the kernel needs no
+accumulator in device memory: it bins the samples by the ``TILE_H`` x
+``TILE_W`` output tiles their 2x2 corner blocks touch, and one CTA sums
+each tile (and group of at most ``MAX_GROUP`` channels) in registers and
+writes each cell once.  A bin of more than ``SPLIT`` entries spreads over
+several CTAs, which merge their int64 sums, for up to ``SLOTS_PER_IMAGE``
+tiles an image.  :func:`splat_bins` computes those decisions as the kernel
+makes them, and :func:`scratch_layout` the scratch they take.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Dict
 
 import torch
 
 from . import loader
 from .gather import on_one_card, raise_bad_args
 
-BOX_CELLS = 1024  # corner-box cells a CTA may stage (4 KB of list heads)
 SUM_BITS = 62  # a cell's fixed-point sum stays below 2**SUM_BITS
 PRODUCT_BITS = 51  # and each product's below 2**PRODUCT_BITS
 ROUNDER = 1.5 * 2.0 ** 52  # x + ROUNDER rounds |x| < 2**51 half to even into its low bits
+# the kernel's tiling (csrc/splat_twohot.cu's kTileH, kTileW, kSplit, kMaxGroup)
+TILE_H, TILE_W = 8, 32  # output cells a CTA owns
+SPLIT = 1024  # bin entries a CTA takes; a larger bin spreads over several CTAs
+MAX_GROUP = 16  # channels a CTA sums; wider C takes several groups of CTAs
+SLOTS_PER_IMAGE = 4  # merge buffers for split bins, per image
 
-_launch = loader.launcher("splat_twohot", "splat_twohot_launch", "8P6iP")
-
-
-def tile_rows(C: int) -> int:
-    """Rows of 32 samples per CTA for C channels, as the launch function
-    works them out: wide channel vectors take one row, so the staged
-    cotangent stays small."""
-    return 8 if C <= 32 else 1
+_launch = loader.launcher("splat_twohot", "splat_twohot_launch", "17P7iP")
 
 
 def fixed_point_shift(g, top=None):
@@ -147,22 +148,64 @@ def _check(g, v0, dv, u0, du, H, W):
             raise ValueError(f"{name} must be contiguous")
 
 
+def channel_groups(C: int):
+    """(groups, width): the kernel sums C channels in ``groups`` groups of
+    at most ``width <= MAX_GROUP`` channels, the last one possibly
+    narrower."""
+    groups = -(-C // MAX_GROUP)
+    return groups, -(-C // groups) if C else 0
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_layout(B: int, H: int, W: int, C: int, N: int) -> Dict[str, int]:
+    """Byte offsets of the kernel's scratch regions in one allocation, and
+    its ``total`` size and number of merge ``slots``: the per-tile
+    ``counts``, the per-(b, c) ``top`` and the ``ctl`` counters (in that
+    order: the launch zeroes them as one range), the split bins' ``parts``,
+    each bin's merge slot (``slot_of``), the ``extra`` work items (a split
+    bin's parts after its first), the bins' ``cursor``, the ``bins``
+    themselves (at most four entries a sample) and the split tiles'
+    ``merge`` sums, ``merge_cls`` class bits and ``arrivals``."""
+    tiles = B * -(-H // TILE_H) * -(-W // TILE_W)
+    groups, _ = channel_groups(C)
+    slots = min(tiles, SLOTS_PER_IMAGE * B)
+    work_cap = tiles + 4 * B * N // SPLIT  # sum over tiles of max(1, ceil(bin / SPLIT))
+    cells = TILE_H * TILE_W
+    sizes = (("counts", 4 * tiles), ("top", 4 * B * C), ("ctl", 16), ("parts", 4 * slots),
+             ("slot_of", 4 * tiles), ("extra", 8 * (work_cap - tiles)), ("cursor", 4 * tiles),
+             ("bins", 16 * B * N),
+             ("merge", 8 * slots * cells * C), ("merge_cls", 4 * slots * cells * groups),
+             ("arrivals", 4 * slots * groups))
+    out, at = {}, 0
+    for name, size in sizes:
+        if name in ("extra", "merge"):
+            at = -(-at // 16) * 16
+        out[name] = at
+        at += size
+    out.update(total=-(-at // 16) * 16, slots=slots, work_cap=work_cap)
+    return out
+
+
 def splat_twohot_cuda(g, v0, dv, u0, du, H: int, W: int):
-    """Launch the CUDA kernel; every tensor must lie on the same card.  The
-    int64 fixed-point plane and the channels' largest |g| live in one
-    scratch tensor from PyTorch's allocator, on the current stream."""
+    """Launch the CUDA kernel; every tensor must lie on the same card.  Its
+    scratch (bins, counters and the split tiles' merge buffers, laid out by
+    :func:`scratch_layout`) is one tensor from PyTorch's allocator, on the
+    current stream."""
     sg = g.shape
     if not (len(sg) == 3 and H >= 2 and W >= 2 and on_one_card(g, v0, dv, u0, du)
             and v0.shape[1] == sg[2]):
         raise_bad_args("splat_twohot_cuda", _check, g, v0, dv, u0, du, H, W)
     B, C, N = sg
-    plane = B * H * W * C
+    lay = scratch_layout(B, H, W, C, N)
     d_op = g.new_empty_strided((B, H, W, C), (H * W * C, W * C, C, 1))
-    scratch = torch.empty(plane + (B * C + 1) // 2, dtype=torch.int64, device=g.device)
-    acc = scratch.data_ptr()
+    scratch = torch.empty(lay["total"] // 8, dtype=torch.int64, device=g.device)
+    at = scratch.data_ptr()
     _launch(g.data_ptr(), v0.data_ptr(), dv.data_ptr(), u0.data_ptr(), du.data_ptr(),
-            d_op.data_ptr(), acc, acc + 8 * plane, B, H, W, C, N, BOX_CELLS,
-            loader.raw_stream(g.get_device()))
+            d_op.data_ptr(), at + lay["counts"], at + lay["top"], at + lay["ctl"],
+            at + lay["parts"], at + lay["slot_of"], at + lay["extra"], at + lay["cursor"],
+            at + lay["bins"], at + lay["merge"], at + lay["merge_cls"], at + lay["arrivals"],
+            B, H, W, C, N,
+            lay["slots"], lay["work_cap"], loader.raw_stream(g.get_device()))
     return d_op
 
 
@@ -174,28 +217,36 @@ def splat_twohot(g, v0, dv, u0, du, H: int, W: int):
     return splat_twohot_ref(g, v0, dv, u0, du, H, W)
 
 
-def splat_staged_share(v0, u0, H: int, W: int, C: int) -> float:
-    """Share of K3's CTAs that accumulate in shared memory for corner starts
-    v0, u0 [B,N], computed as the kernel decides it: per tile of
-    ``tile_rows(C)`` x 32 samples of the [N/W, W] view of one image, the
-    clamped starts' box ``(vmax - vmin + 2) x (umax - umin + 2)`` cells
-    against ``BOX_CELLS``.  Tiles past the last sample do not count."""
+def splat_bins(v0, u0, H: int, W: int, C: int) -> Dict[str, object]:
+    """K3's binning for corner starts v0, u0 [B,N], computed as the kernel
+    decides it.  A sample's clamped start (v, u) puts it in the bin of every
+    ``TILE_H`` x ``TILE_W`` tile that one of its corners (v or v+1, u or
+    u+1) lies in.  Returns ``counts`` [B,TY,TX] (each bin's entries),
+    ``split`` (the bins over ``SPLIT`` entries that spread over CTAs: the
+    first ``slots`` of them in tile order), ``parts`` (CTAs a tile and
+    channel group takes), ``groups`` and ``width`` (:func:`channel_groups`),
+    ``ctas`` (work items: parts times groups), ``cross_share`` (the share of
+    samples binned beyond their home tile too) and ``split_share`` (the
+    share of tiles split)."""
     B, N = v0.shape
-    th = tile_rows(C)
-    rows = -(-N // W)
-    rows = -(-rows // th) * th  # sample rows, padded to whole tiles
-    cols = -(-W // 32) * 32
-
-    def tiles(m, hi, fill):
-        grid = torch.full((B, rows * W), fill, dtype=torch.long, device=m.device)
-        grid[:, :N] = m.long().clamp(0, hi)
-        padded = torch.full((B, rows, cols), fill, dtype=torch.long, device=m.device)
-        padded[:, :, :W] = grid.reshape(B, rows, W)
-        return padded.reshape(B, rows // th, th, cols // 32, 32)
-
-    far = max(H, W) + 1
-    vlo, ulo = (tiles(m, hi, far).amin(dim=(2, 4)) for m, hi in ((v0, H - 2), (u0, W - 2)))
-    vhi, uhi = (tiles(m, hi, -far).amax(dim=(2, 4)) for m, hi in ((v0, H - 2), (u0, W - 2)))
-    live = vhi >= 0
-    staged = live & ((vhi - vlo + 2) * (uhi - ulo + 2) <= BOX_CELLS)
-    return staged.sum().item() / live.sum().item()
+    TY, TX = -(-H // TILE_H), -(-W // TILE_W)
+    v = v0.long().clamp(0, H - 2)
+    u = u0.long().clamp(0, W - 2)
+    ty0, tx0, ty1, tx1 = v // TILE_H, u // TILE_W, (v + 1) // TILE_H, (u + 1) // TILE_W
+    down, right = ty1 != ty0, tx1 != tx0
+    image = torch.arange(B, device=v.device)[:, None] * (TY * TX)
+    counts = torch.zeros(B * TY * TX, dtype=torch.long, device=v.device)
+    for ty, tx, keep in ((ty0, tx0, None), (ty0, tx1, right), (ty1, tx0, down),
+                         (ty1, tx1, down & right)):
+        t = image + ty * TX + tx
+        t = t.reshape(-1) if keep is None else t[keep]
+        counts.index_add_(0, t, torch.ones_like(t))
+    over = counts > SPLIT
+    split = over & (torch.cumsum(over, 0) - over.long() < scratch_layout(B, H, W, C, N)["slots"])
+    parts = torch.where(split, -(-counts // SPLIT), torch.ones_like(counts))
+    groups, width = channel_groups(C)
+    return {"counts": counts.view(B, TY, TX), "split": split.view(B, TY, TX),
+            "parts": parts.view(B, TY, TX), "groups": groups, "width": width,
+            "ctas": int(parts.sum()) * groups,
+            "cross_share": float((down | right).double().mean()) if N else 0.0,
+            "split_share": float(split.double().mean())}

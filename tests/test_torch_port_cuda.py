@@ -10,8 +10,8 @@ random, smooth and teleported coordinates; K2's
 ``out`` too, and its gx/gy within 1e-6 of the largest entry; K4 and K5 (the
 tile-staged gathers) the same as K1 and K2, whichever path each tile takes;
 K3 (splat) sums in int64 fixed point: bit for bit with its float32 plain
-version (NaN as NaN), whichever branch (shared-memory sums or global
-atomics) each tile takes, and the same bits on every launch; K6 (JtJ) sums in
+version (NaN as NaN), whether a tile's bin is summed by one CTA or split
+over several that merge their sums, and the same bits on every launch; K6 (JtJ) sums in
 another order than the plain version, rtol 1e-5 with atol 1e-5 of the
 largest entry, against the plain version in float32 and in float64 (at
 307200 pixels the float64 one alone: the float32 one's own sums stray
@@ -190,18 +190,20 @@ def test_gather_grads_kernel_on_flat_runs(cuda, offset, coords, C, B, H, W, N):
 
 
 @pytest.mark.parametrize("coords", ["random", "smooth", "teleported", "offplane"])
-@pytest.mark.parametrize("C", [1, 3, 10, 11, 17, 28])
+@pytest.mark.parametrize("C", [1, 2, 3, 6, 10, 11, 17, 28, 40])
 @pytest.mark.parametrize("B,H,W,N", FLAT_CASES + [(64, 2, 2, 300), (64, 15, 20, 300)])
 def test_splat_kernel_on_flat_tiles(cuda, coords, C, B, H, W, N):
-    """Staged tiles, global tiles and launches that mix them; on a 2x2 and
-    a 15x20 plane every tile stages (the contended case)."""
-    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
+    """Compact, scattered and mixed bins at every channel width the kernel
+    compiles (1, 2, 4, 8, 12 and 16 a group; C=17, 28 and 40 in two or three
+    groups); on a 2x2 plane one bin holds every sample of an image, and on a
+    15x20 plane a few start cells take most of them (the heavy segments)."""
+    from deep_prob_feature_track_torch.ops.kernels.splat import splat_bins
 
     args = _flat_coords(cuda, B, H, W, N, coords, seed=1)
     g = torch.randn(B, C, N, generator=torch.Generator().manual_seed(C)).to(cuda)
-    share = splat_staged_share(args[0], args[2], H, W, C)
-    if H * W <= 300:
-        assert share == 1.0
+    bins = splat_bins(args[0], args[2], H, W, C)
+    if H == 2:
+        assert bool((bins["counts"] == N).all())
     n0 = tk.LAUNCHES["splat_twohot"]
     d_op = tk.splat_twohot(g, *args, H, W)
     assert tk.LAUNCHES["splat_twohot"] == n0 + 1
@@ -215,8 +217,8 @@ def test_splat_kernel_on_flat_tiles(cuda, coords, C, B, H, W, N):
 @pytest.mark.parametrize("C", [1, 10, 11, 28])
 @pytest.mark.parametrize("B,H,W,N", [(64, 120, 160, 120 * 160), (64, 2, 2, 300)])
 def test_splat_kernel_repeats_its_bits(cuda, coords, C, B, H, W, N):
-    """Five launches on one input give the same bits: the atomics and the
-    staged lists take another order each run, the int64 sums do not move.
+    """Five launches on one input give the same bits: the bins and the
+    merges take another order each run, the int64 sums do not move.
     On the 2x2 plane every sample of an image reaches every cell."""
     args = _flat_coords(cuda, B, H, W, N, coords, seed=2)
     g = torch.randn(B, C, N, generator=torch.Generator().manual_seed(C + 1)).to(cuda)
@@ -234,7 +236,7 @@ def test_splat_kernel_non_finite_and_extreme_values(cuda, C, coords):
     """NaN and +-Inf in g (Inf times a zero weight is NaN), a NaN
     coordinate, an all-zero channel, a subnormal one and one near the
     float32 maximum (sums past it are Inf): the twin's bits, NaN as NaN,
-    on both branches (smooth tiles stage, random ones do not)."""
+    on compact and scattered bins."""
     B, H, W = 7, 30, 40
     N = H * W
     g = torch.randn(B, C, N, generator=torch.Generator().manual_seed(3))
@@ -258,18 +260,59 @@ def test_splat_kernel_non_finite_and_extreme_values(cuda, C, coords):
 
 
 def test_splat_launch_mixes_staged_and_global_tiles(cuda):
-    """At 120x160, C=10 smooth tiles stage their box, random ones do not,
-    a few teleported samples send their tiles to the global branch, and
-    off the plane the corner tiles stage while the central ones do not."""
-    from deep_prob_feature_track_torch.ops.kernels.splat import splat_staged_share
+    """At 120x160, C=10 no smooth, random or teleported bin splits over
+    CTAs, while off the plane the corner tiles' bins (the samples clamped
+    onto the corner cells) split and the others do not; on a 2x2 plane
+    with 19,200 samples an image every bin splits, and where the samples
+    crowd five tiles of each image, more bins than the merge slots, the
+    last ones in tile order stay whole.  Split and unsplit bins give the
+    twin's bits, the same on every launch."""
+    from deep_prob_feature_track_torch.ops.kernels.splat import SLOTS_PER_IMAGE, splat_bins
 
-    shares = {}
+    N = 120 * 160
     for coords in ("random", "smooth", "teleported", "offplane"):
-        args = _flat_coords(cuda, 2, 120, 160, 120 * 160, coords)
-        shares[coords] = splat_staged_share(args[0], args[2], 120, 160, 10)
-    assert shares["random"] == 0.0 and shares["smooth"] == 1.0
-    assert 0.0 < shares["teleported"] < 1.0, shares
-    assert 0.0 < shares["offplane"] < 1.0, shares
+        args = _flat_coords(cuda, 2, 120, 160, N, coords)
+        bins = splat_bins(args[0], args[2], 120, 160, 10)
+        if coords == "offplane":
+            assert 0.0 < bins["split_share"] < 1.0 and bool(bins["split"][:, 0, 0].all())
+        else:
+            assert bins["split_share"] == 0.0, coords
+    rng = np.random.RandomState(5)
+    crowded = (np.full((2, N), 0.5), rng.uniform(0, 159, (2, N)))  # row 0 of 5 tiles, 40x160
+    for H, W, (v, u) in ((2, 2, (np.zeros((2, N)), np.zeros((2, N)))), (40, 160, crowded)):
+        v, u = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (v, u))
+        args = tw._corner_weights((2, H, W, 1), u, v)
+        bins = splat_bins(args[0], args[2], H, W, 10)
+        split = int(bins["split"].sum())
+        assert split == (2 if H == 2 else 2 * SLOTS_PER_IMAGE), bins["split"]
+        g = torch.randn(2, 10, N, generator=torch.Generator().manual_seed(H)).to(cuda)
+        outs = [tk.splat_twohot_cuda(g, *args, H, W) for _ in range(3)]
+        ref = tk.splat_twohot_ref(g, *args, H, W)
+        torch.cuda.synchronize()
+        for out in outs:
+            assert torch.equal(out, outs[0])
+        _assert_same_bits(outs[0], ref)
+
+
+def test_splat_kernel_on_many_tiles_and_no_samples(cuda):
+    """A plane of more than 4096 tiles (the bin passes count in global
+    memory rather than in a shared histogram) against the twin's bits, and
+    a launch with no samples, which writes every cell as +0."""
+    from deep_prob_feature_track_torch.ops.kernels.splat import TILE_H, TILE_W
+
+    B, H, W, C, N = 2, 272, 4000, 3, 6000
+    assert -(-H // TILE_H) * -(-W // TILE_W) > 4096
+    rng = np.random.RandomState(7)
+    u, v = (torch.from_numpy(rng.uniform(-2, s + 1, (B, N)).astype(np.float32)).to(cuda)
+            for s in (W, H))
+    args = tw._corner_weights((B, H, W, 1), u, v)
+    g = torch.randn(B, C, N, generator=torch.Generator().manual_seed(8)).to(cuda)
+    _assert_same_bits(tk.splat_twohot_cuda(g, *args, H, W), tk.splat_twohot_ref(g, *args, H, W))
+    empty = [torch.zeros(B, 0, dtype=t, device=cuda)
+             for t in (torch.int32, torch.float32, torch.int32, torch.float32)]
+    out = tk.splat_twohot_cuda(torch.zeros(B, C, 0, device=cuda), *empty, 30, 40)
+    torch.cuda.synchronize()
+    assert out.shape == (B, 30, 40, C) and not bool(out.view(torch.int32).any())
 
 
 @pytest.mark.parametrize("B,C,HW", [(8, 8, 19200), (8, 1, 19200), (8, 8, 300), (2, 3, 2049),

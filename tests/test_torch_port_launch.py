@@ -1,13 +1,14 @@
 """The kernels' launch path on the CPU: argument checks, the packed launch
-arguments, and K3's staged-run decision.
+arguments, and K3's binning.
 
 No card and no JAX here.  The ``*_cuda`` wrappers check their arguments with
 one fast predicate and, when it fails, raise what the full checks say: the
 same ``TypeError`` / ``ValueError`` messages as the dispatching entries,
 then the device error.  Each C launch function takes one pointer to a
 struct that ``loader.launcher`` packs with a ``struct`` format; the format
-must give the C struct's layout.  ``splat_staged_share`` must count the
-tiles that stage exactly as a loop over the kernel's CTAs does.
+must give the C struct's layout.  ``splat.splat_bins`` must bin the samples
+exactly as a count of each sample's four corner cells does, and the
+scratch of ``splat.scratch_layout`` must hold what the kernel writes.
 """
 
 import ctypes
@@ -163,7 +164,7 @@ def test_jtj_wrappers_raise_the_checks_errors(fault):
 # ------------------------------------------------- packed launch arguments
 
 _CTYPES = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
-           "const int*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "const int*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int*": ctypes.c_void_p,
            "int64_t*": ctypes.c_void_p, "unsigned*": ctypes.c_void_p,
            "int": ctypes.c_int, "float": ctypes.c_float}
 
@@ -204,29 +205,37 @@ def test_packed_arguments_have_the_c_struct_layout(symbol):
     assert packed == c[:len(packed)] and len(c) - len(packed) < 8
 
 
-# ----------------------------------------------------- K3's staged tiles
+# ------------------------------------------------------------- K3's bins
 
 
-def _brute_share(v0, u0, H, W, C):
-    """The kernel's decision, one CTA at a time: a tile of tile_rows(C) x 32
-    samples of the [N/W, W] view stages when its clamped starts' box has at
-    most BOX_CELLS cells."""
-    th = splat.tile_rows(C)
-    n_rows = -(-v0.shape[1] // W)
-    staged = []
-    for b in range(v0.shape[0]):
-        for r0 in range(0, n_rows, th):
-            for x0 in range(0, W, 32):
-                n = np.array([r * W + x for r in range(r0, r0 + th)
-                              for x in range(x0, min(x0 + 32, W))])
-                n = n[n < v0.shape[1]]
-                if len(n) == 0:
-                    continue
-                v = np.clip(v0[b, n], 0, H - 2)
-                u = np.clip(u0[b, n], 0, W - 2)
-                staged.append((v.max() - v.min() + 2) * (u.max() - u.min() + 2)
-                              <= splat.BOX_CELLS)
-    return np.mean(staged)
+def _brute_bins(v0, u0, H, W, C):
+    """K3's bins counted one corner at a time: the clamped start's four
+    corner cells, the tile of each, each distinct tile of a sample once;
+    then the bins over SPLIT entries split, in tile order, while merge
+    slots last."""
+    B, N = v0.shape
+    TY, TX = -(-H // splat.TILE_H), -(-W // splat.TILE_W)
+    v = np.clip(v0, 0, H - 2)
+    u = np.clip(u0, 0, W - 2)
+    tiles = np.stack([(np.arange(B)[:, None] * TY + (v + dy) // splat.TILE_H) * TX
+                      + (u + dx) // splat.TILE_W for dy in (0, 1) for dx in (0, 1)], axis=-1)
+    tiles = np.sort(tiles, axis=-1)
+    first = np.concatenate([np.ones((B, N, 1), bool), tiles[..., 1:] != tiles[..., :-1]], -1)
+    counts = np.zeros(B * TY * TX, np.int64)
+    np.add.at(counts, tiles[first], 1)
+    slots = min(B * TY * TX, splat.SLOTS_PER_IMAGE * B)
+    split, parts = np.zeros_like(counts, bool), np.ones_like(counts)
+    for t in range(len(counts)):
+        if counts[t] > splat.SPLIT and split.sum() < slots:
+            split[t] = True
+            parts[t] = -(-counts[t] // splat.SPLIT)
+    groups = -(-C // splat.MAX_GROUP)
+    widths = [len(range(C)[i::groups]) for i in range(groups)]  # as even as they go
+    return {"counts": counts.reshape(B, TY, TX), "split": split.reshape(B, TY, TX),
+            "parts": parts.reshape(B, TY, TX), "groups": groups, "width": max(widths),
+            "ctas": int(parts.sum()) * groups,
+            "cross_share": float((first.sum(-1) > 1).mean()),
+            "split_share": float(split.mean())}
 
 
 @pytest.mark.parametrize("C", [1, 10, 17, 40])
@@ -234,6 +243,9 @@ def _brute_share(v0, u0, H, W, C):
 @pytest.mark.parametrize("Hp,Wp,n", [(120, 160, 120 * 160 - 13), (30, 40, 1200), (2, 2, 300),
                                      (45, 50, 45 * 50 - 60)])
 def test_splat_staged_share_matches_a_per_tile_count(C, coords, Hp, Wp, n):
+    """``splat_bins`` against the corner-by-corner count: every bin's size,
+    the split bins and their CTAs, the channel groups, the shares; and the
+    work list of ``scratch_layout`` holds every CTA the kernel queues."""
     rng = np.random.RandomState(C)
     if coords == "random":
         v = rng.randint(-3, Hp + 2, (3, n))
@@ -249,5 +261,29 @@ def test_splat_staged_share_matches_a_per_tile_count(C, coords, Hp, Wp, n):
             np.put_along_axis(v, idx, (np.take_along_axis(v, idx, 1) + Hp // 2) % Hp, 1)
             np.put_along_axis(u, idx, (np.take_along_axis(u, idx, 1) + Wp // 2) % Wp, 1)
     v0, u0 = (torch.from_numpy(a.astype(np.int32)) for a in (v, u))
-    share = splat.splat_staged_share(v0, u0, Hp, Wp, C)
-    assert share == pytest.approx(_brute_share(v, u, Hp, Wp, C), abs=1e-12)
+    got = splat.splat_bins(v0, u0, Hp, Wp, C)
+    ref = _brute_bins(v.astype(np.int64), u.astype(np.int64), Hp, Wp, C)
+    for key in ("counts", "split", "parts"):
+        np.testing.assert_array_equal(got[key].numpy(), ref[key], err_msg=key)
+    for key in ("groups", "width", "ctas"):
+        assert got[key] == ref[key], key
+    for key in ("cross_share", "split_share"):
+        assert got[key] == pytest.approx(ref[key], abs=1e-12), key
+    lay = splat.scratch_layout(3, Hp, Wp, C, n)
+    assert got["ctas"] <= lay["work_cap"] * got["groups"]
+    assert ref["counts"].sum() <= 4 * 3 * n and ref["split"].sum() <= lay["slots"]
+    if (coords, Hp) == ("offplane", 120):  # the corners' bins spread over CTAs
+        assert ref["split"][:, 0, 0].all()
+    if coords == "smooth":
+        assert not ref["split"].any()
+
+
+def test_splat_tiling_constants_are_the_kernels():
+    """``splat.py``'s model of the kernel's tiling uses the constants that
+    ``csrc/splat_twohot.cu`` compiles with."""
+    text = (loader.CSRC / "splat_twohot.cu").read_text()
+    consts = {name: int(value) for name, value in
+              re.findall(r"\b(k[A-Z]\w*) = (\d+)\b", text)}
+    assert (consts["kTileH"], consts["kTileW"]) == (splat.TILE_H, splat.TILE_W)
+    assert consts["kSplit"] == splat.SPLIT and consts["kMaxGroup"] == splat.MAX_GROUP
+    assert consts["kChunk"] < consts["kSplit"]
