@@ -335,13 +335,29 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    must raise ``NonFiniteError`` naming a module; the JSON record gets
    ``final``.
 
-57. run to run: two ``feature`` steps at 120x160 B=64 and at 640x480 B=4,
-   each run twice from the seeded state on the seeded batch, must give the
-   same losses and the same bits in every gradient leaf, parameter,
-   BatchNorm statistic and Adam moment; K3 launched ``K3_REPEATS`` times on
+57. run to run: two ``feature`` steps at 120x160 B=64 and at 640x480 B=4
+   (and at 640x480 B=4 with ``remat_gn``, ``remat_encoder`` and
+   ``bf16_residuals``), each run twice from the seeded state on the seeded
+   batch, must give the same losses and the same bits in every gradient
+   leaf, parameter, BatchNorm statistic and Adam moment; K3 launched
+   ``K3_REPEATS`` times on
    one input at level 0 (B=64, C=10) on random, smooth, teleported and
    off-plane coordinates must give its plain twin's bits every time; the
    JSON record gets ``repeat``.
+
+58. the training memory modes: K2's and K5's bf16 mode (gx/gy stored as
+   bfloat16) at level 0 of the 120x160 B=64 step (random coordinates) and
+   of the 640x480 B=4 step (smooth), bit for bit with their plain twins and
+   with their float32 maps cast, timed beside the float32 mode, and checked
+   so at the shapes the ``B_MODES`` step gives them (K5 at 480x640 and
+   240x320, K2 at 120x160 and 60x80, B=``B_MODES``); the
+   640x480 B=4 ``feature`` step with ``remat_gn`` and ``remat_encoder``
+   against the unrolled step, bit for bit (loss, gradients, parameters,
+   BatchNorm statistics, Adam moments; K5 12 / K2 12 / K3 12 / K6 24 a
+   step against 6 / 6 / 12 / 12); then the 640x480 step with all three
+   modes at ``B_MODES`` in one microbatch (``scripts/remat_memory.py``'s
+   largest B, less 10 GB of headroom): the launches, peak memory, ms a
+   step and samples/s; the JSON record gets ``modes``.
 
 Phase 16 also records K4's staged share on the U_FC forwards (480x640 and
 120x160, on the synthetic scene and on the served requests), 17 times K4
@@ -389,6 +405,13 @@ TRAIN_SEED = 5
 VGA_TRAIN_SEED = 3
 GRAD_ENVELOPE = 5e-3
 K3_REPEATS = 5  # phase 57: K3 launches on one input
+# phase 58: the 640x480 batch of the step with all three training memory
+# modes, in one microbatch.  scripts/remat_memory.py on the H100 80GB
+# (85.0e9 bytes): B=105 the largest that fits (78.96e9 bytes at peak; 40
+# without the modes), B=96 72.14e9, which leaves 10 GB
+B_MODES = 96
+MODES_HEADROOM_GB = 10.0
+MODES_ALL = {"remat_gn": True, "remat_encoder": True, "bf16_residuals": True}
 SLEEP_CYCLES = 100_000_000  # ~50 ms of device sleep while device_ms queues its calls
 N_CPU_VGA = 2  # the CPU forward at 480x640 takes this many requests of the batch
 # the coordinates K1 and K3 are checked and timed on: uniform over and past
@@ -424,6 +447,10 @@ TRAIN_LAUNCHES = counts(gather_twohot_grads=12, splat_twohot=12, fused_jtj_jtr=1
 VGA_SERVE_LAUNCHES = counts(gather_tiles=3, gather_twohot=9, fused_jtj_jtr=12)
 VGA_TRAIN_LAUNCHES = counts(gather_tiles_grads=6, gather_twohot_grads=6, splat_twohot=12,
                             fused_jtj_jtr=12)
+# with remat_gn the backward replays every Gauss-Newton iteration: K2/K5 and
+# K6 launch twice, K3 (backward only) as often
+VGA_REMAT_LAUNCHES = counts(gather_tiles_grads=12, gather_twohot_grads=12, splat_twohot=12,
+                            fused_jtj_jtr=24)
 # feature_icp: one more warp per iteration, the ICP operand [vertex1 | normal1]
 # (C=6); ScaleNet("None") reads no residuals, so none are taken for it
 ICP_SERVE_LAUNCHES = counts(gather_twohot=24, fused_jtj_jtr=12)
@@ -1561,13 +1588,15 @@ def phase_agree(torch, dev, items, n_cpu, preset="feature", plain_atol=1e-4, exp
     return out
 
 
-def _train_state(torch, dev, plain=False, preset="feature", overrides=(), objective="EPE3D"):
+def _train_state(torch, dev, plain=False, preset="feature", overrides=(), objective="EPE3D",
+                 modes=None):
     from deep_prob_feature_track_torch.models.presets import apply_overrides, get_preset
     from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
     from deep_prob_feature_track_torch.training import train as T
 
     cfg = T.TrainConfig(loss=objective)
-    net = LeastSquareTracking(apply_overrides(get_preset(preset), overrides), plain_kernels=plain)
+    net = LeastSquareTracking(apply_overrides(get_preset(preset), overrides), plain_kernels=plain,
+                              **(modes or {}))
     return cfg, T.create_train_state(net, cfg, seed=1, device=dev)
 
 
@@ -1677,13 +1706,13 @@ def phase_scene_share(torch, dev):
     scene = [""]
 
     def recorder(name):
-        def call(x, v0, dv, u0, du, *hw):
-            if hw:  # K3: the plane's H, W; x is the cotangent [B,C,N]
-                size, share = hw, splat_bins(v0, u0, *hw, x.shape[1])["split_share"]
-            else:  # K4 / K5: the sample grid
+        def call(x, v0, dv, u0, du, *rest):
+            if name == "splat_twohot":  # rest: the plane's H, W; x is the cotangent [B,C,N]
+                size, share = tuple(rest), splat_bins(v0, u0, *rest, x.shape[1])["split_share"]
+            else:  # K4 / K5 (rest: K5's bf16 flag): the sample grid
                 size, share = tuple(v0.shape[1:]), tile_share[name](v0, u0, *x.shape[1:])
             shares.setdefault(f"{name} {scene[0]}", []).append((size, share))
-            return kernels[name](x, v0, dv, u0, du, *hw)
+            return kernels[name](x, v0, dv, u0, du, *rest)
         return call
 
     for name in kernels:
@@ -4143,15 +4172,15 @@ def phase_debug_nan(torch, dev, root, workdir):
     return {"error": message}
 
 
-def _step_tensors(torch, dev, b, h, w, seed, steps=2):
-    """``steps`` ``feature`` steps from the seeded state on the seeded
-    synthetic batch: their losses, and after them every gradient leaf,
-    parameter and buffer (the BatchNorm statistics) and Adam moment,
-    cloned, by name."""
+def _step_tensors(torch, dev, b, h, w, seed, steps=2, modes=None):
+    """``steps`` ``feature`` steps (with the tracker's training ``modes``)
+    from the seeded state on the seeded synthetic batch: their losses, and
+    after them every gradient leaf, parameter and buffer (the BatchNorm
+    statistics) and Adam moment, cloned, by name."""
     from deep_prob_feature_track_torch.training import train as T
 
     batch = T.synthetic_batch(b, h, w, seed=seed, device=dev)
-    cfg, state = _train_state(torch, dev)
+    cfg, state = _train_state(torch, dev, modes=modes)
     step = T.make_train_step(cfg, steps_per_epoch=100)
     losses = []
     for _ in range(steps):
@@ -4166,11 +4195,12 @@ def _step_tensors(torch, dev, b, h, w, seed, steps=2):
     return losses, tensors
 
 
-def step_twice(torch, dev, b, h, w, seed):
+def step_twice(torch, dev, b, h, w, seed, modes=None):
     """``_step_tensors`` run twice: both runs' losses, the number of
     tensors compared and those whose bits differ, with their largest
     difference."""
-    (l1, t1), (l2, t2) = (_step_tensors(torch, dev, b, h, w, seed) for _ in range(2))
+    (l1, t1), (l2, t2) = (_step_tensors(torch, dev, b, h, w, seed, modes=modes)
+                          for _ in range(2))
     differ = {k: (v.double() - t2[k].double()).abs().max().item()
               for k, v in t1.items() if not torch.equal(v, t2[k])}
     return {"losses": [l1, l2], "tensors": len(t1), "differ": differ}
@@ -4182,10 +4212,13 @@ def phase_repeat(torch, dev):
 
     t0 = time.monotonic()
     out = {}
-    for label, b, h, w, seed in ((f"{H}x{W} B={B_TRAIN}", B_TRAIN, H, W, TRAIN_SEED),
-                                 (f"{H_VGA}x{W_VGA} B={B_VGA_TRAIN}", B_VGA_TRAIN, H_VGA, W_VGA,
-                                  VGA_TRAIN_SEED)):
-        r = step_twice(torch, dev, b, h, w, seed)
+    vga = (B_VGA_TRAIN, H_VGA, W_VGA, VGA_TRAIN_SEED)
+    for label, b, h, w, seed, modes in (
+            (f"{H}x{W} B={B_TRAIN}", B_TRAIN, H, W, TRAIN_SEED, None),
+            (f"{H_VGA}x{W_VGA} B={B_VGA_TRAIN}", *vga, None),
+            (f"{H_VGA}x{W_VGA} B={B_VGA_TRAIN} with the three training memory modes", *vga,
+             MODES_ALL)):
+        r = step_twice(torch, dev, b, h, w, seed, modes)
         log(f"run to run, feature {label}, two steps run twice: losses {r['losses'][0]} and "
             f"{r['losses'][1]}; {len(r['differ'])} of {r['tensors']} tensors (gradients, "
             f"parameters, BatchNorm statistics, Adam moments) differ {r['differ']}")
@@ -4208,6 +4241,146 @@ def phase_repeat(torch, dev):
     log(f"run to run: K3 [{B_TRAIN},{h},{w},{C_WARP}] launched {K3_REPEATS} times on each of "
         f"{list(inputs)} coordinates, the plain twin's bits every time; phase 57 in "
         f"{out['wall_s']:.1f} s")
+    return out
+
+
+def bf16_mode_check(torch, kname, F, args):
+    """K2's (``kname="gather_twohot_grads"``) or K5's bf16 mode on F and the
+    corner maps ``args``: ``out`` and the bfloat16 gx/gy must equal, bit for
+    bit, the plain twin's and the float32 mode's maps cast.  Returns the
+    largest absolute difference from the twin's outputs."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    kern, twin = getattr(K, f"{kname}_cuda"), getattr(K, f"{kname}_ref")
+    got, ref, f32 = kern(F, *args, True), twin(F, *args, True), kern(F, *args)
+    torch.cuda.synchronize()
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    same = torch.equal(got[0], ref[0]) and torch.equal(got[0], f32[0]) and all(
+        torch.equal(g.view(torch.int16), r.view(torch.int16))
+        and torch.equal(g.view(torch.int16), x.to(torch.bfloat16).view(torch.int16))
+        for g, r, x in zip(got[1:], ref[1:], f32[1:]))
+    if not same or got[1].dtype != torch.bfloat16:
+        raise AssertionError(f"{kname}'s bf16 mode disagrees with its plain twin on "
+                             f"{list(F.shape)} (largest difference {err})")
+    return err
+
+
+def bf16_mode_timing(torch, kname, F, args, bw, flops):
+    """:func:`bf16_mode_check`, then the bf16 mode's events and device time
+    beside the float32 mode's and the twin's, and its byte bound (each
+    (b, c, n) writes 4 + 2 + 2 bytes)."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+
+    kern, twin = getattr(K, f"{kname}_cuda"), getattr(K, f"{kname}_ref")
+    err = bf16_mode_check(torch, kname, F, args)
+    b, c = F.shape[0], F.shape[3]
+    n = args[0].numel() // b
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: kern(F, *args, True)),
+        "device_ms": device_ms(torch, lambda: kern(F, *args, True)),
+        "plain_ms": time_ms(torch, lambda: twin(F, *args, True)),
+        "float32_ms": time_ms(torch, lambda: kern(F, *args)),
+        "float32_device_ms": device_ms(torch, lambda: kern(F, *args)),
+        "library_ms": None,  # no single PyTorch call returns the value and both maps
+        **bound(4 * (F.numel() + 4 * b * n) + 8 * b * n * c, b * n * (2 + 17 * c), bw, flops),
+    }
+
+
+def phase_modes(torch, dev, name):
+    """Phase 58: the training memory modes."""
+    from deep_prob_feature_track_torch.ops import kernels as K
+    from deep_prob_feature_track_torch.training import train as T
+
+    t0 = time.monotonic()
+    bw, flops = peaks(name)
+    h, w = LEVELS[0]
+    args, _ = gather_inputs(torch, dev, h, w, seed=20, b=B_TRAIN)
+    F, maps, _ = tile_inputs(torch, dev, B_VGA_TRAIN, H_VGA, W_VGA, C_WARP, seed=61)
+    kernels = {"gather_twohot_grads": bf16_mode_timing(torch, "gather_twohot_grads", args[0],
+                                                       list(args[1:]), bw, flops),
+               "gather_tiles_grads": bf16_mode_timing(torch, "gather_tiles_grads", F, maps,
+                                                      bw, flops)}
+    kernels["gather_twohot_grads"]["checked"] = [[B_TRAIN, h, w, C_WARP]]
+    kernels["gather_tiles_grads"]["checked"] = [[B_VGA_TRAIN, H_VGA, W_VGA, C_WARP]]
+    for kname, r in kernels.items():
+        log(f"{kname} bf16 mode, level 0: the plain twin's bits; {r['ms']:.4f} ms, device "
+            f"{r['device_ms']:.4f} (float32 mode {r['float32_ms']:.4f}, device "
+            f"{r['float32_device_ms']:.4f}; plain {r['plain_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f})")
+    # the shapes the all-modes step below gives them: K5 at 640x480 levels
+    # 0-1, K2 at levels 2-3, all at B_MODES and the step's C_WARP channels
+    del args, F, maps
+    for kname, levels in (("gather_tiles_grads", ((H_VGA, W_VGA), (H_VGA // 2, W_VGA // 2))),
+                          ("gather_twohot_grads", ((H_VGA // 4, W_VGA // 4),
+                                                   (H_VGA // 8, W_VGA // 8)))):
+        r = kernels[kname]
+        for i, (lh, lw) in enumerate(levels):
+            if kname == "gather_tiles_grads":
+                F, maps, _ = tile_inputs(torch, dev, B_MODES, lh, lw, C_WARP, seed=62 + i)
+            else:
+                args, _ = gather_inputs(torch, dev, lh, lw, seed=64 + i, b=B_MODES)
+                F, maps = args[0], list(args[1:])
+            err = bf16_mode_check(torch, kname, F, maps)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["checked"].append([B_MODES, lh, lw, C_WARP])
+            log(f"{kname} bf16 mode at [{B_MODES},{lh},{lw},{C_WARP}]: the plain twin's bits "
+                f"(largest difference {err})")
+            del F, maps
+            torch.cuda.empty_cache()
+
+    runs = []
+    for modes in ({}, {"remat_gn": True, "remat_encoder": True}):
+        K.reset_launches()
+        losses, tensors = _step_tensors(torch, dev, B_VGA_TRAIN, H_VGA, W_VGA, VGA_TRAIN_SEED,
+                                        steps=1, modes=modes)
+        runs.append((dict(K.LAUNCHES), {"loss": torch.tensor(losses), **tensors}))
+    (ref_launches, ref), (launches, got) = runs
+    differ = [k for k, v in ref.items() if not torch.equal(got[k], v)]
+    log(f"remat_gn + remat_encoder, 640x480 B={B_VGA_TRAIN} step: launches {launches} "
+        f"(unrolled {ref_launches}); {len(differ)} of {len(ref)} tensors differ from the "
+        f"unrolled step's {differ[:5]}")
+    if ref_launches != VGA_TRAIN_LAUNCHES or launches != VGA_REMAT_LAUNCHES:
+        raise AssertionError(f"rematted step launched {launches}, unrolled {ref_launches}")
+    if differ:
+        raise AssertionError(f"the rematted step's bits differ: {differ}")
+    remat_bits = {"tensors": len(ref), "launches": launches, "unrolled_launches": ref_launches}
+    del runs, ref, got
+
+    base = T.synthetic_batch(8, H_VGA, W_VGA, seed=VGA_TRAIN_SEED, device=dev)
+    batch = {k: torch.cat([v] * -(-B_MODES // 8))[:B_MODES] for k, v in base.items()}
+    cfg, state = _train_state(torch, dev, modes=MODES_ALL)
+    step = T.make_train_step(cfg, steps_per_epoch=100)
+    step(state, batch)  # warm-up
+    _sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, metrics = step(state, batch)
+    end.record()
+    _sync(torch, dev)
+    step_launches = dict(K.LAUNCHES)
+    step_ms = start.elapsed_time(end)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    loss = metrics["loss"].item()
+    out = {"kernels": kernels, "remat_bits": remat_bits, "b": B_MODES,
+           "launches": step_launches, "peak_gb": peak_gb, "card_gb": card_gb,
+           "step_ms": step_ms, "samples_per_s": B_MODES / step_ms * 1e3, "loss": loss}
+    log(f"all three modes, 640x480 B={B_MODES} in one microbatch: loss {loss:.6f}, "
+        f"{step_ms:.1f} ms a step ({out['samples_per_s']:.2f} samples/s), peak "
+        f"{peak_gb:.2f} GB of {card_gb:.2f}, launches {step_launches}")
+    if step_launches != VGA_REMAT_LAUNCHES:
+        raise AssertionError(f"the all-modes step launched {step_launches}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"the all-modes step's loss {loss} is not finite")
+    if not peak_gb <= card_gb - MODES_HEADROOM_GB:
+        raise AssertionError(f"peak {peak_gb:.2f} GB leaves less than {MODES_HEADROOM_GB} GB")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.monotonic() - t0
+    log(f"phase 58 in {out['wall_s']:.1f} s")
     return out
 
 
@@ -4421,6 +4594,7 @@ def run(torch, loader, dev, name, smi):
     ba = phase_ba(torch, dev)
     final = phase_final(torch, dev)
     repeat = phase_repeat(torch, dev)
+    modes = phase_modes(torch, dev, name)
     m = measure(torch, dev, name, train_steps=False)
     print(json.dumps({**m, "train": train, "vga_train": vga_train,
                       "feature_icp_train": icp_train, "feature_icp_serve_launches": icp_launches,
@@ -4430,7 +4604,7 @@ def run(torch, loader, dev, name, smi):
                       "preset_agree": presets, "scene_staged_share": scene_shares,
                       "vga_serve_launches": vga_launches, **cli, "objects": objects,
                       "variants": variants, "ba": ba, "final": final, "repeat": repeat,
-                      "card": smi}),
+                      "modes": modes, "card": smi}),
           flush=True)
 
     # K1 and K6 as the 120x160 serve path launched them, K2 and K3 as the
@@ -4458,6 +4632,12 @@ def run(torch, loader, dev, name, smi):
             "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+        if kname in modes["kernels"]:  # K2's and K5's bf16 mode (bf16_residuals), phase 58
+            r = modes["kernels"][kname]
+            kernels[-1]["bf16_mode"] = {
+                "launches": modes["launches"][kname], "max_abs_err": r["max_abs_err"],
+                **{key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")}}
     log(f"done in {time.monotonic() - t_start:.1f} s")
     return kernels
 

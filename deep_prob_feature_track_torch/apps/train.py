@@ -41,6 +41,14 @@ keyframe categories only (an ``AssertionError``), as the JAX CLI does.
 update of their averaged gradient (``training/train.py``); ``--accum_loop``
 takes the JAX CLI's choices and is ignored: the port has one loop.
 
+The training memory modes, named after the JAX package's environment
+variables (the port reads none): ``--train_loop scan_remat`` recomputes
+each Gauss-Newton iteration in the backward (``DPFT_TRAIN_LOOP``),
+``--remat_encoder`` each encoder pass (``DPFT_REMAT_ENCODER=1``), and
+``--bf16_residuals`` keeps the gathers' derivative maps in bfloat16
+(``DPFT_BF16_RESIDUALS=1``); they go to ``LeastSquareTracking``.  With the
+first two a step gives the bits it gives without them.
+
 Data parallel (``parallel/mesh.py``), one process per card::
 
     torchrun --nproc_per_node 4 -m deep_prob_feature_track_torch.apps.train \
@@ -94,6 +102,13 @@ def build_argparser():
     p.add_argument("--accum_loop", default="host", choices=("host", "scan"),
                    help="ignored: the JAX CLI's choice of accumulation loop, an XLA "
                         "compile choice; the port runs one loop for both")
+    p.add_argument("--train_loop", default="unroll", choices=("unroll", "scan_remat"),
+                   help="scan_remat: recompute each Gauss-Newton iteration in the backward "
+                        "(the tracker's remat_gn)")
+    p.add_argument("--remat_encoder", action="store_true",
+                   help="recompute each encoder pass in the backward")
+    p.add_argument("--bf16_residuals", action="store_true",
+                   help="keep the gathers' derivative maps in bfloat16")
     p.add_argument("--checkpoint", default="", help="resume checkpoint")
     p.add_argument("--checkpoint_folder", default="logs")
     p.add_argument("--save_checkpoint_freq", type=int, default=1)
@@ -184,7 +199,10 @@ def train(args, device, mesh) -> int:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
 
     tcfg = train_config(args)
-    state = create_train_state(LeastSquareTracking(cfg), tcfg, seed=args.seed, device=device)
+    net = LeastSquareTracking(cfg, remat_gn=args.train_loop == "scan_remat",
+                              remat_encoder=args.remat_encoder,
+                              bf16_residuals=args.bf16_residuals)
+    state = create_train_state(net, tcfg, seed=args.seed, device=device)
     if args.checkpoint:
         state = checkpoints.restore_train_state(args.checkpoint, state)
         print(f"[train] resumed from {args.checkpoint} at step {state.step}")

@@ -12,7 +12,9 @@ takes K1's place and K5 takes K2's.  Each kernel takes its plain version on
 CPU tensors (``ops/kernels/``); ``plain=True`` takes the plain versions on
 either device.  A plane under 2x2 (no 2x2 cell fits) is sampled in tensor
 ops (:func:`_bilinear_gather_tiny`), as the JAX package routes it away
-from its kernels; the kernels' wrappers refuse such a plane.
+from its kernels; the kernels' wrappers refuse such a plane.  Within
+``utils/remat.py::bf16_maps`` (the training mode ``bf16_residuals``) the
+gather keeps its derivative maps in bfloat16 for its backward.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..ops.kernels.tiles import (
     gather_tiles_ref,
     use_tiles,
 )
+from ..utils.remat import keeps_bf16_maps
 
 
 def generate_xy_grid(B: int, H: int, W: int, K: torch.Tensor):
@@ -119,6 +122,12 @@ class BilinearGather(torch.autograd.Function):
     The backward contracts the cotangent with gx/gy for the coordinate
     cotangents, zeroed outside the closed interval ``[0, size-1]`` (the
     clamp's VJP), and splats the operand cotangent with K3.
+
+    Within ``utils/remat.py::bf16_maps`` K2 or K5 write gx/gy in bfloat16
+    (their bf16 mode), each rounded once to nearest even, half the bytes the
+    backward keeps alive, as the JAX package's ``DPFT_BF16_RESIDUALS=1``
+    does (``geometry/warp.py:176-185`` there).  They feed only the coordinate
+    cotangents; the operand cotangent (K3) does not read them.
     """
 
     @staticmethod
@@ -130,7 +139,7 @@ class BilinearGather(torch.autograd.Function):
             starts = [t.reshape(-1, *grid) for t in starts]
         else:
             grads = gather_twohot_grads_ref if plain else gather_twohot_grads
-        out, gx, gy = grads(operand, *starts)
+        out, gx, gy = grads(operand, *starts, keeps_bf16_maps())
         ctx.save_for_backward(gx, gy, u, v)
         ctx.shape = operand.shape
         ctx.plain = plain
@@ -141,6 +150,9 @@ class BilinearGather(torch.autograd.Function):
         gx, gy, u, v = ctx.saved_tensors
         B, H, W, _ = ctx.shape
         g = g.contiguous()
+        # bfloat16 maps widen before the contraction,
+        # as the JAX backward casts them (geometry/warp.py:455-457 there)
+        gx, gy = gx.to(g.dtype), gy.to(g.dtype)
         uf = u.reshape(B, -1)
         vf = v.reshape(B, -1)
         g_u = torch.where((uf >= 0) & (uf <= W - 1), (g * gx).sum(1), 0.0)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import all_reduce_sum, current as current_mesh
+from ..utils.remat import recomputing
 
 # CIFAR-style color statistics
 RGB_MEAN = (0.4914, 0.4822, 0.4465)
@@ -42,6 +43,10 @@ class FlaxBatchNormMixin:
     of the global batch, as in a JAX mesh step: the sums the mean and the
     variance come from are all-reduced over the ranks (the shards are of
     equal size), and the gradient flows back through the reduction.
+
+    Where a checkpoint replays the forward in the backward
+    (``utils/remat.py``), the running statistics stay as the forward left
+    them: they move once a forward, as under flax's ``nn.remat``.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -49,12 +54,16 @@ class FlaxBatchNormMixin:
             return super().forward(x)
         dims = [0, *range(2, x.ndim)]
         mesh = current_mesh()
+        replay = recomputing()
         if mesh is not None and mesh.world > 1:
             out, mean, var = self._global_batch_norm(x, dims, mesh)
         else:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=dims, correction=0)
+            if not replay:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x, dim=dims, correction=0)
             out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if replay:
+            return out
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.mul_(keep).add_(self.momentum * mean.detach())

@@ -17,7 +17,10 @@ returns the levels' 6x6 information matrices.  Every configuration takes
 object masks (the relative motion of an object between two frames, given
 its masks in both): the forward, ``compute_residual`` (each track's average
 residual at a given pose and level) and ``track_diagnostics`` (the
-per-level maps that the evaluate CLI's ``--save_img`` draws).
+per-level maps that the evaluate CLI's ``--save_img`` draws).  Three
+training modes trade recompute for memory (the JAX package's environment
+variables, here arguments): ``remat_gn``, ``remat_encoder`` and
+``bf16_residuals``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..solvers.trust_region import (
     tr_uic_level,
     tr_uic_residual,
 )
+from ..utils.remat import bf16_maps, checkpointed
 from .encoder import FeaturePyramid
 from .layers import color_normalize_nchw, seeded_init_
 from .nets import DampingRegressor, DeepRobustEstimator, PoseNet, ScaleNet, SFMPoseNet
@@ -121,9 +125,23 @@ class LeastSquareTracking(nn.Module):
 
     :param plain_kernels: run the plain PyTorch versions of the CUDA
         kernels, on any device (for comparison on the card)
+    :param remat_gn: in training, run each Gauss-Newton iteration of every
+        level solve under a checkpoint (``utils/remat.py``): the backward
+        recomputes it, K2/K5 and K6 launching again, instead of keeping its
+        activations (``DPFT_TRAIN_LOOP=scan_remat`` of the JAX package)
+    :param remat_encoder: in training, run each encoder pass under a
+        checkpoint (``DPFT_REMAT_ENCODER=1``)
+    :param bf16_residuals: in training, keep the derivative maps of every
+        gather of the forward in bfloat16, written so by K2 and K5
+        (``utils/remat.py::bf16_maps``; ``DPFT_BF16_RESIDUALS=1``)
+
+    With ``remat_gn`` and ``remat_encoder`` a training step gives the bits
+    of the step without them: loss, gradients and BatchNorm statistics.
     """
 
-    def __init__(self, cfg: TrackerConfig = TrackerConfig(), plain_kernels: bool = False):
+    def __init__(self, cfg: TrackerConfig = TrackerConfig(), plain_kernels: bool = False,
+                 remat_gn: bool = False, remat_encoder: bool = False,
+                 bf16_residuals: bool = False):
         super().__init__()
         cfg.track_type  # raises on an unsupported (uncertainty, direction) pair
         if cfg.encoder_name not in _ENCODERS:
@@ -132,6 +150,9 @@ class LeastSquareTracking(nn.Module):
             raise ValueError(f"unknown init_pose_type {cfg.init_pose_type!r}")
         self.cfg = cfg
         self.plain_kernels = plain_kernels
+        self.remat_gn = remat_gn
+        self.remat_encoder = remat_encoder
+        self.bf16_residuals = bf16_residuals
         self.encoder = None
         if cfg.encoder_name in ("ConvRGBD", "ConvRGBD2"):
             self.encoder = FeaturePyramid(
@@ -227,22 +248,25 @@ class LeastSquareTracking(nn.Module):
         I0 = color_normalize_nchw(img0)
         I1 = color_normalize_nchw(img1)
 
+        def encode(x):
+            return checkpointed(self.encoder, x, enabled=self.remat_encoder and self.training)
+
         if self.encoder is None:
             x0, sigma0 = self._encode_gray(I0)
             x1, sigma1 = self._encode_gray(I1)
             raw0, raw1 = x0, x1
         elif cfg.encoder_name == "ConvRGBD":
             # one view a pass, in eval as in training
-            x0, sigma0, raw0 = self.encoder(torch.cat([I0, invD0], dim=1))
-            x1, sigma1, raw1 = self.encoder(torch.cat([I1, invD1], dim=1))
+            x0, sigma0, raw0 = encode(torch.cat([I0, invD0], dim=1))
+            x1, sigma1, raw1 = encode(torch.cat([I1, invD1], dim=1))
         else:
             m0 = torch.cat([I0, invD0, I1, invD1], dim=1)
             m1 = torch.cat([I1, invD1, I0, invD0], dim=1)
             if self.training:
                 # two encoder passes: each normalizes with its own batch
                 # statistics and the running statistics chain through both
-                x0, sigma0, raw0 = self.encoder(m0)
-                x1, sigma1, raw1 = self.encoder(m1)
+                x0, sigma0, raw0 = encode(m0)
+                x1, sigma1, raw1 = encode(m1)
             else:
                 # both view orders in ONE stacked encoder pass (eval
                 # BatchNorm makes the two halves independent)
@@ -309,18 +333,19 @@ class LeastSquareTracking(nn.Module):
         object masks ``m0``/``m1`` where given: ``(pose, weights, JtWJ)``."""
         cfg = self.cfg
         track = cfg.track_type
+        modes = {"plain": self.plain_kernels, "remat": self.remat_gn and self.training}
         if track == "U_IC":
             return tr_uic_level(
                 pose, x0, x1, invD0, invD1, K, sigma0, sigma1,
                 depth0=dpt0, depth1=dpt1, obj_mask0=m0, obj_mask1=m1,
                 max_iter=cfg.max_iter_per_pyr, remove_tru_sigma=cfg.remove_tru_sigma,
-                plain=self.plain_kernels, scale_fn=self._scale_fn(level), w_prior=w_prior,
+                scale_fn=self._scale_fn(level), w_prior=w_prior, **modes,
             )
         if track == "IC":
             return tr_ic_level(
                 pose, x0, x1, invD0, invD1, K, self._mest_at(level), self._solver(level),
                 w_prior=w_prior, obj_mask0=m0, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
-                plain=self.plain_kernels,
+                **modes,
             )
         if track == "U_FC":
             # in training the estimator runs once more, at the zero
@@ -329,13 +354,12 @@ class LeastSquareTracking(nn.Module):
             return tr_ufc_level(
                 pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, self._mest_at(level),
                 self._solver(level), w_prior=w_prior, obj_mask0=m0, obj_mask1=m1,
-                max_iter=cfg.max_iter_per_pyr, train=self.training, plain=self.plain_kernels,
+                max_iter=cfg.max_iter_per_pyr, train=self.training, **modes,
             )
         # ICP
         return tr_icp_level(
             pose, dpt0, dpt1, K, w_prior=w_prior, obj_mask1=m1, max_iter=cfg.max_iter_per_pyr,
-            direction=cfg.direction, sigma_model=ICPSigmaModel(baseline=1.0),
-            plain=self.plain_kernels,
+            direction=cfg.direction, sigma_model=ICPSigmaModel(baseline=1.0), **modes,
         )
 
     def forward(self, img0, img1, depth0, depth1, K, pose_init=None, obj_mask0=None,
@@ -353,6 +377,10 @@ class LeastSquareTracking(nn.Module):
             pyr_t, sigma_ksi [B,N,6,6])``, each level's JtWJ (after an
             identity for the predicted initial pose with ``train_init_pose``)
         """
+        with bf16_maps(self.bf16_residuals and self.training):
+            return self._forward(img0, img1, depth0, depth1, K, pose_init, obj_mask0, obj_mask1)
+
+    def _forward(self, img0, img1, depth0, depth1, K, pose_init, obj_mask0, obj_mask1):
         cfg = self.cfg
         x0, x1, sigma0, sigma1, inv_d0, inv_d1, dpt0, dpt1, m0, m1, pose = self._preprocess(
             img0, img1, depth0, depth1, pose_init, obj_mask0, obj_mask1)

@@ -94,15 +94,22 @@
 // `out` is bit-identical to K1 and to the plain version whichever path a tile
 // took: the tracker masks pixels whose warped sigma equals the batch-global
 // min/max exactly.  gx and gy are K2's, in the same way.
+//
+// K5's bf16 mode (the training mode bf16_residuals): gx and gy are stored as
+// bfloat16, rounded once at the store with __float2bfloat16_rn (to nearest
+// even), the bits of the float32 maps cast after, as K2's bf16 mode; a
+// sample then writes 4 + 2 + 2 bytes a channel instead of 12.  K4 ignores
+// the flag.
 
 #include <climits>
 #include <cstdint>
 #include <cuda.h>
 #include <cudaTypedefs.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // The launch functions' one argument; ops/kernels/tiles.py packs it with the
-// struct format "8P8iP" (native layout).
+// struct format "8P9iP" (native layout).
 struct TilesArgs {
   const float* F;  // [B,H,W,C]
   const int* v0;   // [B,Hs,Ws]
@@ -110,11 +117,12 @@ struct TilesArgs {
   const int* u0;
   const float* du;
   float* out;  // [B,C,Hs*Ws], as gx and gy (K5 only)
-  float* gx;
-  float* gy;
+  void* gx;    // float, or __nv_bfloat16 where bf16
+  void* gy;
   int B, H, W, C, Hs, Ws;
   int tile_h;    // rows of 32 samples per tile
   int capacity;  // floats of shared memory per box (K4: per ring buffer)
+  int bf16;      // K5: store gx and gy as bfloat16
   void* stream;
 };
 
@@ -125,14 +133,17 @@ namespace {
 constexpr int kTileW = 32;  // one warp per tile row
 constexpr int kMaxWarps = 8;  // rows per tile: at most 256 threads per CTA
 
+// a derivative map's store: float as it is, bfloat16 rounded to nearest even
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
 // Blend one sample's C channels from its corner rows p0 (v0) and p1 (v0+1),
 // each pointing at the u0 corner, and store them at o, o + N, ...
-template <bool GRADS>
+template <bool GRADS, typename G>
 __device__ __forceinline__ void blend(const float* p0, const float* p1, int C,
                                       float fu, float fv, long long o,
                                       long long N, float* __restrict__ out,
-                                      float* __restrict__ gx,
-                                      float* __restrict__ gy) {
+                                      G* __restrict__ gx, G* __restrict__ gy) {
   const float omu = __fsub_rn(1.0f, fu);
   const float omv = __fsub_rn(1.0f, fv);
   for (int c = 0; c < C; ++c) {
@@ -144,20 +155,20 @@ __device__ __forceinline__ void blend(const float* p0, const float* p1, int C,
     const long long i = o + (long long)c * N;
     out[i] = r;
     if (GRADS) {
-      gx[i] = __fadd_rn(__fmul_rn(__fsub_rn(c01, c00), omv),
-                        __fmul_rn(__fsub_rn(c11, c10), fv));
-      gy[i] = __fadd_rn(__fmul_rn(__fsub_rn(c10, c00), omu),
-                        __fmul_rn(__fsub_rn(c11, c01), fu));
+      put(gx + i, __fadd_rn(__fmul_rn(__fsub_rn(c01, c00), omv),
+                            __fmul_rn(__fsub_rn(c11, c10), fv)));
+      put(gy + i, __fadd_rn(__fmul_rn(__fsub_rn(c10, c00), omu),
+                            __fmul_rn(__fsub_rn(c11, c01), fu)));
     }
   }
 }
 
-template <bool GRADS>
+template <bool GRADS, typename G>
 __global__ void __launch_bounds__(kTileW * kMaxWarps) gather_tiles_kernel(
     const float* __restrict__ F, const int* __restrict__ v0,
     const float* __restrict__ dv, const int* __restrict__ u0,
     const float* __restrict__ du, float* __restrict__ out,
-    float* __restrict__ gx, float* __restrict__ gy, int H, int W, int C, int Hs,
+    G* __restrict__ gx, G* __restrict__ gy, int H, int W, int C, int Hs,
     int Ws, int capacity) {
   extern __shared__ float box[];
   __shared__ int partial[4][kMaxWarps];
@@ -217,15 +228,15 @@ __global__ void __launch_bounds__(kTileW * kMaxWarps) gather_tiles_kernel(
     __syncthreads();
     if (live) {
       const float* p0 = box + (vi - vlo) * run + (ui - ulo) * C;
-      blend<GRADS>(p0, p0 + run, C, fu, fv, o, N, out, gx, gy);
+      blend<GRADS, G>(p0, p0 + run, C, fu, fv, o, N, out, gx, gy);
     }
   } else if (live) {
     const float* p0 = F + (((long long)b * H + vi) * W + ui) * C;
-    blend<GRADS>(p0, p0 + (long long)W * C, C, fu, fv, o, N, out, gx, gy);
+    blend<GRADS, G>(p0, p0 + (long long)W * C, C, fu, fv, o, N, out, gx, gy);
   }
 }
 
-template <bool GRADS>
+template <bool GRADS, typename G>
 int launch(const TilesArgs& a) {
   if (a.B == 0 || a.Hs == 0 || a.Ws == 0) return 0;
   if (a.tile_h < 1 || a.tile_h > kMaxWarps || a.capacity < 0 ||
@@ -235,7 +246,7 @@ int launch(const TilesArgs& a) {
   if (!carveout_set) {
     // ask for the largest shared-memory carveout: several 30 KB CTAs per SM
     const cudaError_t e = cudaFuncSetAttribute(
-        gather_tiles_kernel<GRADS>,
+        gather_tiles_kernel<GRADS, G>,
         cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
@@ -243,10 +254,10 @@ int launch(const TilesArgs& a) {
   }
   const dim3 block(kTileW, a.tile_h);
   const dim3 grid((a.Ws + kTileW - 1) / kTileW, (a.Hs + a.tile_h - 1) / a.tile_h, a.B);
-  gather_tiles_kernel<GRADS><<<grid, block, (size_t)a.capacity * sizeof(float),
-                               (cudaStream_t)a.stream>>>(
-      a.F, a.v0, a.dv, a.u0, a.du, a.out, a.gx, a.gy, a.H, a.W, a.C, a.Hs, a.Ws,
-      a.capacity);
+  gather_tiles_kernel<GRADS, G><<<grid, block, (size_t)a.capacity * sizeof(float),
+                                  (cudaStream_t)a.stream>>>(
+      a.F, a.v0, a.dv, a.u0, a.du, a.out, static_cast<G*>(a.gx), static_cast<G*>(a.gy), a.H,
+      a.W, a.C, a.Hs, a.Ws, a.capacity);
   return (int)cudaGetLastError();
 }
 
@@ -667,5 +678,8 @@ extern "C" int gather_tiles_launch(const TilesArgs* a) {
                                      : ring::launch<1>(*a, capacity);
 }
 
-// As gather_tiles_launch, with the derivative maps gx, gy.
-extern "C" int gather_tiles_grads_launch(const TilesArgs* a) { return launch<true>(*a); }
+// As gather_tiles_launch, with the derivative maps gx, gy (bfloat16 where
+// a->bf16).
+extern "C" int gather_tiles_grads_launch(const TilesArgs* a) {
+  return a->bf16 ? launch<true, __nv_bfloat16>(*a) : launch<true, float>(*a);
+}

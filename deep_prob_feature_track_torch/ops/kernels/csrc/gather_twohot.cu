@@ -72,13 +72,22 @@
 // min/max of the warped sigma, and a last-bit difference would change which
 // pixels are masked.  gx and gy follow the plain version's order in the
 // same way.
+//
+// K2's bf16 mode (the training mode bf16_residuals, the JAX package's
+// DPFT_BF16_RESIDUALS=1): gx and gy are stored as bfloat16, each computed in
+// float32 as above and rounded once, at the store, with __float2bfloat16_rn
+// (to nearest even, as torch's .to(torch.bfloat16) and JAX's
+// astype(bfloat16) round), so they are the bits of the float32 maps cast
+// after.  The scattered path's tiles stay float32.  A (b, c, n) then writes
+// 4 + 2 + 2 bytes instead of 12; nothing else changes.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // The launch functions' one argument each; ops/kernels/gather.py packs
 // GatherArgs with the struct format "6P5iP", ops/kernels/gather_grads.py
-// GatherGradsArgs with "8P5iP" (native layout).
+// GatherGradsArgs with "8P6iP" (native layout).
 struct GatherArgs {
   const float* F;  // [B,H,W,C]
   const int* v0;   // [B,N]
@@ -97,9 +106,10 @@ struct GatherGradsArgs {
   const int* u0;
   const float* du;
   float* out;  // [B,C,N], as gx and gy
-  float* gx;
-  float* gy;
+  void* gx;    // float, or __nv_bfloat16 where bf16
+  void* gy;
   int B, H, W, C, N;
+  int bf16;  // store gx and gy as bfloat16
   void* stream;
 };
 
@@ -134,6 +144,10 @@ __device__ __forceinline__ float grad_v(float c00, float c01, float c10,
   return __fadd_rn(__fmul_rn(__fsub_rn(c10, c00), w.z),
                    __fmul_rn(__fsub_rn(c11, c01), w.x));
 }
+
+// a derivative map's store: float as it is, bfloat16 rounded to nearest even
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 size_t shared_bytes(int run, int C) {
   return (size_t)run * (sizeof(float4) + sizeof(int) + sizeof(float) * (C | 1));
@@ -229,12 +243,12 @@ size_t grads_shared_bytes(int C) {
          (size_t)3 * grads_chunk(C) * sizeof(float) * (C | 1);
 }
 
-template <int VEC>
+template <int VEC, typename G>
 __global__ void __launch_bounds__(kGradsRun) gather_twohot_grads_kernel(
     const float* __restrict__ F, const int* __restrict__ v0,
     const float* __restrict__ dv, const int* __restrict__ u0,
     const float* __restrict__ du, float* __restrict__ out,
-    float* __restrict__ gx, float* __restrict__ gy, int H, int W, int C, int N,
+    G* __restrict__ gx, G* __restrict__ gy, int H, int W, int C, int N,
     int chunk) {
   extern __shared__ float4 smem[];
   const int S = kGradsRun;
@@ -278,17 +292,17 @@ __global__ void __launch_bounds__(kGradsRun) gather_twohot_grads_kernel(
           const float2 f = __ldg(reinterpret_cast<const float2*>(p + c + WC));
           const float2 h = __ldg(reinterpret_cast<const float2*>(p + c + WC + C));
           out[i] = blend(a.x, e.x, f.x, h.x, w);
-          gx[i] = grad_u(a.x, e.x, f.x, h.x, w);
-          gy[i] = grad_v(a.x, e.x, f.x, h.x, w);
+          put(gx + i, grad_u(a.x, e.x, f.x, h.x, w));
+          put(gy + i, grad_v(a.x, e.x, f.x, h.x, w));
           out[i + N] = blend(a.y, e.y, f.y, h.y, w);
-          gx[i + N] = grad_u(a.y, e.y, f.y, h.y, w);
-          gy[i + N] = grad_v(a.y, e.y, f.y, h.y, w);
+          put(gx + i + N, grad_u(a.y, e.y, f.y, h.y, w));
+          put(gy + i + N, grad_v(a.y, e.y, f.y, h.y, w));
         } else {
           const float a = __ldg(p + c), e = __ldg(p + c + C), f = __ldg(p + c + WC),
                       h = __ldg(p + c + WC + C);
           out[i] = blend(a, e, f, h, w);
-          gx[i] = grad_u(a, e, f, h, w);
-          gy[i] = grad_v(a, e, f, h, w);
+          put(gx + i, grad_u(a, e, f, h, w));
+          put(gy + i, grad_v(a, e, f, h, w));
         }
       }
     }
@@ -335,30 +349,39 @@ __global__ void __launch_bounds__(kGradsRun) gather_twohot_grads_kernel(
     // thread x = which * n + sm stores output `which` of sample sm
     for (int x = t; x < 3 * n; x += S) {
       const int which = x / n, sm = x - which * n;
-      float* dst = which == 0 ? out : which == 1 ? gx : gy;
       const float* r = tiles + which * plane + sm * Cp;
       const long long o = ob + c0 + sm;
-      for (int c = 0; c < C; ++c) dst[o + (long long)c * N] = r[c];
+      if (which == 0) {
+        for (int c = 0; c < C; ++c) out[o + (long long)c * N] = r[c];
+      } else {
+        G* dst = which == 1 ? gx : gy;
+        for (int c = 0; c < C; ++c) put(dst + o + (long long)c * N, r[c]);
+      }
     }
     __syncthreads();
   }
 }
 
-template <int VEC>
+template <int VEC, typename G>
 int launch_grads(const GatherGradsArgs& a, size_t shared) {
   static size_t opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (shared > opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gather_twohot_grads_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gather_twohot_grads_kernel<VEC, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)shared);
     if (e != cudaSuccess) return (int)e;
     opted_in = shared;
   }
   const dim3 grid((a.N + kGradsRun - 1) / kGradsRun, a.B);
-  gather_twohot_grads_kernel<VEC><<<grid, kGradsRun, shared, (cudaStream_t)a.stream>>>(
-      a.F, a.v0, a.dv, a.u0, a.du, a.out, a.gx, a.gy, a.H, a.W, a.C, a.N,
-      grads_chunk(a.C));
+  gather_twohot_grads_kernel<VEC, G><<<grid, kGradsRun, shared, (cudaStream_t)a.stream>>>(
+      a.F, a.v0, a.dv, a.u0, a.du, a.out, static_cast<G*>(a.gx), static_cast<G*>(a.gy), a.H,
+      a.W, a.C, a.N, grads_chunk(a.C));
   return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int launch_grads(const GatherGradsArgs& a, size_t shared) {
+  return a.bf16 ? launch_grads<VEC, __nv_bfloat16>(a, shared) : launch_grads<VEC, float>(a, shared);
 }
 
 }  // namespace
@@ -375,8 +398,9 @@ extern "C" int gather_twohot_launch(const GatherArgs* a) {
   return launch<1>(*a, run, shared);
 }
 
-// As gather_twohot_launch, with the derivative maps gx and gy: a C whose
-// tiles do not fit shared memory (C > ~590) is refused.
+// As gather_twohot_launch, with the derivative maps gx and gy (bfloat16
+// where a->bf16): a C whose tiles do not fit shared memory (C > ~590) is
+// refused.
 extern "C" int gather_twohot_grads_launch(const GatherGradsArgs* a) {
   if (a->B == 0 || a->N == 0 || a->C == 0) return 0;
   const size_t shared = grads_shared_bytes(a->C);

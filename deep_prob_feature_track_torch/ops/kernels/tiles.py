@@ -10,7 +10,8 @@ Replaces ``deep_prob_feature_track_tpu/ops/pallas/gather_tiles.py``:
     F [B,H,W,C] f32, v0/u0 [B,Hs,Ws] int32 corner starts in [0, size-2],
     dv/du [B,Hs,Ws] f32 fractional weights
         ->  out [B,C,Hs*Ws] f32 in raster sample order
-            (the grads variant: (out, gx, gy), each [B,C,Hs*Ws])
+            (the grads variant: (out, gx, gy), each [B,C,Hs*Ws]; with
+            ``bf16=True`` gx and gy bfloat16, K2's bf16 mode)
 
 The functions are K1's and K2's on a 2-D sample grid, so the plain versions
 flatten the maps and call K1's and K2's plain versions.  The kernels
@@ -73,7 +74,7 @@ def has_window(W: int, C: int) -> bool:
     return W * C % 32 == 0 and (tile_rows(C) + 3) * 32 * window_chunks(C) <= BOX_FLOATS
 
 
-_LAUNCH = {name: loader.launcher(name, f"{name}_launch", "8P8iP")
+_LAUNCH = {name: loader.launcher(name, f"{name}_launch", "8P9iP")
            for name in ("gather_tiles", "gather_tiles_grads")}
 # kernel -> (tile rows, floats of a box buffer) at C channels
 _TILING = {"gather_tiles": lambda C: (tile_rows(C), BOX_FLOATS),
@@ -142,9 +143,9 @@ def gather_tiles_ref(F, v0, dv, u0, du):
     return gather_twohot_ref(F, *_flat(v0, dv, u0, du))
 
 
-def gather_tiles_grads_ref(F, v0, dv, u0, du):
+def gather_tiles_grads_ref(F, v0, dv, u0, du, bf16: bool = False):
     """Plain PyTorch version: K2's plain version on the flattened maps."""
-    return gather_twohot_grads_ref(F, *_flat(v0, dv, u0, du))
+    return gather_twohot_grads_ref(F, *_flat(v0, dv, u0, du), bf16)
 
 
 def check_args(F, v0, dv, u0, du):
@@ -167,18 +168,20 @@ def check_args(F, v0, dv, u0, du):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name, n_out, F, v0, dv, u0, du):
-    """Check the arguments, allocate ``n_out`` outputs [B,C,Hs*Ws] and
-    launch kernel ``name``; returns the outputs."""
+def _launch(name, n_out, F, v0, dv, u0, du, bf16=False):
+    """Check the arguments, allocate ``n_out`` outputs [B,C,Hs*Ws] (the
+    derivative maps bfloat16 where ``bf16``) and launch kernel ``name``;
+    returns the outputs."""
     dims = cuda_dims(F, v0, dv, u0, du, maps_ndim=3)
     if dims is None:
         raise_bad_args(f"{name}_cuda", check_args, F, v0, dv, u0, du)
     B, H, W, C, Hs, Ws = dims
     # separate buffers: the training backward keeps gx and gy alive, not out
-    outs = [F.new_empty((B, C, Hs * Ws)) for _ in range(n_out)]
+    outs = [F.new_empty((B, C, Hs * Ws), dtype=torch.bfloat16 if bf16 and i else torch.float32)
+            for i in range(n_out)]
     ptrs = [o.data_ptr() for o in outs] + [0] * (3 - n_out)
     _LAUNCH[name](F.data_ptr(), v0.data_ptr(), dv.data_ptr(), u0.data_ptr(), du.data_ptr(),
-                  *ptrs, B, H, W, C, Hs, Ws, *_TILING[name](C),
+                  *ptrs, B, H, W, C, Hs, Ws, *_TILING[name](C), int(bf16),
                   loader.raw_stream(F.get_device()))
     return outs
 
@@ -188,9 +191,9 @@ def gather_tiles_cuda(F, v0, dv, u0, du):
     return _launch("gather_tiles", 1, F, v0, dv, u0, du)[0]
 
 
-def gather_tiles_grads_cuda(F, v0, dv, u0, du):
+def gather_tiles_grads_cuda(F, v0, dv, u0, du, bf16: bool = False):
     """Launch K5; every tensor must lie on the same card."""
-    return tuple(_launch("gather_tiles_grads", 3, F, v0, dv, u0, du))
+    return tuple(_launch("gather_tiles_grads", 3, F, v0, dv, u0, du, bf16))
 
 
 def gather_tiles(F, v0, dv, u0, du):
@@ -201,12 +204,12 @@ def gather_tiles(F, v0, dv, u0, du):
     return gather_tiles_ref(F, v0, dv, u0, du)
 
 
-def gather_tiles_grads(F, v0, dv, u0, du):
+def gather_tiles_grads(F, v0, dv, u0, du, bf16: bool = False):
     """K5 on CUDA tensors, its plain version on CPU tensors."""
     if F.is_cuda:
-        return gather_tiles_grads_cuda(F, v0, dv, u0, du)
+        return gather_tiles_grads_cuda(F, v0, dv, u0, du, bf16)
     check_args(F, v0, dv, u0, du)
-    return gather_tiles_grads_ref(F, v0, dv, u0, du)
+    return gather_tiles_grads_ref(F, v0, dv, u0, du, bf16)
 
 
 def _tile_boxes(v0, u0, H: int, W: int, th: int):

@@ -25,6 +25,15 @@ The ``tr_*_residual`` functions give each track's average residual at a
 fixed pose (``residuals.compute_avg_loss``), for the convergence-basin
 study: one K1 for U_IC, U_FC and ICP, two for U_IC with the ICP term and
 for IC (whose learned M-estimator may warp more).
+
+A training mode of the level solves, off by default: ``remat`` runs each
+Gauss-Newton iteration under a checkpoint (:func:`_iterate`, the JAX
+package's ``DPFT_TRAIN_LOOP=scan_remat``), so the backward recomputes the
+iteration (its K2/K5 and K6 launch again) instead of keeping its
+activations.  The JAX package can checkpoint only
+loops whose body applies no bound flax module, and unrolls the IC loop
+with a damping MLP and the U_FC loop with a learned M-estimator; a
+PyTorch replay runs the same ops again, so every loop here takes it.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from ..geometry import warp as W
 from ..geometry.lie import compose, exp_so3
 from ..ops.image import compute_normal, sobel_gradients
 from ..ops.solver6 import lev_mar_damp, solve_chol
+from ..utils.remat import checkpointed
 from . import icp as icp_mod
 from .jacobians import (
     FactoredJtJ,
@@ -56,6 +66,15 @@ from .residuals import (
     make_ic_operands,
     warped_residual,
 )
+
+
+def _iterate(body, carry, max_iter: int, remat: bool):
+    """``carry = body(i, carry)`` for ``i < max_iter``: the Gauss-Newton
+    loop of every level solve (the JAX ``run_gn_iterations``); with
+    ``remat`` each iteration runs under a checkpoint (``utils/remat.py``)."""
+    for i in range(max_iter):
+        carry = checkpointed(body, i, carry, enabled=remat)
+    return carry
 
 
 def inverse_update_pose(H, rhs, pose):
@@ -155,7 +174,7 @@ def tr_uic_level(
     depth0=None, depth1=None, obj_mask0=None, obj_mask1=None,
     max_iter: int = 3, remove_tru_sigma: bool = False,
     icp_sigma: icp_mod.ICPSigmaModel = icp_mod.ICPSigmaModel(), plain: bool = False,
-    scale_fn=None, w_prior=None,
+    scale_fn=None, w_prior=None, remat: bool = False,
 ):
     """One pyramid level of the U_IC solver, ``max_iter`` GN iterations.
 
@@ -173,6 +192,7 @@ def tr_uic_level(
     the launches stay one gather per warp.
 
     :param plain: use the kernels' plain versions on any device
+    :param remat: checkpoint each iteration (:func:`_iterate`)
     :return: ``(pose, weights, JtWJ)``: the weights are the ICP weights,
         or ones without them; JtWJ is the last iteration's system
     """
@@ -201,8 +221,8 @@ def tr_uic_level(
         first = (feature_residual(pose), icp_residual(pose))
         w_icp = scale_fn(first[1][0], first[0].weighted_res, w_prior)
 
-    JtWJ = torch.zeros((B, 6, 6), dtype=x0.dtype, device=x0.device)
-    for i in range(max_iter):
+    def iteration(i, carry):
+        pose = carry[0]
         out = first[0] if i == 0 and combine_icp else feature_residual(pose)
         fac = uic_factors(pre, out.res, out.sigma, sigma0)
         JtWJ, JtR = jtj_jtr(fac, out.weighted_res, plain=plain)
@@ -212,7 +232,10 @@ def tr_uic_level(
                                                    w_icp * icp_res)
             JtWJ = JtWJ + icp_JtJ
             JtR = JtR + icp_JtR
-        pose = inverse_update_pose(lev_mar_damp(JtWJ), JtR, pose)
+        return inverse_update_pose(lev_mar_damp(JtWJ), JtR, pose), JtWJ
+
+    JtWJ = torch.zeros((B, 6, 6), dtype=x0.dtype, device=x0.device)
+    pose, JtWJ = _iterate(iteration, (pose, JtWJ), max_iter, remat)
     return pose, (w_icp if combine_icp else torch.ones_like(x0)), JtWJ
 
 
@@ -256,7 +279,7 @@ def tr_ic_residual(pose, x0, x1, invD0, invD1, K, mest_fn, w_prior=None, obj_mas
 
 def tr_ic_level(pose, x0, x1, invD0, invD1, K, mest_fn, solver: DirectSolver,
                 w_prior=None, obj_mask0=None, obj_mask1=None, max_iter: int = 3,
-                plain: bool = False):
+                plain: bool = False, remat: bool = False):
     """One pyramid level of the IC track: the template Jacobian and the
     M-estimator weights come from the residual at the incoming pose; each
     iteration solves, then takes the residual at the new pose.  The last
@@ -267,7 +290,7 @@ def tr_ic_level(pose, x0, x1, invD0, invD1, K, mest_fn, solver: DirectSolver,
     The first residual takes both object masks; the residuals of the
     iterations and of the damping samples take ``obj_mask1`` alone, as in
     the JAX function.  The frame-1 mask warps in a gather of its own (one
-    more K1 a residual).
+    more K1 a residual).  ``remat`` as in :func:`tr_uic_level`.
 
     :return: ``(pose, weights, JtWJ)``
     """
@@ -292,11 +315,15 @@ def tr_ic_level(pose, x0, x1, invD0, invD1, K, mest_fn, solver: DirectSolver,
             return jtr_only(pre.fac, res, weights=weights)
 
         sample_fns = (residual_fn, jtr_fn)
-    for i in range(max_iter):
+    def iteration(i, carry):
+        pose, residuals = carry
         JtR = jtr_only(pre.fac, residuals, weights=weights)
         pose = direct_solve(solver, JtWJ, JtR, pose, *sample_fns)
         if i + 1 < max_iter:
             residuals, _ = warped_residual(pose, invD0, x0, px, py, K, operands, plain=plain)
+        return pose, residuals
+
+    pose, _ = _iterate(iteration, (pose, residuals), max_iter, remat)
     return pose, weights, JtWJ
 
 
@@ -346,7 +373,7 @@ def _warp_forward_depth(dpt0, pose, K, dpt_thr: float = 1e-6):
 
 def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: DirectSolver,
                  w_prior=None, obj_mask0=None, obj_mask1=None, max_iter: int = 3,
-                 train: bool = False, plain: bool = False):
+                 train: bool = False, plain: bool = False, remat: bool = False):
     """One level of the forward-compositional uncertainty track (U_FC).
 
     The target's depth, features, sigma and the Sobel gradients of both
@@ -369,6 +396,7 @@ def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: D
         level, once for it and once an iteration.  In eval those weights
         are read only when ``max_iter`` is 0.
     :param plain: use the kernels' plain versions on any device
+    :param remat: as in :func:`tr_uic_level`
     :return: ``(pose, weights, JtWJ)``: the last iteration's weights and
         system
     """
@@ -383,8 +411,9 @@ def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: D
     weights = None
     if train or max_iter == 0:
         weights = mest_fn(torch.zeros_like(x0), x0, x1, w_prior)
-    JtWJ = torch.zeros((B, 6, 6), dtype=x0.dtype, device=x0.device)
-    for _ in range(max_iter):
+
+    def iteration(_, carry):
+        pose = carry[0]
         u, v, dpt_r, depth_valid, u6, v6 = _warp_forward_depth(dpt0, pose, K)
         warped = W.warp_operand(op, sizes, u, v, plain=plain)
         dpt1_w, f_r, sigma_r, a_f, b_f, a_s, b_s = warped[:7]
@@ -403,8 +432,10 @@ def tr_ufc_level(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, mest_fn, solver: D
         weights = mest_fn(weighted_res, x0, x1, w_prior)
         JtWJ, _ = jtj_jtr(fac, weighted_res, weights=weights)
         JtR = jtr_only(fac, weighted_res, weights=weights)
-        pose = _update(solver, lev_mar_damp(JtWJ), JtR, pose)
-    return pose, weights, JtWJ
+        return _update(solver, lev_mar_damp(JtWJ), JtR, pose), weights, JtWJ
+
+    JtWJ = torch.zeros((B, 6, 6), dtype=x0.dtype, device=x0.device)
+    return _iterate(iteration, (pose, weights, JtWJ), max_iter, remat)
 
 
 def tr_ufc_residual(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, obj_mask1=None,
@@ -425,10 +456,11 @@ def tr_ufc_residual(pose, x0, x1, dpt0, dpt1, K, sigma0, sigma1, obj_mask1=None,
 def tr_icp_level(pose, depth0, depth1, K, w_prior=None, obj_mask1=None, max_iter: int = 3,
                  direction: str = "inverse",
                  sigma_model: icp_mod.ICPSigmaModel = icp_mod.ICPSigmaModel(baseline=1.0),
-                 plain: bool = False):
+                 plain: bool = False, remat: bool = False):
     """One level of the stand-alone point-to-plane ICP track, inverse- or
     forward-compositional.  ``obj_mask1`` is taken and ignored, as in the
-    JAX function: the stand-alone ICP track masks no object.
+    JAX function: the stand-alone ICP track masks no object.  ``remat`` as
+    in :func:`tr_uic_level`.
 
     :return: ``(pose, weights, JtJ)``; the weights are ones
     """
@@ -442,19 +474,22 @@ def tr_icp_level(pose, depth0, depth1, K, w_prior=None, obj_mask1=None, max_iter
         "inverse": (icp_mod.icp_residuals_inverse, inverse_update_pose),
         "forward": (icp_mod.icp_residuals_forward, forward_update_pose),
     }[direction]
-    JtJ = torch.zeros((B, 6, 6), dtype=depth0.dtype, device=depth0.device)
-    for _ in range(max_iter):
+    def iteration(_, carry):
+        pose = carry[0]
         res, J, _ = residual_fn(vertex0, vertex1, normal1, pose, K, sigma_model=sigma_model,
                                 warp_op=icp_op, plain=plain)
         JtJ, JtR = icp_mod.icp_jtj_jtr(J, res)
-        pose = update(lev_mar_damp(JtJ), JtR, pose)
+        return update(lev_mar_damp(JtJ), JtR, pose), JtJ
+
+    JtJ = torch.zeros((B, 6, 6), dtype=depth0.dtype, device=depth0.device)
+    pose, JtJ = _iterate(iteration, (pose, JtJ), max_iter, remat)
     return pose, torch.ones_like(depth0), JtJ
 
 
 def tr_icp_point_level(pose, depth0, depth1, K, max_iter: int = 10, dist_thr: float = 0.05,
-                       plain: bool = False):
+                       plain: bool = False, remat: bool = False):
     """One level of forward-compositional point-to-point ICP with
-    projective association.
+    projective association; ``remat`` as in :func:`tr_uic_level`.
 
     :return: ``(pose, JtJ)``
     """
@@ -462,13 +497,15 @@ def tr_icp_point_level(pose, depth0, depth1, K, max_iter: int = 10, dist_thr: fl
     px, py = W.generate_xy_grid(B, H, W_, K)
     vertex0 = W.compute_vertex(depth0, px, py)
     vertex1 = W.compute_vertex(depth1, px, py)
-    JtJ = torch.zeros((B, 6, 6), dtype=depth0.dtype, device=depth0.device)
-    for _ in range(max_iter):
+    def iteration(_, carry):
+        pose = carry[0]
         res, J, _ = icp_mod.icp_residuals_point2point(vertex0, vertex1, pose, K,
                                                       dist_thr=dist_thr, plain=plain)
         JtJ, JtR = icp_mod.icp_p2p_jtj_jtr(J, res)
-        pose = forward_update_pose(lev_mar_damp(JtJ), JtR, pose)
-    return pose, JtJ
+        return forward_update_pose(lev_mar_damp(JtJ), JtR, pose), JtJ
+
+    JtJ = torch.zeros((B, 6, 6), dtype=depth0.dtype, device=depth0.device)
+    return _iterate(iteration, (pose, JtJ), max_iter, remat)
 
 
 def tr_icp_residual(pose, depth0, depth1, K, obj_mask1=None, plain: bool = False):

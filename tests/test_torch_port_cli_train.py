@@ -15,7 +15,9 @@ weights for the loss; tolerances:
 - two steps, a checkpoint, a restore and two more steps against four
   uninterrupted steps: bit for bit on the CPU;
 - a step resumed under another weight decay against optax's chain built
-  with it from the saved moments: atol 1e-6.
+  with it from the saved moments: atol 1e-6;
+- the training memory modes' flags reach the tracker, and a rematted CLI
+  step's checkpoint equals the unrolled one's bit for bit.
 """
 
 import copy
@@ -315,14 +317,17 @@ def _train_args(data_root, tmp_path, *extra):
 def test_train_cli_takes_every_flag_of_the_jax_cli():
     """The JAX train CLI's flags, ``--time`` ("stage timing", never read)
     among them, parse in the port's CLI with the same help; the port adds
-    only ``--device``."""
+    only ``--device`` and the training memory modes, which the JAX CLI
+    takes from environment variables (``--train_loop``,
+    ``--remat_encoder``, ``--bf16_residuals``)."""
     from deep_prob_feature_track_tpu.apps import train as jax_cli
 
     def flags(parser):
         return {s: a for a in parser._actions for s in a.option_strings}
 
     port, ref = flags(ptr.build_argparser()), flags(jax_cli.build_argparser())
-    assert set(port) - set(ref) == {"--device"} and set(ref) <= set(port)
+    assert set(port) - set(ref) == {"--device", "--train_loop", "--remat_encoder",
+                                    "--bf16_residuals"} and set(ref) <= set(port)
     assert port["--time"].help == ref["--time"].help == "stage timing"
     assert ptr.build_argparser().parse_args(["--time"]).time is True
     assert ptr.build_argparser().parse_args([]).time is False
@@ -365,3 +370,40 @@ def test_train_cli_validation_on_tum_stops_as_the_jax_cli(data_root, trainval, n
     with pytest.raises(KeyError, match="epes"):
         ptr.main(_train_args(data_root, tmp_path, "--epochs", "1",
                              "--max_steps_per_epoch", "1"))
+
+
+def test_train_cli_modes_reach_the_tracker_and_keep_the_bits(tmp_path, monkeypatch):
+    """``--train_loop scan_remat --remat_encoder`` set the tracker's
+    ``remat_gn`` and ``remat_encoder``, ``--bf16_residuals`` its
+    ``bf16_residuals``; the rematted CLI's checkpoint after a step is the
+    unrolled CLI's bit for bit."""
+    write_tum_sequence(str(tmp_path / "data" / "seq"), n=6)
+    monkeypatch.setattr(ptum, "TUM_TRAINVAL", {"fx": ["seq"]})
+    monkeypatch.setattr(plogger, "_tb_writer", lambda logdir: None)
+    made = []
+    create = tt.create_train_state
+
+    def recording(net, *a, **kw):
+        made.append((net.remat_gn, net.remat_encoder, net.bf16_residuals))
+        return create(net, *a, **kw)
+
+    monkeypatch.setattr(tt, "create_train_state", recording)
+
+    def run(name, *flags):
+        assert ptr.main(["--data_root", str(tmp_path / "data"), "--keyframes", "1",
+                         "--batch_size", "2", "--image_resize", "0.1", "--epochs", "1",
+                         "--max_steps_per_epoch", "1", "--no_val", "--device", "cpu",
+                         "--checkpoint_folder", str(tmp_path / name), *flags]) == 0
+        (path,) = (tmp_path / name).glob("*/checkpoint_epoch1.pt")
+        return checkpoints.restore_variables(str(path))
+
+    ref = run("unroll")
+    got = run("remat", "--train_loop", "scan_remat", "--remat_encoder")
+    run("bf16", "--bf16_residuals")
+    assert made == [(False, False, False), (True, True, False), (False, False, True)]
+    assert ref["step"] == got["step"] == 1
+    for key, v in ref["net"].items():
+        assert torch.equal(got["net"][key], v), key
+    for i, st in ref["optimizer"]["state"].items():
+        for key, v in st.items():
+            assert torch.equal(got["optimizer"]["state"][i][key], v), (i, key)

@@ -1464,3 +1464,114 @@ def test_guard_skips_a_nan_batch_bit_for_bit_on_card(cuda):
     for i, s in state.optimizer.state_dict()["state"].items():
         for k, v in s.items():
             assert torch.equal(v, opt_before[i][k]), (i, k)
+
+
+# ------------------------------------------------- the training memory modes
+
+
+def _bf16_bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.parametrize("coords", ["random", "smooth", "teleported"])
+@pytest.mark.parametrize("C", [1, 3, 6, 10, 11, 28])
+@pytest.mark.parametrize("offset", [False, True])
+def test_gather_grads_bf16_mode_matches_its_twin(cuda, offset, C, coords):
+    """K2's bf16 mode (``bf16_residuals``), compact and scattered runs,
+    scalar and float2 loads: ``out`` its float32 launch's bits, gx/gy the
+    bits of its plain twin (the float32 maps cast after) and of its own
+    float32 maps cast."""
+    B, H, W, N = FLAT_CASES[1]
+    F = _plane(cuda, B, H, W, C, offset)
+    args = _flat_coords(cuda, B, H, W, N, coords)
+    n0 = tk.LAUNCHES["gather_twohot_grads"]
+    out, gx, gy = tk.gather_twohot_grads(F, *args, True)
+    assert tk.LAUNCHES["gather_twohot_grads"] == n0 + 1
+    out32, gx32, gy32 = tk.gather_twohot_grads(F, *args)
+    ref = tk.gather_twohot_grads_ref(F, *args, True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and gx.dtype == gy.dtype == torch.bfloat16
+    assert torch.equal(out, out32) and torch.equal(out, ref[0])
+    for got, twin, f32 in ((gx, ref[1], gx32), (gy, ref[2], gy32)):
+        assert torch.equal(_bf16_bits(got), _bf16_bits(twin))
+        assert torch.equal(_bf16_bits(got), _bf16_bits(f32.to(torch.bfloat16)))
+
+
+@pytest.mark.parametrize("coords", ["smooth", "global", "mixed"])
+@pytest.mark.parametrize("C", [1, 3, 6, 10, 11, 28])
+def test_gather_tiles_grads_bf16_mode_matches_its_twin(cuda, C, coords):
+    """K5's bf16 mode at 640x480 level 1, staged and global tiles: as K2's."""
+    B, H, W = 4, 240, 320
+    F = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(C)).to(cuda)
+    maps = _tile_maps(cuda, B, H, W, H, W, coords)
+    n0 = tk.LAUNCHES["gather_tiles_grads"]
+    out, gx, gy = tk.gather_tiles_grads(F, *maps, True)
+    assert tk.LAUNCHES["gather_tiles_grads"] == n0 + 1
+    out32, gx32, gy32 = tk.gather_tiles_grads(F, *maps)
+    ref = tk.gather_tiles_grads_ref(F, *maps, True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and gx.dtype == gy.dtype == torch.bfloat16
+    assert torch.equal(out, out32) and torch.equal(out, ref[0])
+    for got, twin, f32 in ((gx, ref[1], gx32), (gy, ref[2], gy32)):
+        assert torch.equal(_bf16_bits(got), _bf16_bits(twin))
+        assert torch.equal(_bf16_bits(got), _bf16_bits(f32.to(torch.bfloat16)))
+
+
+def _modes_step(cuda, modes, B, H, W):
+    """One ``feature`` step on the card with the tracker's training
+    ``modes``: every gradient, parameter, buffer and Adam moment after it,
+    the loss, and the launches."""
+    from deep_prob_feature_track_torch.models.presets import get_preset
+    from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
+    from deep_prob_feature_track_torch.training import train as tt
+
+    cfg = tt.TrainConfig()
+    state = tt.create_train_state(LeastSquareTracking(get_preset("feature"), **modes), cfg,
+                                  seed=1, device=cuda)
+    step = tt.make_train_step(cfg, 100, guard_nonfinite=True)
+    tk.reset_launches()
+    state, metrics = step(state, tt.synthetic_batch(B, H, W, seed=3, device=cuda))
+    torch.cuda.synchronize()
+    out = {f"metric {k}": v.detach().clone() for k, v in metrics.items()}
+    out.update({f"grad {k}": p.grad.clone() for k, p in state.net.named_parameters()})
+    out.update({f"state {k}": v.clone() for k, v in state.net.state_dict().items()})
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam {i} {k}": v.clone() for k, v in st.items()})
+    return out, dict(tk.LAUNCHES)
+
+
+# unrolled launches a step: at 60x80 K2 12 / K3 12 / K6 12; at 96x448 level
+# 0 takes K5 (3) and the others K2 (9)
+MODES_STEPS = {(60, 80): _launches(gather_twohot_grads=12, splat_twohot=12, fused_jtj_jtr=12),
+               (96, 448): _launches(gather_twohot_grads=9, gather_tiles_grads=3, splat_twohot=12,
+                                    fused_jtj_jtr=12)}
+
+
+@pytest.mark.parametrize("encoder", [False, True])
+@pytest.mark.parametrize("H,W", sorted(MODES_STEPS))
+def test_rematted_step_equals_unrolled_step_bit_for_bit_on_card(cuda, H, W, encoder):
+    """``remat_gn`` (and ``remat_encoder``) through the kernels: the step's
+    bits are the unrolled step's (loss, gradients, parameters, BatchNorm
+    statistics, Adam moments, ``skipped``); the replays launch K2/K5 and K6
+    once more an iteration, K3 as often as without them."""
+    ref, launches = _modes_step(cuda, {}, 4, H, W)
+    assert launches == MODES_STEPS[(H, W)]
+    got, launches = _modes_step(cuda, {"remat_gn": True, "remat_encoder": encoder}, 4, H, W)
+    assert launches == {k: n * (1 if k == "splat_twohot" else 2) for k, n in
+                        MODES_STEPS[(H, W)].items()}
+    assert got.keys() == ref.keys()
+    differ = [k for k, v in ref.items() if not torch.equal(got[k], v)]
+    assert not differ, differ
+
+
+def test_bf16_step_against_the_float32_step_on_card(cuda):
+    """``bf16_residuals`` through K2/K5's bf16 mode at 96x448: the same
+    launches and the same loss (the maps reach only the backward), each
+    gradient leaf within 5e-3 of the float32 step's largest entry."""
+    ref, launches = _modes_step(cuda, {}, 4, 96, 448)
+    got, launches_bf16 = _modes_step(cuda, {"bf16_residuals": True}, 4, 96, 448)
+    assert launches_bf16 == launches
+    assert torch.equal(got["metric loss"], ref["metric loss"])
+    for key in (k for k in ref if k.startswith("grad ")):
+        torch.testing.assert_close(got[key], ref[key], rtol=0,
+                                   atol=5e-3 * ref[key].abs().max().item(), msg=key)

@@ -19,6 +19,9 @@ global batch of 4 (2 a rank):
 - one ``accum_steps=2`` step, whose global microbatches of 2 are split 1
   and 1 over the ranks (the JAX scan mode): its loss, gradient norm and
   statistics within 1e-12, its parameters within one update's bound;
+- the two training steps again with ``remat_gn`` and ``remat_encoder``,
+  whose replays in the backward all-reduce BatchNorm's sums once more, in
+  the same order on both ranks: on each rank the unrolled steps' bits;
 - the eval forward's poses, gathered from the ranks, within 1e-12;
 - the sharded pose graph (10 edges, 5 a rank) within 1e-12;
 - the sharded dense window (``tests/test_torch_port_dense_ba.py``'s
@@ -63,9 +66,10 @@ def _global_batch(seed):
             for k, v in tt.synthetic_batch(B, H, W, seed=seed, device="cpu").items()}
 
 
-def _state(accum=1):
+def _state(accum=1, **modes):
     cfg = tt.TrainConfig(accum_steps=accum)
-    net = LeastSquareTracking(get_preset("feature"), plain_kernels=True).reset_parameters(7)
+    net = LeastSquareTracking(get_preset("feature"), plain_kernels=True,
+                              **modes).reset_parameters(7)
     net.double().train()
     return cfg, tt.TrainState(net=net, optimizer=tt.make_optimizer(cfg, net.parameters()))
 
@@ -87,6 +91,19 @@ def _train(mesh):
         state, batch if mesh is None else pmesh.shard_batch(mesh, batch))
     out["accum_loss"], out["accum_norm"] = m["loss"].item(), m["grad_norm"].item()
     out.update({f"accum/{k}": v.numpy() for k, v in state.net.state_dict().items()})
+    return out
+
+
+def _rematted_steps(mesh):
+    """The two steps of :func:`_train` with the rematerialized training
+    modes, on each rank's rows."""
+    out = {}
+    cfg, state = _state(remat_gn=True, remat_encoder=True)
+    step = tt.make_train_step(cfg, 10, mesh=mesh)
+    for i, seed in enumerate(SEEDS):
+        state, m = step(state, pmesh.shard_batch(mesh, _global_batch(seed)))
+        out[f"remat_loss{i}"], out[f"remat_norm{i}"] = m["loss"].item(), m["grad_norm"].item()
+    out.update({f"remat/{k}": v.numpy() for k, v in state.net.state_dict().items()})
     return out
 
 
@@ -146,8 +163,8 @@ def worker(rank: int, port: int, outdir: str) -> None:
     mesh = pmesh.make_mesh("cpu", init_method=f"tcp://localhost:{port}", rank=rank,
                            world_size=WORLD)
     try:
-        out = {**_train(mesh), **_eval_forward(mesh), **_pose_graph(mesh),
-               **_dense(mesh, os.path.join(outdir, "dense.npz"))}
+        out = {**_train(mesh), **_rematted_steps(mesh), **_eval_forward(mesh),
+               **_pose_graph(mesh), **_dense(mesh, os.path.join(outdir, "dense.npz"))}
     finally:
         pmesh.destroy()
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
@@ -312,6 +329,17 @@ def test_training_steps_match_one_process_on_the_global_batch(runs, prefix):
 def test_training_steps_match_the_jax_mesh(runs, prefix):
     ref = {k: v for k, v in runs[1]["jax_mesh"].items() if not k.endswith("num_batches_tracked")}
     _check_training(runs[0][0], ref, prefix)
+
+
+def test_rematted_steps_on_two_ranks_keep_the_unrolled_bits(runs):
+    for got in runs[0]:
+        for i in range(len(SEEDS)):
+            assert got[f"remat_loss{i}"] == got[f"loss{i}"]
+            assert got[f"remat_norm{i}"] == got[f"norm{i}"]
+        keys = [k for k in got if k.startswith("train/")]
+        assert keys
+        for k in keys:
+            np.testing.assert_array_equal(got["remat/" + k[len("train/"):]], got[k], err_msg=k)
 
 
 def _check_eval(got, ref):
