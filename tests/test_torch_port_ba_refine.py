@@ -1,4 +1,6 @@
-"""PyTorch port vs the JAX package: ``apps/ba_refine.py``.
+"""PyTorch port vs the JAX package: ``apps/ba_refine.py``.  That the back
+end's helpers take the card unless asked is held in
+``tests/test_torch_port_ba_refine_helpers.py``.
 
 The fixture is a 640x480 TUM-format sequence of 5 frames
 (``chip_smoke.write_tum_sequence``) read at ``image_resize`` 0.1 (48x64);
@@ -182,27 +184,3 @@ def test_sharded_cli_on_one_rank_writes_the_same_trajectory(tmp_path, sequence, 
     assert not pmesh.dist.is_initialized()  # the CLI tore its group down
     assert (tmp_path / "one.txt").read_bytes() == (tmp_path / "sharded.txt").read_bytes()
     assert len(_stdout_lines(capsys, "[ba_refine] cost")) == 2
-
-
-@pytest.mark.parametrize("call", ["build_window_graph", "track_pairs", "track_window",
-                                  "encode_frames", "resize_batch", "synthetic_batch",
-                                  "example_batch", "warp_residual_mosaic"])
-def test_helpers_run_on_the_card_unless_asked(monkeypatch, call):
-    """The back end's public helpers take the card by default, as the
-    package's entry points do: without one they raise and name
-    ``device='cpu'``, and never fall back to the CPU on their own."""
-    from deep_prob_feature_track_torch.apps import run_example, serve, warping_objects
-    from deep_prob_feature_track_torch.parallel import ba
-    from deep_prob_feature_track_torch.training import train
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    fn = {"build_window_graph": lambda: ba.build_window_graph(np.eye(4)[None], [], []),
-          "track_pairs": lambda: pba.track_pairs(None, [(0, 1)], None),
-          "track_window": lambda: pba.track_window(None, None, 2, 1),
-          "encode_frames": lambda: pba.encode_frames(None, None, 1, 0),
-          "resize_batch": lambda: run_example.resize_batch({}),
-          "synthetic_batch": lambda: train.synthetic_batch(1, 8, 8),
-          "example_batch": lambda: serve.example_batch(1, 8, 8),
-          "warp_residual_mosaic": lambda: warping_objects.warp_residual_mosaic({}, None, "x")}[call]
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        fn()

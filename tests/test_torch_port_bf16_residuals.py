@@ -13,7 +13,7 @@ derivative maps gx/gy in bfloat16, as the JAX package does under
   test_bf16_residuals_gradient_parity`` holds the JAX mode: the operand
   gradient the float32 gather's bit for bit (K3 never reads the maps) and
   the JAX one's within 1e-5 of its largest entry (summation order,
-  ``tests/test_torch_port_train.py``); the coordinate gradients within 4e-3
+  ``tests/test_torch_port_train_kernels.py``); the coordinate gradients within 4e-3
   of the largest entry of the float32 ones and of the JAX bfloat16 ones.
 - Every trained gather of a ``feature_icp``, ``DeepIC`` and U_FC
   ``MultiScale2w`` step (the ICP warp and the learned nets' upsamples too)
@@ -21,7 +21,7 @@ derivative maps gx/gy in bfloat16, as the JAX package does under
   and the setting ends with the forward.
 
 The step against the JAX package's ``DPFT_BF16_RESIDUALS=1`` step is in
-``tests/test_torch_port_bf16_residuals_jax.py``.
+``tests/test_torch_port_train_jax.py``.
 """
 
 import jax

@@ -1,15 +1,12 @@
-"""PyTorch port vs the JAX package: the RPE training loss, SGD, the epoch
-loop, checkpoints and the train CLI.
+"""PyTorch port vs the JAX package: the RPE training loss's backward, SGD,
+the epoch loop, checkpoints and the train CLI.  The RPE loss and its
+gradients against the JAX loss are in ``tests/test_torch_port_train_jax.py``.
 
-B=2 at 32x40 (``synthetic_batch``, seed 3) with the flax ``PRNGKey(7)``
-weights for the loss; tolerances:
+Tolerances:
 
-- the RPE loss of one ``compute_loss``: 1e-4 relative to the JAX loss;
-  each gradient leaf within 5e-3 of the leaf's largest JAX entry, the
-  envelope of 12 chained Gauss-Newton solves
-  (``tests/test_torch_port_train.py``); the wiring of the RPE backward
-  through the custom autograd Functions against autograd through the plain
-  ops, in float64: rtol 1e-6, atol 1e-6 of each leaf's largest entry;
+- the wiring of the RPE backward through the custom autograd Functions
+  against autograd through the plain ops, in float64: rtol 1e-6, atol 1e-6
+  of each leaf's largest entry;
 - three SGD steps against optax's ``trace(0.9)`` chain on fixed gradients:
   atol 1e-6;
 - two steps, a checkpoint, a restore and two more steps against four
@@ -25,7 +22,6 @@ import json
 import os
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -37,7 +33,6 @@ from deep_prob_feature_track_torch.apps import train as ptr
 from deep_prob_feature_track_torch.data import pipeline as pp
 from deep_prob_feature_track_torch.data import tum as ptum
 from deep_prob_feature_track_torch.geometry import warp as tw
-from deep_prob_feature_track_torch.models.from_flax import from_flax
 from deep_prob_feature_track_torch.models.presets import get_preset
 from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
 from deep_prob_feature_track_torch.ops.kernels import FusedJtJ, jtj_jtr_ref
@@ -46,8 +41,6 @@ from deep_prob_feature_track_torch.training import train as tt
 from deep_prob_feature_track_torch.training.train import TrainState
 from deep_prob_feature_track_torch.utils import logger as plogger
 from deep_prob_feature_track_tpu import evaluation as je
-from deep_prob_feature_track_tpu.models import presets as jp
-from deep_prob_feature_track_tpu.models.tracker import LeastSquareTracking as JaxTracker
 from deep_prob_feature_track_tpu.training import train as jt
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -56,47 +49,6 @@ from chip_smoke import write_tum_sequence  # noqa: E402
 torch.set_num_threads(2)
 B, H, W = 2, 32, 40
 RPE = tt.TrainConfig(loss="RPE")
-
-
-@pytest.fixture(scope="module")
-def rpe_loss_and_grads():
-    """JAX and port RPE loss and parameter gradients of one training batch,
-    from the same ``PRNGKey(7)`` weights."""
-    batch = {k: v.numpy() for k, v in tt.synthetic_batch(B, H, W, seed=3, device="cpu").items()}
-    net = JaxTracker(cfg=jp.get_preset("feature"))
-    ins = [jnp.asarray(batch[k]) for k in ("color0", "color1", "depth0", "depth1", "calib")]
-    v = jax.jit(lambda k, *a: net.init(k, *a, train=False))(jax.random.PRNGKey(7), *ins)
-    fn = jax.jit(jax.value_and_grad(
-        lambda p, s, bb: jt.compute_loss(net, jt.TrainConfig(loss="RPE"), p, s, bb),
-        has_aux=True))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("DPFT_TRAIN_LOOP", "scan_remat")  # compiles faster, same loss
-        (loss_j, _), grads_j = fn(v["params"], v["batch_stats"],
-                                  {k: jnp.asarray(a) for k, a in batch.items()})
-    port = LeastSquareTracking(get_preset("feature"))
-    port.load_state_dict(from_flax(jax.tree.map(np.asarray, dict(v))), strict=True)
-    port.train()
-    loss_t = tt.compute_loss(port, RPE, {k: torch.from_numpy(a) for k, a in batch.items()})
-    loss_t.backward()
-    return {
-        "loss": (loss_t.detach().item(), float(loss_j)),
-        "grads": ({k: p.grad for k, p in port.named_parameters()},
-                  from_flax({"params": jax.tree.map(np.asarray, grads_j)})),
-    }
-
-
-def test_rpe_loss_matches_jax(rpe_loss_and_grads):
-    got, ref = rpe_loss_and_grads["loss"]
-    assert np.isfinite(got) and abs(got - ref) <= 1e-4 * abs(ref), (got, ref)
-
-
-def test_rpe_loss_gradients_match_jax(rpe_loss_and_grads):
-    got, ref = rpe_loss_and_grads["grads"]
-    assert set(got) == set(ref) and len(ref) == 79
-    for key, r in ref.items():
-        r = r.numpy()
-        np.testing.assert_allclose(got[key].numpy(), r, rtol=0,
-                                   atol=5e-3 * max(np.abs(r).max(), 1e-12), err_msg=key)
 
 
 def test_rpe_backward_matches_plain_autograd_in_float64(monkeypatch):

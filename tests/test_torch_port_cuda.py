@@ -21,7 +21,7 @@ options, whose ``uncer_prop`` information matrix is held within 1e-4 of its
 largest entry); one training step through
 the kernels vs through the plain versions: the loss within 1e-5 relative,
 each gradient leaf within 5e-3 of its largest entry (the envelope of 12
-chained Gauss-Newton solves, ``tests/test_torch_port_train.py``).  The
+chained Gauss-Newton solves, ``tests/test_torch_port_train_jax.py``).  The
 U_FC forwards (C=28 and, with the ``feature`` sigma, C=49): kernels
 against plain within 1e-5.  The non-learned baselines: the ICP ones bit
 for bit, the photometric ones (K6) within 1e-4, as the evaluate CLI's

@@ -6,10 +6,12 @@ solve, evaluated and served on the CPU.
 B=2 at 32x40.  Weights are the flax ``PRNGKey(7)`` init carried over by
 ``from_flax``; inputs are those of ``tests/test_golden.py``.  The level
 solves start from a non-identity pose.  Tolerances: atol 1e-5 of the
-largest entry on the modules' outputs, 1e-6 on the align-corners resize,
-equality on the damping samples, atol 1e-5 with rtol 1e-5 on maps and poses,
-1e-5 of the largest entry on the 6x6 systems (their entries reach 1e6 here),
-atol 1e-4 on R and t of the whole forward (the acceptance bound).
+largest entry on the modules' outputs, atol 1e-5 with rtol 1e-5 on maps
+and poses, 1e-5 of the largest entry on the 6x6 systems (their entries
+reach 1e6 here), atol 1e-4 on R and t of the whole forward (the acceptance
+bound).  The
+align-corners resize, the damping samples and the seeded init are held in
+``tests/test_torch_port_deepic_init.py``.
 """
 
 import jax
@@ -25,7 +27,6 @@ from deep_prob_feature_track_torch.models.layers import FcRelu
 from deep_prob_feature_track_torch.models.nets import DampingRegressor, DeepRobustEstimator
 from deep_prob_feature_track_torch.models.presets import get_preset
 from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
-from deep_prob_feature_track_torch.ops.image import bilinear_resize_align
 from deep_prob_feature_track_torch.solvers import jacobians as tjac
 from deep_prob_feature_track_torch.solvers import residuals as tres
 from deep_prob_feature_track_torch.solvers import trust_region as ttr
@@ -37,7 +38,6 @@ from deep_prob_feature_track_tpu.models import nets as jnets
 from deep_prob_feature_track_tpu.models import presets as jp
 from deep_prob_feature_track_tpu.models.import_torch import convert_state_dict
 from deep_prob_feature_track_tpu.models.tracker import LeastSquareTracking as JaxTracker
-from deep_prob_feature_track_tpu.ops import image as jimage
 from deep_prob_feature_track_tpu.solvers import jacobians as jjac
 from deep_prob_feature_track_tpu.solvers import residuals as jres
 from deep_prob_feature_track_tpu.solvers import trust_region as jtr
@@ -185,46 +185,6 @@ def test_average_encoder_has_no_heads_and_matches_flax(models):
     for f, fj in zip(feats, feats_j):
         assert f.shape[1] == 1
         _close(f, fj, rel=1e-5)
-
-
-@pytest.mark.parametrize("size", [(15, 20, 30, 40), (8, 10, 32, 40), (4, 5, 7, 9)])
-def test_bilinear_resize_align_matches_jax(size):
-    h, w, Ho, Wo = size
-    x = np.random.RandomState(h).rand(B, 1, h, w).astype(np.float32)
-    ref = np.asarray(jimage.bilinear_resize_align(jnp.asarray(x), Ho, Wo))
-    for plain in (False, True):
-        got = bilinear_resize_align(torch.from_numpy(x), Ho, Wo, plain=plain)
-        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
-    xt = torch.from_numpy(x)
-    assert bilinear_resize_align(xt, h, w) is xt  # no resize, no gather
-
-
-@pytest.mark.parametrize("samples", [10, 2, 7, 16])
-def test_damping_samples_equal_jax(samples):
-    """The jitted ``jnp.logspace`` of the JAX solve, bit for bit (the eager
-    one differs in the last bit of some samples; ``torch.logspace`` by up
-    to 4.4e-7 relative)."""
-    ref = np.asarray(jax.jit(lambda: jnp.logspace(-5.0, 5.0, samples, dtype=jnp.float32))())
-    got = ttr._lambdas(samples, torch.float32, torch.device("cpu"))
-    assert got.dtype == torch.float32
-    np.testing.assert_array_equal(got.numpy(), ref)
-
-
-def test_seeded_init_draws_every_weight_from_the_seed():
-    """The damping MLP's linears take flax ``Dense``'s init (lecun-normal
-    kernel truncated at 2 std, zero bias) from the seed, whatever the
-    global RNG's state."""
-    torch.manual_seed(0)
-    a = LeastSquareTracking(get_preset("DeepIC")).reset_parameters(5).state_dict()
-    torch.manual_seed(1)
-    b = LeastSquareTracking(get_preset("DeepIC")).reset_parameters(5).state_dict()
-    for k in a:
-        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, msg=k)
-    for i, fan_in in enumerate((6 * S + 36, 128, 256)):
-        w = a[f"solver_func.net.{i}.0.weight"]
-        std = 1.0 / np.sqrt(fan_in) / 0.87962566103423978
-        assert w.abs().max() <= 2 * std and w.std() > 0.5 * std
-        assert torch.equal(a[f"solver_func.net.{i}.0.bias"], torch.zeros(w.shape[0]))
 
 
 # ------------------------------------------------------ the resvol solve

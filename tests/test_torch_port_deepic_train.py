@@ -18,7 +18,7 @@ own float64 ones, and the port's float32 poses 6.9e-7.
 Tolerances: the loss within 1e-4 relative of the JAX loss; each gradient
 leaf of the encoder and the M-estimator within 5e-3 of the leaf's largest
 JAX entry, the envelope of 12 chained Gauss-Newton solves that
-``tests/test_torch_port_train.py`` holds the ``feature`` preset to.  The
+``tests/test_torch_port_train_jax.py`` holds the ``feature`` preset to.  The
 damping MLP's float32 gradient leaves are 1.5e-2 to 7.2e-2 of their
 largest entry from the float64 gradient, and so is the port's own float32
 run from its float64 run: the damping reaches the loss through the solves

@@ -5,7 +5,7 @@ B=2 at 32x40 on ``synthetic_batch`` seed 5, with the port's seeded weights
 (seed 7) carried to flax by the JAX package's ``convert_state_dict``.
 Tolerances: the loss within 1e-4 relative of the JAX loss; each gradient leaf within 5e-3 of the leaf's
 largest JAX entry, the envelope of 12 chained Gauss-Newton solves that
-``tests/test_torch_port_train.py`` holds the ``feature`` preset to.
+``tests/test_torch_port_train_jax.py`` holds the ``feature`` preset to.
 """
 
 import jax

@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: the encoder's feature heads and sigma
-types, their weight bridge, the sigma slimming and the U_FC forward with
-the non-broadcast ``feature`` sigma (a C=49 warp operand), on the CPU.
+types, their weight bridge and the U_FC forward with the non-broadcast
+``feature`` sigma (a C=49 warp operand), on the CPU.  The sigma slimming is
+held in ``tests/test_torch_port_heads_slim.py``.
 
 Each head is held against the JAX ``FeaturePyramid`` with its flax
 ``PRNGKey(0)`` init carried over by ``from_flax``, as
@@ -171,20 +172,6 @@ def test_seeded_init_draws_the_1by1_head_xavier_uniform():
         # bound; lecun-normal (truncated at 2 std) puts 5% there at c=128
         assert 0.12 < (w.abs() > 0.8 * bound).float().mean() < 0.3
         assert torch.equal(a[f"encoder.f_conv{i}.bias"], torch.zeros(8))
-
-
-@pytest.mark.parametrize("uncertainty_type,kept", [("feature", 8), ("laplacian", 1),
-                                                   ("sigmoid", 1), ("identity", 1)])
-def test_slim_sigma_keeps_a_non_broadcast_sigma_whole(uncertainty_type, kept):
-    """Only the broadcast sigma types are slimmed to one channel: the
-    ``feature`` sigma has a head per channel and keeps all 8."""
-    cfg = tp.apply_overrides(tp.get_preset("feature"), [f"uncertainty_type={uncertainty_type}"])
-    net = LeastSquareTracking(cfg)
-    sigmas = [torch.rand(B, 8, 16 >> i, 20 >> i) for i in range(4)]
-    slim = net._slim_sigma(sigmas)
-    assert [s.shape[1] for s in slim] == [kept] * 4
-    for s, full in zip(slim, sigmas):
-        assert torch.equal(s, full[:, :kept])
 
 
 class _Float64Numpy:

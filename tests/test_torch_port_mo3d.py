@@ -8,8 +8,9 @@ at the odd size 97x131 (``mask="P"``: palette masks, read as PIL reads
 their indices), with both packages' ``CATEGORIES`` patched to a few
 sequences.  Tolerances:
 
-- dataset items, ``BatchLoader`` batches and the PIL-rule nearest resize:
-  bit for bit (colour, depth, masks, ``transform``, ``calib``, names);
+- dataset items and ``BatchLoader`` batches: bit for bit (colour, depth,
+  masks, ``transform``, ``calib``, names; the PIL-rule nearest resize they
+  take is held to PIL in ``tests/test_torch_port_mo3d_resize.py``);
 - ``evaluate_two_view`` and the evaluate CLI, with the port's seeded
   weights carried to flax (``convert_state_dict``): per-frame R and t atol
   1e-5, EPE3D and translation error rtol 1e-5, the angle error within the
@@ -39,7 +40,6 @@ from PIL import Image
 
 from deep_prob_feature_track_torch import evaluation as pe
 from deep_prob_feature_track_torch.apps import evaluate as pev
-from deep_prob_feature_track_torch.data import io as pio
 from deep_prob_feature_track_torch.data import moving_objects as pmo
 from deep_prob_feature_track_torch.data import pipeline as pp
 from deep_prob_feature_track_torch.data.loader import load_data
@@ -113,28 +113,6 @@ def _equal_items(a, b):
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
         else:
             assert a[key] == b[key], key
-
-
-# ----------------------------------------------------------- decode rules
-
-
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
-@pytest.mark.parametrize("size,out", [((480, 640), (120, 160)), ((480, 640), (240, 320)),
-                                      ((97, 131), (24, 33)), ((97, 131), (48, 66)),
-                                      ((689, 564), (230, 188)), ((104, 182), (31, 55))])
-def test_resize_nearest_pil_matches_pil(size, out, dtype):
-    """PIL picks other source pixels for 8-bit and 16-bit images where the
-    step is not exact; both against PIL, on images that hold their own
-    coordinates."""
-    h, w = size
-    yy, xx = np.mgrid[0:h, 0:w]
-    img = ((yy * 7 + xx * 3) % (251 if dtype == np.uint8 else 65521)).astype(dtype)
-    pil = Image.fromarray(img) if dtype == np.uint8 else \
-        Image.fromarray(img.astype(np.int32), mode="I").convert("I;16")
-    ref = np.asarray(pil.resize((out[1], out[0]), Image.NEAREST))
-    got = pio.resize_nearest_pil(img, *out)
-    assert got.dtype == ref.dtype
-    np.testing.assert_array_equal(got, ref)
 
 
 # ---------------------------------------------------------------- items

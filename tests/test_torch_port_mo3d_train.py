@@ -13,7 +13,7 @@ draws none (ROADMAP, deviations).  Tolerances: the first step's loss within
 outside the object) rounding alone moves the float32 loss 6.8e-5 (the
 port) and 7.2e-5 (JAX) from the port's float64 loss, on either side of it;
 the second's within 1e-3 (after one Adam step from gradients that agree
-within the 5e-3 envelope of ``tests/test_torch_port_train.py``).
+within the 5e-3 envelope of ``tests/test_torch_port_train_jax.py``).
 """
 
 import os

@@ -2,7 +2,7 @@
 ``feature`` preset (the object's relative motion, MovingObjects3D's loss).
 
 B=2 at 32x40 on ``synthetic_batch``'s smooth scene (seed 3, that of
-``tests/test_torch_port_train.py``) with the object masks of
+``tests/test_torch_port_train_jax.py``) with the object masks of
 ``tests/test_torch_port_objmask.py``; the port's seeded weights (seed 7)
 carried to flax by ``convert_state_dict``.  Both packages pass the masks to
 the tracker and leave the pixels outside the frame-0 object out of the
@@ -12,7 +12,7 @@ Tolerances: the loss within 1e-4 relative of the JAX float32 loss; the
 BatchNorm running statistics rtol 1e-5 (atol 1e-7 near zero).  Each
 gradient leaf within a self-calibrated envelope: 5e-3 of the leaf's
 largest JAX entry (the envelope of 12 chained Gauss-Newton solves,
-``tests/test_torch_port_train.py``), widened to twice the port's own
+``tests/test_torch_port_train_jax.py``), widened to twice the port's own
 float32-to-float64 gap on that leaf where rounding alone moves it further.
 The step launches K2, K3 and K6 12 times each, as unmasked: the mask is the
 C=11 operand's last channel, whose cotangent is zero.

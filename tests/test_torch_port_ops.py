@@ -167,8 +167,11 @@ NEW_MODULES = ("data.association", "data.io", "data.loader", "data.pipeline", "d
 
 
 def _blocked_python(code):
+    """Run ``code`` in a child with ``BLOCKED`` unimportable, on one thread
+    (torch and numpy's BLAS read ``OMP_NUM_THREADS`` at their import)."""
     prelude = (f"import sys\nfor m in {BLOCKED!r}:\n    sys.modules[m] = None\n")
     return subprocess.run([sys.executable, "-c", prelude + code], cwd=REPO,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"},
                           capture_output=True, text=True, timeout=240)
 
 
@@ -311,8 +314,6 @@ def test_mesh_and_scannet_clis_run_on_numpy_alone(tmp_path):
     code = f"""
 import os
 sys.path.insert(0, {REPO!r})
-import torch
-torch.set_num_threads(2)
 import chip_smoke
 from deep_prob_feature_track_torch.apps import ba_refine, evaluate, train
 from deep_prob_feature_track_torch.data import tum

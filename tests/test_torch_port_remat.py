@@ -17,7 +17,7 @@ with gradients to their inputs.  The train CLI's mode flags are held in
 ``tests/test_torch_port_cli_train.py``.
 
 The step against the JAX package's ``DPFT_TRAIN_LOOP=scan_remat`` step is
-in ``tests/test_torch_port_remat_jax.py``.
+in ``tests/test_torch_port_train_jax.py``.
 """
 
 import numpy as np

@@ -1,11 +1,11 @@
-"""PyTorch port vs the JAX package: the tile route (``use_tiles``), the plain
-versions of K4 ``gather_tiles`` and K5 ``gather_tiles_grads``, the warp
-through the route, and the feature preset at 96x448, where level 0 takes
-the tile kernels.
+"""PyTorch port vs the JAX package: the plain versions of K4
+``gather_tiles`` and K5 ``gather_tiles_grads``, the warp through the tile
+route, and the feature preset at 96x448, where level 0 takes the tile
+kernels.  The route itself (``use_tiles``) is held in
+``tests/test_torch_port_tiles_route.py``.
 
 Inputs are made with numpy from seeds.  Tolerances (f32):
 
-- ``use_tiles`` equals the JAX package's route exactly;
 - the plain versions vs the Pallas ``gather_tiles`` / ``gather_tiles_grads``
   in interpret mode: atol 2e-4 (eval) and 4e-4 (grads) of the largest
   reference entry, the bounds of ``tests/test_gather_tiles.py`` (that kernel
@@ -36,46 +36,12 @@ from deep_prob_feature_track_torch.training import train as tt
 from deep_prob_feature_track_tpu.geometry import warp as jw
 from deep_prob_feature_track_tpu.models import presets as jp
 from deep_prob_feature_track_tpu.models.tracker import LeastSquareTracking as JaxTracker
-from deep_prob_feature_track_tpu.ops.pallas import gather as jgather
 from deep_prob_feature_track_tpu.ops.pallas import gather_tiles as jtiles
 from deep_prob_feature_track_tpu.training import train as jt
 
 torch.set_num_threads(2)
 
 KEYS = ("color0", "color1", "depth0", "depth1", "calib")
-
-
-def _levels(H, W):
-    return [(H >> i, W >> i) for i in range(4)]
-
-
-# every pyramid level of 480x640, 120x160 and 96x448; 481x640, which the
-# edge-reach gate rejects; shapes on either side of the lane caps
-ROUTE_SHAPES = (_levels(480, 640) + _levels(120, 160) + _levels(96, 448)
-                + [(481, 640), (72, 96), (64, 240), (64, 288), (64, 408), (200, 700)])
-
-
-@pytest.mark.parametrize("C", [5, 8, 10, 17])
-@pytest.mark.parametrize("kind", ["eval", "grads"])
-def test_use_tiles_matches_jax_route(kind, C):
-    for H, W in ROUTE_SHAPES:
-        for Hs, Ws in ((H, W), (H // 2, W // 2), (15, W), (H, 15)):
-            ref = (not jgather.supported((2, H, W, C), jnp.float32, kind)
-                   and jtiles.supported((2, H, W, C), (2, Hs, Ws), jnp.float32, kind))
-            assert tiles.use_tiles(kind, H, W, C, Hs, Ws) == ref, (H, W, C, Hs, Ws)
-
-
-def test_route_of_the_feature_preset_at_640x480():
-    """The warp operand has C=10 after sigma-slim: level 0 takes K4 / K5,
-    level 1 K1 for eval and K5 for training, levels 2-3 K1 / K2."""
-    routes = [(tiles.use_tiles("eval", h, w, 10, h, w), tiles.use_tiles("grads", h, w, 10, h, w))
-              for h, w in _levels(480, 640)]
-    assert routes == [(True, True), (False, True), (False, False), (False, False)]
-    assert not any(tiles.use_tiles(k, h, w, 10, h, w) for k in ("eval", "grads")
-                   for h, w in _levels(120, 160))
-    assert not tiles.use_tiles("grads", 480, 640, 17, 480, 640)  # XLA in JAX, K2 here
-    with pytest.raises(ValueError):
-        tiles.use_tiles("splat", 480, 640, 10, 480, 640)
 
 
 # ------------------------------------------------ K4 / K5 plain versions

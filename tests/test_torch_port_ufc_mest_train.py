@@ -15,7 +15,7 @@ statistics compound ``1 + max_iter`` updates a level
 
 Tolerances: the port's float32 loss within 1e-4 relative and its
 estimator's running statistics within rtol 1e-5 (atol 1e-7 for entries
-near zero, as ``tests/test_torch_port_train.py`` holds them); the port's
+near zero, as ``tests/test_torch_port_train_jax.py`` holds them); the port's
 plain float64 step: the loss within 1e-9 relative, every running statistic
 within rtol 1e-7 (the bridge ``from_flax`` stores the JAX float64 statistics in
 float32: measured 5.6e-8) and every gradient leaf within 1e-6 of its

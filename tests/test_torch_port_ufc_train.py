@@ -14,7 +14,7 @@ each of the seeds 1, 3, 5 and 7 (the learned estimator's step:
 
 Tolerances, against the JAX float32 loss: the loss within 1e-4 relative;
 each gradient leaf within 5e-3 of its largest JAX entry, the envelope of
-12 chained Gauss-Newton solves (``tests/test_torch_port_train.py``); the
+12 chained Gauss-Newton solves (``tests/test_torch_port_train_jax.py``); the
 BatchNorm running statistics within rtol 1e-5.
 """
 

@@ -3,9 +3,10 @@
 The learned ``ScaleNet`` types, ``SFMPoseNet`` with ``multi_hypo``
 ``None`` / ``average`` and ``res_input``, the ``dense_net`` ``PoseNet``,
 each against its flax module through ``from_flax``; ``no_weight_sharing``'s
-module a level; the learned ICP scale's gathers counted; and every
-``TrackerConfig`` value the JAX package accepts.  The eval forwards of the
-new options are in ``tests/test_torch_port_variants_forward.py``.
+module a level; and the learned ICP scale's gathers counted.  The eval
+forwards of the new options are in
+``tests/test_torch_port_variants_forward.py``, and every ``TrackerConfig``
+value the JAX package accepts in ``tests/test_torch_port_variants_config.py``.
 
 Weights: the port's seeded init carried to the JAX package by its
 ``convert_state_dict`` (no flax init to compile), or for ``PoseNet``, whose
@@ -14,8 +15,6 @@ init carried back by ``from_flax``.  Inputs: seeded numpy arrays at B=2,
 32x40.  Tolerances: 1e-4 on poses (the acceptance bound; measured within
 2e-7), 1e-5 on module outputs.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +26,7 @@ from deep_prob_feature_track_torch.geometry import warp as tw
 from deep_prob_feature_track_torch.models import nets as tn
 from deep_prob_feature_track_torch.models.from_flax import from_flax
 from deep_prob_feature_track_torch.models.presets import apply_overrides, get_preset
-from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking, TrackerConfig
+from deep_prob_feature_track_torch.models.tracker import LeastSquareTracking
 from deep_prob_feature_track_torch.ops.kernels import jtj as kj
 from deep_prob_feature_track_torch.solvers import jacobians as tj
 from deep_prob_feature_track_tpu.models import nets as jn
@@ -272,33 +271,3 @@ def test_learned_scale_gathers_as_pinned(monkeypatch):
         (pyr_t.square().sum() + pyr_R.sum()).backward()
     assert calls == {"gather_twohot_grads": 27, "splat_twohot": 15, "fused_jtj_jtr": 12}
     assert port.scaler_func.net[0][0].weight.grad.abs().max() > 0
-
-
-# every value of every field the JAX package's TrackerConfig accepts
-VALUES = {
-    "encoder_name": ("RGB", "ConvRGBD", "ConvRGBD2", "ICP"),
-    "direction": ("inverse", "forward"),
-    "mest_type": ("None", "Huber", "MultiScale2w"),
-    "solver_type": ("Direct-Nodamping", "Direct-ResVol"),
-    "feature_extract": ("1by1", "conv", "skip", "average", "prob_fuse"),
-    "scaler": ("None", "oneResidual", "twoResidual", "MultiScale2w", "expMultiScale"),
-    "init_pose_type": ("identity", "sfm_net", "dense_net"),
-    "multi_hypo": ("None", "average", "prob_fuse"),
-    "res_input": (False, True),
-    "uncer_prop": (False, True),
-    "no_weight_sharing": (False, True),
-    "combine_icp": (False, True),
-    "train_init_pose": (False, True),
-    "remove_tru_sigma": (False, True),
-}
-
-
-@pytest.mark.parametrize("field", sorted(VALUES))
-def test_every_tracker_config_value_builds(field):
-    for value in VALUES[field]:
-        cfg = dataclasses.replace(TrackerConfig(combine_icp=True), **{field: value})
-        LeastSquareTracking(cfg)
-    with pytest.raises(ValueError):
-        LeastSquareTracking(TrackerConfig(encoder_name="ConvRGBD3"))
-    with pytest.raises(ValueError):
-        LeastSquareTracking(TrackerConfig(init_pose_type="flow_net"))
